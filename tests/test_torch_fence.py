@@ -1,0 +1,51 @@
+"""Import fence: the PyTorch port and chip_smoke.py import no JAX.
+
+Parses every ``.py`` file of ``esmstereo_tpu_torch/`` and ``chip_smoke.py``
+with ``ast`` and fails on any import of ``jax``, ``flax``, ``jaxlib`` or
+``esmstereo_tpu`` (the JAX package), at any depth of the file.
+"""
+
+from __future__ import annotations
+
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = {"jax", "flax", "jaxlib", "esmstereo_tpu"}
+FILES = sorted((ROOT / "esmstereo_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imports(tree: ast.AST):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "id", getattr(node.func, "attr", ""))
+              in ("import_module", "__import__")
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value)
+
+
+def test_fence_covers_the_port():
+    assert (ROOT / "chip_smoke.py").exists()
+    assert len(FILES) > 20
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [m for m in _imports(tree) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_fence_catches_a_jax_import():
+    tree = ast.parse("import os\nfrom esmstereo_tpu.ops import x\n"
+                     "def f():\n    import jax.numpy as jnp\n")
+    found = {m.split(".")[0] for m in _imports(tree)}
+    assert {"esmstereo_tpu", "jax"} <= found
