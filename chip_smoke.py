@@ -3,24 +3,33 @@
 
     python3 chip_smoke.py            # from the root of the repository
 
-Drives the port's main path, eval-mode ESMStereo-L (efficientnet_b2, cv4
-group-wise correlation, 48 bins, fp32) with seeded random weights, and
-holds each hand-written kernel against its plain PyTorch version:
+Drives the port's two paths of eval-mode ESMStereo-L (efficientnet_b2, cv4
+group-wise correlation, 48 bins, fp32) with seeded random weights: the
+default one (kernels A, B, C) and the fused cost-volume section
+(``fuse_volume_agg``, ``fuse_hourglass``, ``fuse_hourglass_up``: kernels A,
+E, G at 3 levels and H at 2 levels). It holds each hand-written kernel
+against its plain PyTorch version:
 
   1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-  2. build the three kernels from ``esmstereo_tpu_torch/csrc`` (one ``nvcc``
-     per source, all at once) and print ``ptxas`` register/spill lines;
+  2. build the four kernel sources from ``esmstereo_tpu_torch/csrc`` (one
+     ``nvcc`` per source, all at once) and print ``ptxas`` register/spill
+     lines;
   3. each kernel and its plain version on the same inputs at the main-path
      shapes (a 540x960 SceneFlow frame padded to 544x992, both eyes):
      max abs / relative error against the stated tolerance, CUDA-event
-     times, the bound from bytes and operations, and for kernel C the time
-     of cuDNN's ``conv3d`` pair as a yardstick (the port never calls it);
-     then each kernel again at small shapes with ragged tiles on every axis;
-  4. the model on the card against the same weights on the CPU (plain
-     versions) on a 128x256 pair;
-  5. launch counters set to 0, then 3 requests served through
-     ``InferenceRunner`` (uint8 540x960 pairs): shape, finiteness and time
-     of each; every kernel must have launched on each request;
+     times, the bound from bytes and operations, and a yardstick the port
+     never calls (cuDNN's convs for C, G and H; kernels B + C for E, whose
+     peak memory must stay below the volume it never allocates); each
+     hourglass level gets unit-normal inputs, and H's check must be able to
+     see its transposed conv; then each kernel again at small shapes with
+     ragged tiles on every axis;
+  4. each path's model on the card against the same weights on the CPU
+     (plain versions) on a 128x256 pair, and so for each ``fuse_*`` switch
+     set alone;
+  5. for each path, launch counters set to 0, then 3 requests served
+     through ``InferenceRunner`` (uint8 540x960 pairs): shape, finiteness
+     and time of each; every kernel of the path must have launched on each
+     request (G at 3 levels, H at 2), and the fused path launches no B or C;
   6. a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and last
      ``{"ok": true, "device": {...}}``.
 
@@ -41,10 +50,10 @@ import numpy as np
 import torch
 
 from esmstereo_tpu_torch.eval.runner import InferenceRunner
-from esmstereo_tpu_torch.models.esmstereo import ESMStereo
+from esmstereo_tpu_torch.models.esmstereo import ESMStereo, ESMStereoConfig
 from esmstereo_tpu_torch.ops.kernels import _build, wrappers
 from esmstereo_tpu_torch.ops.kernels import correlation, fused_agg_stem
-from esmstereo_tpu_torch.ops.kernels import fused_head
+from esmstereo_tpu_torch.ops.kernels import fused_head, fused_hourglass
 from esmstereo_tpu_torch.backbones import fused as fused_backbone
 from esmstereo_tpu_torch.nn import blocks
 
@@ -52,6 +61,8 @@ SEED = 0
 FRAME = (540, 960)            # SceneFlow; the runner pads to 544 x 992
 PADDED = (544, 992)
 REQUESTS = 3
+FUSED = ESMStereoConfig(fuse_volume_agg=True, fuse_hourglass=True,
+                        fuse_hourglass_up=True)
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 rate and fp32 on the
 # CUDA cores (no tensor cores: every kernel of this slice is fp32 FMA).
 HBM_BYTES_PER_S = 3.35e12
@@ -104,9 +115,10 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor,
             f"{name}: shape {tuple(got.shape)}, plain {tuple(want.shape)}")
     require(torch.isfinite(got).all(), f"{name}: non-finite kernel output")
     err = float((got - want).abs().max())
-    scale = max(1.0, float(want.abs().max()))
+    peak = float(want.abs().max())
+    scale = max(1.0, peak)
     print(f"  {name}: max abs err {err:.3e}, relative {err / scale:.3e} "
-          f"(tolerance {rtol:g} relative)")
+          f"(tolerance {rtol:g} relative; max|plain| {peak:.3e})")
     require(err <= rtol * scale,
             f"{name}: kernel disagrees with its plain version")
     return err
@@ -179,7 +191,7 @@ def check_stem_agg(model, volume: torch.Tensor) -> dict:
                                           padding=1)
 
     return {"name": "stem_agg", "route": "cuda",
-            "source": "esmstereo_tpu_torch/csrc/fused_agg_stem.cu",
+            "source": "esmstereo_tpu_torch/csrc/fused_hourglass.cu",
             "replaces": "esmstereo_tpu/ops/pallas/fused_agg_stem.py:162",
             "max_abs_err": err,
             "ms": cuda_ms(lambda: fused_agg_stem.stem_agg(volume, consts,
@@ -189,10 +201,176 @@ def check_stem_agg(model, volume: torch.Tensor) -> dict:
             "bound_ms": bms, "bound_by": by, "library_ms": cuda_ms(library)}
 
 
+def check_volume_stem_agg(model, gen) -> dict:
+    """Kernel E at the main path's shapes: (1, 64, 136, 248) descriptors,
+    48 bins, 32 groups. Beside its time, kernels B + C on the same inputs
+    (the default path's way to the same result). Its peak memory over one
+    call must stay below the (1, 32, 48, 136, 248) volume's bytes."""
+    dev = torch.device("cuda")
+    shape = (1, 64, PADDED[0] // 4, PADDED[1] // 4)
+    ref = torch.randn(shape, generator=gen).to(dev)
+    tgt = torch.randn(shape, generator=gen).to(dev)
+    d, g = model.num_bins, model.config.num_groups
+    consts = fused_agg_stem.prepare_consts(model.group_stem, model.agg)
+    approx = blocks.GELU_APPROXIMATE
+
+    def kernel():
+        return fused_agg_stem.volume_stem_agg(ref, tgt, consts, d, g, approx)
+
+    def plain():
+        return fused_agg_stem.volume_stem_agg_plain(ref, tgt, consts, d, g,
+                                                    approx)
+
+    def b_plus_c():
+        vol = correlation.gwc_volume(ref, tgt, d, g)
+        return fused_agg_stem.stem_agg(vol, consts, approx)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    got = kernel()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    volume_bytes = shape[0] * g * d * shape[2] * shape[3] * 4
+    print(f"  volume_stem_agg: peak {peak / 1e6:.1f} MB over one call; the "
+          f"volume it never allocates: {volume_bytes / 1e6:.1f} MB")
+    require(peak < volume_bytes,
+            "volume_stem_agg allocated as much as the volume")
+    # fp32 sums of 864 and 216 products in another order than cuDNN's
+    err = compare("volume_stem_agg", got, plain(), 1e-4)
+    vox = got.numel() // got.shape[1]
+    co = got.shape[1]
+    flops = (vox * g * (2 * (shape[1] // g) + 1)          # the volume
+             + 2 * vox * 27 * (g * co + co * co))         # group_stem + agg
+    bms, by = bound(nbytes(ref, tgt, *consts.values(), got), flops)
+    return {"name": "volume_stem_agg", "route": "cuda",
+            "source": "esmstereo_tpu_torch/csrc/fused_volume_agg.cu",
+            "replaces": "esmstereo_tpu/ops/pallas/fused_agg_stem.py:323",
+            "max_abs_err": err, "ms": cuda_ms(kernel),
+            "plain_ms": cuda_ms(plain), "bound_ms": bms, "bound_by": by,
+            "library_ms": None, "b_plus_c_ms": cuda_ms(b_plus_c),
+            "peak_mb": peak / 1e6}
+
+
+def level_rows(name: str, source: str, replaces: str, levels) -> dict:
+    """One kernel's row from its per-level rows: times and bounds summed
+    over the levels of one frame, the largest error."""
+    row = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces,
+           "max_abs_err": max(lv["max_abs_err"] for lv in levels)}
+    for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+        row[key] = sum(lv[key] for lv in levels)
+    row["bound_by"] = max(levels, key=lambda lv: lv["bound_ms"])["bound_by"]
+    row["levels"] = levels
+    return row
+
+
+def check_down_pairs(model, gen) -> tuple[dict, list]:
+    """Kernel G at each of the hourglass's 3 down levels at the main path's
+    shapes (level 1 takes kernel C's (1, 8, 48, 136, 248) output shape,
+    each next level the previous one's output shape). Each level gets
+    unit-normal inputs, not the previous level's output: random weights
+    shrink a signal chained through them until a tolerance with a floor of
+    1 cannot see it. Returns the row and the 3 output shapes."""
+    agg = model.aggregation_out
+    approx = blocks.GELU_APPROXIMATE
+    levels, shapes = [], []
+    shape = (1, 8, model.num_bins, PADDED[0] // 4, PADDED[1] // 4)
+    for k in (1, 2, 3):
+        consts = fused_hourglass.prepare_down_consts(
+            getattr(agg, f"conv{k}_0"), getattr(agg, f"conv{k}_1"))
+        x = torch.randn(shape, generator=gen).cuda()
+        got = fused_hourglass.down_pair(x, consts, approx)
+        want = fused_hourglass.down_pair_plain(x, consts, approx)
+        # fp32 sums of up to 27 * 72 products in another order than cuDNN's
+        err = compare(f"down_pair level {k} {tuple(x.shape)}", got, want,
+                      1e-4)
+        ci, co = x.shape[1], got.shape[1]
+        vox = got.numel() // co
+        flops = 2 * vox * co * 27 * (ci + co)
+        bms, by = bound(nbytes(x, *consts.values(), got), flops)
+
+        def library(x=x, c=consts):
+            y = torch.nn.functional.conv3d(x, c["wa"], c["ta"], stride=2,
+                                           padding=1)
+            return torch.nn.functional.conv3d(y, c["wb"], c["tb"], padding=1)
+
+        levels.append({
+            "level": k, "input": list(x.shape), "max_abs_err": err,
+            "ms": cuda_ms(lambda x=x, c=consts: fused_hourglass.down_pair(
+                x, c, approx)),
+            "plain_ms": cuda_ms(lambda x=x, c=consts:
+                                fused_hourglass.down_pair_plain(x, c, approx)),
+            "bound_ms": bms, "bound_by": by, "library_ms": cuda_ms(library)})
+        shapes.append(tuple(got.shape))
+        shape = tuple(got.shape)
+    return level_rows("down_pair", "esmstereo_tpu_torch/csrc/fused_hourglass.cu",
+                      "esmstereo_tpu/attic/fused_hourglass.py:144",
+                      levels), shapes
+
+
+def check_up_pairs(model, gen, downs: list) -> dict:
+    """Kernel H at the hourglass's 2 up levels at the main path's shapes
+    (``downs``, kernel G's 3 output shapes): src conv3 with skip conv2,
+    then src conv2 with skip conv1, each src and skip unit-normal. The
+    plain version with the transposed conv zeroed must lie at least 100
+    tolerances away, so that the comparison sees the transposed conv."""
+    agg = model.aggregation_out
+    approx = blocks.GELU_APPROXIMATE
+    levels = []
+    for k, (names, src_shape, skip_shape) in enumerate(
+            ((("conv3_up", "agg_0_0", "agg_0_1"), downs[2], downs[1]),
+             (("conv2_up", "agg_1_0", "agg_1_1"), downs[1], downs[0])),
+            start=1):
+        consts = fused_hourglass.prepare_up_consts(
+            *(getattr(agg, n) for n in names))
+        src = torch.randn(src_shape, generator=gen).cuda()
+        skip = torch.randn(skip_shape, generator=gen).cuda()
+        got = fused_hourglass.up_pair(src, skip, consts, approx)
+        want = fused_hourglass.up_pair_plain(src, skip, consts, approx)
+        err = compare(f"up_pair level {4 - k}->{3 - k} src "
+                      f"{tuple(src.shape)}", got, want, 1e-4)
+        blind = fused_hourglass.up_pair_plain(src, skip, dict(
+            consts, wu=torch.zeros_like(consts["wu"]),
+            tu=torch.zeros_like(consts["tu"])), approx)
+        gap = float((blind - want).abs().max())
+        print(f"    without the transposed conv the plain version moves "
+              f"{gap:.3e} (at least 100 tolerances: "
+              f"{100 * 1e-4 * max(1.0, float(want.abs().max())):.3e})")
+        require(gap >= 100 * 1e-4 * max(1.0, float(want.abs().max())),
+                "up_pair: the comparison cannot see the transposed conv")
+        ci, co = src.shape[1], got.shape[1]
+        vox = got.numel() // co
+        # the transposed conv's 8 taps per output, the 1x1x1, the 3x3x3
+        flops = 2 * vox * co * (8 * ci + 2 * co + 27 * co)
+        bms, by = bound(nbytes(src, skip, *consts.values(), got), flops)
+        d2, h2, w2 = skip.shape[2:]
+
+        def library(s=src, k_=skip, c=consts):
+            f = torch.nn.functional
+            up = f.conv_transpose3d(s, c["wu"], c["tu"], stride=2,
+                                    padding=1)[:, :, :d2, :h2, :w2]
+            z = f.conv3d(torch.cat([up, k_], dim=1), c["wc"], c["tc"])
+            return f.conv3d(z, c["w3"], c["t3"], padding=1)
+
+        levels.append({
+            "level": f"{4 - k}->{3 - k}", "input": list(src.shape),
+            "skip": list(skip.shape), "max_abs_err": err,
+            "ms": cuda_ms(lambda s=src, k_=skip, c=consts:
+                          fused_hourglass.up_pair(s, k_, c, approx)),
+            "plain_ms": cuda_ms(lambda s=src, k_=skip, c=consts:
+                                fused_hourglass.up_pair_plain(s, k_, c,
+                                                              approx)),
+            "bound_ms": bms, "bound_by": by, "library_ms": cuda_ms(library)})
+    return level_rows("up_pair", "esmstereo_tpu_torch/csrc/fused_hourglass.cu",
+                      "esmstereo_tpu/attic/fused_hourglass.py:453", levels)
+
+
 def check_ragged(model, gen) -> None:
     """Each kernel against its plain version at small shapes that leave
     ragged tiles on every axis the main path leaves whole (kernel A's rows,
-    kernel C's depth and rows), with batch 2 for B and C."""
+    kernel C's depth and rows; odd D, H and W for E, G and H), with batch 2
+    for B, C, E, G and H."""
     dev = torch.device("cuda")
     img = torch.randn((1, 3, 2 * 37, 2 * 45), generator=gen).to(dev)
     consts = fused_backbone.prepare_consts(model.feature)
@@ -209,17 +387,48 @@ def check_ragged(model, gen) -> None:
         compare(f"stem_agg (2, 32, 13, 7, 37), tanh GELU {approx}",
                 fused_agg_stem.stem_agg(vol, consts, approx),
                 fused_agg_stem.stem_agg_plain(vol, consts, approx), 1e-4)
+    for shape, d, approx in (((2, 64, 7, 37), 13, False),
+                             ((2, 64, 5, 70), 48, True)):
+        ref = torch.randn(shape, generator=gen).to(dev)
+        tgt = torch.randn(shape, generator=gen).to(dev)
+        compare(f"volume_stem_agg {shape}, D={d}, tanh GELU {approx}",
+                fused_agg_stem.volume_stem_agg(ref, tgt, consts, d, 32,
+                                               approx),
+                fused_agg_stem.volume_stem_agg_plain(ref, tgt, consts, d, 32,
+                                                     approx), 1e-4)
+    agg = model.aggregation_out
+    for k, shape, approx in ((1, (2, 8, 13, 9, 21), False),
+                             (2, (2, 24, 7, 5, 19), True),
+                             (3, (2, 40, 5, 7, 11), False)):
+        consts = fused_hourglass.prepare_down_consts(
+            getattr(agg, f"conv{k}_0"), getattr(agg, f"conv{k}_1"))
+        x = torch.randn(shape, generator=gen).to(dev)
+        compare(f"down_pair level {k} {shape}, tanh GELU {approx}",
+                fused_hourglass.down_pair(x, consts, approx),
+                fused_hourglass.down_pair_plain(x, consts, approx), 1e-4)
+    for names, src_shape, skip_shape, approx in (
+            (("conv3_up", "agg_0_0", "agg_0_1"), (2, 72, 3, 5, 6),
+             (2, 40, 5, 9, 11), False),
+            (("conv2_up", "agg_1_0", "agg_1_1"), (2, 40, 4, 4, 7),
+             (2, 24, 7, 7, 13), True)):
+        consts = fused_hourglass.prepare_up_consts(
+            *(getattr(agg, n) for n in names))
+        src = torch.randn(src_shape, generator=gen).to(dev)
+        skip = torch.randn(skip_shape, generator=gen).to(dev)
+        compare(f"up_pair src {src_shape} skip {skip_shape}, tanh GELU "
+                f"{approx}", fused_hourglass.up_pair(src, skip, consts, approx),
+                fused_hourglass.up_pair_plain(src, skip, consts, approx), 1e-4)
 
 
-def check_against_cpu(gen) -> None:
+def check_against_cpu(gen, config: ESMStereoConfig) -> None:
     """The model on the card (kernels) == the same weights on the CPU
     (plain versions) on a small pair. The hourglass output is sharpened
     (``conv1_up`` x 30) so that top-2 regression rarely meets a near-tie;
     the 1% exemption covers the pixels where it still does."""
-    cpu = ESMStereo(device="cpu", seed=SEED + 1)
+    cpu = ESMStereo(config, device="cpu", seed=SEED + 1)
     with torch.no_grad():
         cpu.aggregation_out.conv1_up.conv.weight.mul_(30.0)
-    gpu = ESMStereo(device="cuda", seed=SEED + 1)
+    gpu = ESMStereo(config, device="cuda", seed=SEED + 1)
     gpu.load_state_dict(cpu.state_dict())
     left = torch.randn((1, 128, 256, 3), generator=gen)
     right = torch.randn((1, 128, 256, 3), generator=gen)
@@ -282,32 +491,64 @@ def main() -> int:
     with torch.inference_mode():
         rows = [check_fused_stage0(model, gen)]
         row_b, volume = check_gwc_volume(model, gen)
-        rows += [row_b, check_stem_agg(model, volume)]
+        row_c = check_stem_agg(model, volume)
         del volume
+        rows += [row_b, row_c, check_volume_stem_agg(model, gen)]
+        row_g, downs = check_down_pairs(model, gen)
+        rows += [row_g, check_up_pairs(model, gen, downs)]
         for r in rows:
             print(f"  {r['name']}: {r['ms']:.4f} ms (plain "
                   f"{r['plain_ms']:.4f} ms, library {r['library_ms']}, "
                   f"bound {r['bound_ms']:.4f} ms by {r['bound_by']})")
+            for lv in r.get("levels", []):
+                print(f"    level {lv['level']}: {lv['ms']:.4f} ms (plain "
+                      f"{lv['plain_ms']:.4f} ms, library "
+                      f"{lv['library_ms']:.4f} ms, bound "
+                      f"{lv['bound_ms']:.4f} ms by {lv['bound_by']})")
+        print(f"  volume_stem_agg beside kernels B + C on the same inputs: "
+              f"{rows[3]['ms']:.4f} ms against {rows[3]['b_plus_c_ms']:.4f} "
+              f"ms")
         print("  ragged shapes:")
         check_ragged(model, gen)
 
-    print("[4] model on the card against the CPU, 128x256")
-    check_against_cpu(gen)
+    # the two paths, then each switch alone
+    for name, config in (("default", ESMStereoConfig()), ("fused", FUSED),
+                         *((f"{k} alone", ESMStereoConfig(**{k: True}))
+                           for k in ("fuse_volume_agg", "fuse_hourglass",
+                                     "fuse_hourglass_up"))):
+        print(f"[4] {name} model on the card against the CPU, 128x256")
+        check_against_cpu(gen, config)
 
-    print(f"[5] {REQUESTS} requests through InferenceRunner, "
-          f"{FRAME[0]}x{FRAME[1]} padded to {PADDED[0]}x{PADDED[1]}")
+    fused = ESMStereo(FUSED, device="cuda", seed=SEED)
+    fused.load_state_dict(model.state_dict())
     kernels = wrappers()
-    for fn in kernels.values():
-        fn.launches = 0
-    serve(model, np.random.default_rng(SEED))
-    torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in kernels.items()}
-    print(f"  launches on the main path: {launches}")
-    for name, n in launches.items():
-        require(n >= REQUESTS,
-                f"{name} launched {n} times in {REQUESTS} requests")
+    launches = {}
+    for name, net in (("default", model), ("fused", fused)):
+        print(f"[5] {name} path: {REQUESTS} requests through "
+              f"InferenceRunner, {FRAME[0]}x{FRAME[1]} padded to "
+              f"{PADDED[0]}x{PADDED[1]}")
+        for fn in kernels.values():
+            fn.launches = 0
+        serve(net, np.random.default_rng(SEED))
+        torch.cuda.synchronize()
+        launches[name] = {k: fn.launches for k, fn in kernels.items()}
+        print(f"  launches on the {name} path: {launches[name]}")
+    # wrapper calls per request: G runs at 3 levels, H at 2
+    want = {"default": {"fused_stage0": 1, "gwc_volume": 1, "stem_agg": 1},
+            "fused": {"fused_stage0": 1, "volume_stem_agg": 1,
+                      "down_pair": 3, "up_pair": 2}}
+    for path, per_request in want.items():
+        for k, n in launches[path].items():
+            if k in per_request:
+                require(n >= per_request[k] * REQUESTS,
+                        f"{k} launched {n} times in {REQUESTS} requests "
+                        f"on the {path} path")
+            elif path == "fused":
+                require(n == 0, f"{k} launched {n} times on the fused path")
     for r in rows:
-        r["launches"] = launches[r["name"]]
+        path = "default" if r["name"] in want["default"] else "fused"
+        r["launches"] = launches[path][r["name"]]
+        r["path"] = path
 
     print(json.dumps({"kernels": rows}))
     print(smi)

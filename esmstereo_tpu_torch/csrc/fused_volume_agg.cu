@@ -1,0 +1,189 @@
+// Kernel E: the group-wise correlation volume built inside group_stem, fp32.
+// The (B, G, D, H, W) volume is never written to device memory.
+//
+// Replaces esmstereo_tpu/ops/pallas/fused_agg_stem.py::
+// folded_volume_stem_agg_apply (pallas_call at :486), gwc form, in the
+// unfolded layout. The wrapper (ops/kernels/fused_agg_stem.py::
+// volume_stem_agg) launches this kernel, which builds each block's volume
+// slab in shared memory from the descriptors and applies group_stem
+// (G -> 8 channels, 3x3x3, BN folded, GELU), writing the 8-channel
+// intermediate; then kernel C's 8 -> 8 conv (csrc/fused_hourglass.cu) for agg.
+// The volume is, as in kernel B (csrc/correlation.cu),
+//     V[b, g, d, h, w] = mean_{c in group g} ref[b, c, h, w] * tgt[b, c, h, w - d]
+// with 0 where w < d, and the conv's zero padding outside the volume.
+//
+// What bounds it on an H100: operations. On the L main path (D=48 at
+// 136 x 248) group_stem is 27 * 32 * 8 multiply-adds per voxel, about
+// 22 GFLOP, against 2 x 8.6 MB of descriptors read and 52 MB written; the
+// volume build adds 2 multiply-adds per volume entry. Kernels B + C move the
+// 207 MB volume twice for the same result.
+//
+// Design for that: a direct conv on the tile of csrc/fused_hourglass.cu,
+// with the volume slab built in place of the load. Each block owns a 32 x 4
+// (w, h) tile of output pixels and a chunk of kDc output depths, for all 8
+// outputs, with every group's weights staged once; each thread owns one
+// (h, w) column and keeps kDc * 8 sums in registers. For each group the
+// block stages the group's reference channels over the tile plus a 1-pixel
+// halo, and its target channels over the columns w - d that the slab's
+// (d, w) pairs reach (B's target window, cut to the depth chunk). It then
+// forms the (kDc+2) x 6 x 34 volume slab with B's arithmetic (fp32 products
+// summed in channel order, times 1/(C/G)), bit for bit B's values, and runs
+// the 27 taps over it.
+#include <cuda_runtime.h>
+
+#include "activations.cuh"
+
+namespace {
+
+constexpr int kTw = 32;
+constexpr int kTh = 4;
+constexpr int kDc = 8;
+constexpr int kSw = kTw + 2;
+constexpr int kSh = kTh + 2;
+constexpr int kSd = kDc + 2;
+// target columns over the slab: w - d for w in [w0-1, w0+kTw+1) and
+// d in [d0-1, d0+kDc+1); slab entry (sd, sw) reads column sw - sd + kSd - 1
+constexpr int kTgtW = kSw + kSd - 1;
+
+template <int C, int G, int CO>
+__global__ void __launch_bounds__(kTw * kTh)
+volume_group_stem_kernel(const float* __restrict__ ref,
+                         const float* __restrict__ tgt,
+                         const float* __restrict__ wgt,
+                         const float* __restrict__ shift,
+                         float* __restrict__ y, int D, int H, int W,
+                         int approximate) {
+    // wgt: [CO][G][27] (BN scale folded); shift: [CO]; wsh: [G][27][CO]
+    constexpr int kCpg = C / G;
+    constexpr int kThreads = kTw * kTh;
+    __shared__ float wsh[G * 27 * CO];
+    __shared__ float rsh[kCpg * kSh * kSw];
+    __shared__ float tsh[kCpg * kSh * kTgtW];
+    __shared__ float vsh[kSd * kSh * kSw];
+
+    const int tilesW = (W + kTw - 1) / kTw;
+    const int w0 = (blockIdx.x % tilesW) * kTw;
+    const int h0 = (blockIdx.x / tilesW) * kTh;
+    const int d0 = blockIdx.y * kDc;
+    const int b = blockIdx.z;
+    const int tx = threadIdx.x, ty = threadIdx.y;
+    const int tid = ty * kTw + tx;
+    // least target column over the slab: w = w0 - 1, d = d0 + kDc
+    const int tw0 = w0 - 1 - (d0 + kDc);
+
+    for (int i = tid; i < G * 27 * CO; i += kThreads)
+        wsh[i] = wgt[(i % CO) * (G * 27) + i / CO];
+
+    float acc[kDc][CO];
+#pragma unroll
+    for (int dd = 0; dd < kDc; ++dd)
+#pragma unroll
+        for (int o = 0; o < CO; ++o) acc[dd][o] = 0.0f;
+
+    const size_t plane = (size_t)H * W;
+    const float* rb = ref + (size_t)b * C * plane;
+    const float* tb = tgt + (size_t)b * C * plane;
+    const float inv = 1.0f / kCpg;
+
+    for (int g = 0; g < G; ++g) {
+        __syncthreads();  // previous slab fully consumed (and weights loaded)
+        for (int i = tid; i < kCpg * kSh * kSw; i += kThreads) {
+            const int sw = i % kSw;
+            const int sh = (i / kSw) % kSh;
+            const int k = i / (kSw * kSh);
+            const int gh = h0 - 1 + sh, gw = w0 - 1 + sw;
+            rsh[i] = (gh >= 0 && gh < H && gw >= 0 && gw < W)
+                         ? rb[(size_t)(g * kCpg + k) * plane
+                              + (size_t)gh * W + gw]
+                         : 0.0f;
+        }
+        for (int i = tid; i < kCpg * kSh * kTgtW; i += kThreads) {
+            const int tw = i % kTgtW;
+            const int sh = (i / kTgtW) % kSh;
+            const int k = i / (kTgtW * kSh);
+            const int gh = h0 - 1 + sh, gw = tw0 + tw;
+            // columns left of the image are the zeros that make w < d vanish
+            tsh[i] = (gh >= 0 && gh < H && gw >= 0 && gw < W)
+                         ? tb[(size_t)(g * kCpg + k) * plane
+                              + (size_t)gh * W + gw]
+                         : 0.0f;
+        }
+        __syncthreads();
+        for (int i = tid; i < kSd * kSh * kSw; i += kThreads) {
+            const int sw = i % kSw;
+            const int sh = (i / kSw) % kSh;
+            const int sd = i / (kSw * kSh);
+            const int gd = d0 - 1 + sd, gh = h0 - 1 + sh, gw = w0 - 1 + sw;
+            float v = 0.0f;   // the conv's zero padding outside the volume
+            if (gd >= 0 && gd < D && gh >= 0 && gh < H && gw >= 0 && gw < W) {
+                float s = 0.0f;
+#pragma unroll
+                for (int k = 0; k < kCpg; ++k)
+                    s = fmaf(rsh[(k * kSh + sh) * kSw + sw],
+                             tsh[(k * kSh + sh) * kTgtW + sw - sd + kSd - 1],
+                             s);
+                v = s * inv;
+            }
+            vsh[i] = v;
+        }
+        __syncthreads();
+        const float* wc = wsh + g * 27 * CO;
+#pragma unroll
+        for (int kh = 0; kh < 3; ++kh) {
+#pragma unroll
+            for (int kw = 0; kw < 3; ++kw) {
+                float col[kSd];
+#pragma unroll
+                for (int sd = 0; sd < kSd; ++sd)
+                    col[sd] = vsh[(sd * kSh + ty + kh) * kSw + tx + kw];
+#pragma unroll
+                for (int kd = 0; kd < 3; ++kd) {
+                    const float* wk = wc + ((kd * 3 + kh) * 3 + kw) * CO;
+                    float wr[CO];
+#pragma unroll
+                    for (int o = 0; o < CO; ++o) wr[o] = wk[o];
+#pragma unroll
+                    for (int dd = 0; dd < kDc; ++dd)
+#pragma unroll
+                        for (int o = 0; o < CO; ++o)
+                            acc[dd][o] = fmaf(col[dd + kd], wr[o], acc[dd][o]);
+                }
+            }
+        }
+    }
+
+    const int h = h0 + ty, w = w0 + tx;
+    if (h >= H || w >= W) return;
+    const bool approx = approximate != 0;
+    const size_t vol = (size_t)D * plane;
+    float* yb = y + (size_t)b * CO * vol + (size_t)h * W + w;
+#pragma unroll
+    for (int dd = 0; dd < kDc; ++dd) {
+        const int d = d0 + dd;
+        if (d >= D) break;
+#pragma unroll
+        for (int o = 0; o < CO; ++o)
+            yb[(size_t)o * vol + (size_t)d * plane] =
+                gelu(acc[dd][o] + shift[o], approx);
+    }
+}
+
+}  // namespace
+
+// ref, tgt: (B, C, H, W); wgt: (CO, G, 3, 3, 3) with the BN scale folded in;
+// shift: (CO,); y: (B, CO, D, H, W). All fp32, contiguous.
+// Returns a cudaError_t; cudaErrorInvalidValue for an unsupported (C, G, CO).
+extern "C" int volume_group_stem(const float* ref, const float* tgt,
+                                 const float* wgt, const float* shift,
+                                 float* y, int B, int C, int G, int CO, int D,
+                                 int H, int W, int approximate,
+                                 cudaStream_t stream) {
+    if (C != 64 || G != 32 || CO != 8 || D < 1)
+        return (int)cudaErrorInvalidValue;
+    const int tiles = ((W + kTw - 1) / kTw) * ((H + kTh - 1) / kTh);
+    const dim3 grid(tiles, (D + kDc - 1) / kDc, B);
+    const dim3 block(kTw, kTh);
+    volume_group_stem_kernel<64, 32, 8><<<grid, block, 0, stream>>>(
+        ref, tgt, wgt, shift, y, D, H, W, approximate);
+    return (int)cudaGetLastError();
+}

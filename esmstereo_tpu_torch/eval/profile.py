@@ -1,6 +1,7 @@
 """Where a frame's device time goes: ESMStereo-L eval at 544x992, batch 1.
 
     python -m esmstereo_tpu_torch.eval.profile [--frames 10] [--top 25]
+        [--fuse-volume-agg] [--fuse-hourglass] [--fuse-hourglass-up]
 
 Builds the L model with seeded weights on the card, runs ``--frames``
 forward passes on device-resident inputs under ``torch.profiler``, and
@@ -8,6 +9,15 @@ prints the device time per frame by kernel name (sorted, with shares), the
 device busy share of the window, and the frame time from CUDA events
 without the profiler. TF32 is off, as in ``chip_smoke.py``. Needs a CUDA
 device; the kernels build on first use.
+
+The switches select the configuration's opt-in kernel paths, as
+``bench.py``'s ``BENCH_FUSE_VOLUME_AGG`` and ``BENCH_FUSE_HOURGLASS`` do for
+the JAX model:
+
+  --fuse-volume-agg     the volume built inside group_stem (kernel E in
+                        place of B + C)
+  --fuse-hourglass      each hourglass down level as kernel G
+  --fuse-hourglass-up   each hourglass up level as kernel H
 """
 
 from __future__ import annotations
@@ -18,7 +28,7 @@ import subprocess
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from esmstereo_tpu_torch.models.esmstereo import ESMStereo
+from esmstereo_tpu_torch.models.esmstereo import ESMStereo, ESMStereoConfig
 
 PADDED = (544, 992)     # a SceneFlow 540x960 frame padded to the next /32
 
@@ -38,7 +48,16 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=10)
     ap.add_argument("--top", type=int, default=25)
+    ap.add_argument("--fuse-volume-agg", action="store_true",
+                    help="kernel E in place of kernels B + C")
+    ap.add_argument("--fuse-hourglass", action="store_true",
+                    help="the hourglass down levels as kernel G")
+    ap.add_argument("--fuse-hourglass-up", action="store_true",
+                    help="the hourglass up levels as kernel H")
     args = ap.parse_args()
+    config = ESMStereoConfig(fuse_volume_agg=args.fuse_volume_agg,
+                             fuse_hourglass=args.fuse_hourglass,
+                             fuse_hourglass_up=args.fuse_hourglass_up)
     if not torch.cuda.is_available():
         raise SystemExit("profile: no CUDA device")
     torch.backends.cudnn.allow_tf32 = False
@@ -47,7 +66,8 @@ def main() -> None:
                           "--format=csv,noheader"], check=True,
                          capture_output=True, text=True).stdout.strip())
 
-    model = ESMStereo(device="cuda", seed=0)
+    print(f"config: {config}")
+    model = ESMStereo(config, device="cuda", seed=0)
     gen = torch.Generator().manual_seed(0)
     shape = (1, *PADDED, 3)
     left = torch.randn(shape, generator=gen).cuda()

@@ -11,9 +11,10 @@ which the JAX package's own tests hold equal to its folded paths. Module
 names follow the JAX parameter tree so ``models.convert_jax`` can carry
 weights across by path.
 
-Three hand-written kernels carry the path (``ops.kernels``): the fused
-backbone head (inside ``FeaturePyramid``), the volume and group_stem + agg.
-On CPU tensors their plain PyTorch versions run.
+Hand-written kernels carry the path (``ops.kernels``): the fused backbone
+head (inside ``FeaturePyramid``), the volume and group_stem + agg; with the
+config's ``fuse_*`` switches, the volume built inside group_stem and the
+hourglass levels. On CPU tensors their plain PyTorch versions run.
 """
 
 from __future__ import annotations
@@ -31,16 +32,27 @@ from esmstereo_tpu_torch.nn.blocks import (Conv2x, ConvBlock, StemBlock,
                                            folded_once)
 from esmstereo_tpu_torch.nn.init import init_model_
 from esmstereo_tpu_torch.nn.shufflemixer import FMBlock, PixelShuffleUp
-from esmstereo_tpu_torch.ops.kernels import correlation, fused_agg_stem
+from esmstereo_tpu_torch.ops.kernels import (correlation, fused_agg_stem,
+                                             fused_hourglass)
 from esmstereo_tpu_torch.ops.regression import regression_topk
 from esmstereo_tpu_torch.ops.sampling import resize_bilinear
 
 
 @dataclasses.dataclass(frozen=True)
 class ESMStereoConfig:
-    """The configuration fields this slice keeps. Only the L variant
+    """The configuration fields the port keeps. Only the L variant
     (cv_scale 4, efficientnet_b2, gwc, 32 groups, reduction 8) in fp32 is
-    ported; anything else raises ``NotImplementedError``."""
+    ported; anything else raises ``NotImplementedError`` (so
+    ``fuse_volume_agg`` runs with the gwc volume only).
+
+    The three ``fuse_*`` switches are the JAX config's opt-in kernel paths
+    (``esmstereo_tpu/models/esmstereo.py:129,150-151``), off by default
+    there and here: ``fuse_volume_agg`` builds the volume inside
+    group_stem (kernel E in place of B + C); ``fuse_hourglass`` runs each
+    hourglass down level as kernel G and ``fuse_hourglass_up`` each up level
+    as kernel H. Each computes the same function as the default path, and
+    they combine freely: ``chip_smoke.py`` holds the card against the CPU
+    with all three off, all three on and each one alone."""
 
     max_disp: int = 192
     cost_volume: str = "gwc"
@@ -49,6 +61,9 @@ class ESMStereoConfig:
     num_groups: int = 32
     reduction: int = 8
     dtype: str = "float32"
+    fuse_volume_agg: bool = False
+    fuse_hourglass: bool = False
+    fuse_hourglass_up: bool = False
 
     def __post_init__(self):
         got = (self.cost_volume, self.backbone, self.cv_scale,
@@ -88,12 +103,39 @@ class FeatUp(nn.Module):
         return [x4, x8, x16, x32]
 
 
+def _level_fold(prepare, *names):
+    """A ``folded_once`` fold of the named submodules of an
+    ``Aggregation3D`` (one function per level, so each keeps its memo)."""
+    def fold(agg):
+        return prepare(*(getattr(agg, n) for n in names))
+    return fold
+
+
+_DOWN_LEVELS = tuple(
+    (names, _level_fold(fused_hourglass.prepare_down_consts, *names))
+    for names in (("conv1_0", "conv1_1"), ("conv2_0", "conv2_1"),
+                  ("conv3_0", "conv3_1")))
+_UP_LEVELS = tuple(
+    (names, _level_fold(fused_hourglass.prepare_up_consts, *names))
+    for names in (("conv3_up", "agg_0_0", "agg_0_1"),
+                  ("conv2_up", "agg_1_0", "agg_1_1")))
+
+
 class Aggregation3D(nn.Module):
     """Three-level 3-D hourglass over the volume (``ESMStereo.py:129-182``);
-    one channel out at the input's (D, H, W)."""
+    one channel out at the input's (D, H, W).
 
-    def __init__(self, in_channels: int, add_channel: int, device=None):
+    In eval mode ``fuse_pairs`` runs each down level (k3 s2 + k3 s1) as
+    kernel G and ``fuse_up`` each up level (transposed conv, concat, 1x1x1,
+    k3) as kernel H, as ``FoldedAggregation3D`` does
+    (``esmstereo_tpu/models/folded_agg.py:50-53``); ``conv1_up`` stays a
+    plain ``ConvBlock`` there and here."""
+
+    def __init__(self, in_channels: int, add_channel: int, device=None,
+                 fuse_pairs: bool = False, fuse_up: bool = False):
         super().__init__()
+        self.fuse_pairs = fuse_pairs
+        self.fuse_up = fuse_up
         c1 = in_channels + add_channel
         c2 = in_channels + 2 * add_channel
         c3 = in_channels + 4 * add_channel
@@ -117,14 +159,26 @@ class Aggregation3D(nn.Module):
         self.conv1_up = block(c1, 1, 4, 2, 1, deconv=True, bn=False, act=None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        conv1 = self.conv1_1(self.conv1_0(x))
-        conv2 = self.conv2_1(self.conv2_0(conv1))
-        conv3 = self.conv3_1(self.conv3_0(conv2))
-        up = _crop_like(self.conv3_up(conv3), conv2)
-        conv2 = self.agg_0_1(self.agg_0_0(torch.cat([up, conv2], dim=1)))
-        up = _crop_like(self.conv2_up(conv2), conv1)
-        conv1 = self.agg_1_1(self.agg_1_0(torch.cat([up, conv1], dim=1)))
-        return self.conv1_up(conv1)
+        approx = blocks.GELU_APPROXIMATE
+        skips = []
+        for names, fold in _DOWN_LEVELS:
+            first, second = (getattr(self, n) for n in names)
+            if self.fuse_pairs and not self.training:
+                consts = folded_once(self, fold, first, second)
+                x = fused_hourglass.down_pair(x, consts, approx)
+            else:
+                x = second(first(x))
+            skips.append(x)
+        conv1, conv2, x = skips
+        for (names, fold), skip in zip(_UP_LEVELS, (conv2, conv1)):
+            deconv, cat, conv = (getattr(self, n) for n in names)
+            if self.fuse_up and not self.training:
+                consts = folded_once(self, fold, deconv, cat, conv)
+                x = fused_hourglass.up_pair(x, skip, consts, approx)
+            else:
+                up = _crop_like(deconv(x), skip)
+                x = conv(cat(torch.cat([up, skip], dim=1)))
+        return self.conv1_up(x)
 
 
 class UpRefinement(nn.Module):
@@ -268,7 +322,9 @@ class ESMStereo(nn.Module):
         self.group_stem = ConvBlock(config.num_groups, red, 3, 1, 1, dims=3,
                                     device=dev)
         self.agg = ConvBlock(red, red, 3, 1, 1, dims=3, device=dev)
-        self.aggregation_out = Aggregation3D(red, 16, dev)
+        self.aggregation_out = Aggregation3D(
+            red, 16, dev, fuse_pairs=config.fuse_hourglass,
+            fuse_up=config.fuse_hourglass_up)
         self.upsample_module = Upsample4(2 * chans[2], 2 * chans[1], 32, dev)
         if dev.type != "meta":
             init_model_(self, torch.Generator().manual_seed(seed))
@@ -291,12 +347,18 @@ class ESMStereo(nn.Module):
         m = self.desc(self.conv(torch.cat([f_both[0], s4], dim=1)))
         match_l, match_r = m[:bsz], m[bsz:]
 
-        volume = correlation.gwc_volume(match_l, match_r, self.num_bins,
-                                        self.config.num_groups)
         consts = folded_once(self, _stem_agg_consts, self.group_stem,
                              self.agg)
-        volume = fused_agg_stem.stem_agg(volume, consts,
-                                         blocks.GELU_APPROXIMATE)
+        approx = blocks.GELU_APPROXIMATE
+        if self.config.fuse_volume_agg:
+            # kernel E: the 32-group volume never reaches device memory
+            volume = fused_agg_stem.volume_stem_agg(
+                match_l, match_r, consts, self.num_bins,
+                self.config.num_groups, approx)
+        else:
+            volume = correlation.gwc_volume(match_l, match_r, self.num_bins,
+                                            self.config.num_groups)
+            volume = fused_agg_stem.stem_agg(volume, consts, approx)
         cost = self.aggregation_out(volume)[:, 0]          # (B, D, H/4, W/4)
 
         # regression and the disparity stream stay fp32 (the slice is fp32)

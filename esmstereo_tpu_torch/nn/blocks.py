@@ -135,12 +135,15 @@ def batch_norm(features: int, dims: int = 2, device=None) -> nn.Module:
     return cls(features, eps=1e-5, momentum=0.1, device=device)
 
 
-def fold_bn(weight: torch.Tensor, bn: nn.Module
+def fold_bn(weight: torch.Tensor, bn: nn.Module, axis: int = 0
             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Conv weight ``(O, ...)`` and an eval BatchNorm -> (the weight with the
-    BN scale folded in, the per-channel offset)."""
+    """Conv weight with its output channels on ``axis`` (0 for a conv's
+    ``(O, I, ...)``, 1 for a transposed conv's ``(I, O, ...)``) and an eval
+    BatchNorm -> (the weight with the BN scale folded in, the per-channel
+    offset)."""
     inv = bn.weight * torch.rsqrt(bn.running_var + bn.eps)
-    shape = (-1,) + (1,) * (weight.ndim - 1)
+    shape = [1] * weight.ndim
+    shape[axis] = -1
     return weight * inv.view(shape), bn.bias - bn.running_mean * inv
 
 

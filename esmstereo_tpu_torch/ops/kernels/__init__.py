@@ -1,9 +1,15 @@
-"""Hand-written CUDA kernels of the L eval path, each beside its plain
+"""Hand-written CUDA kernels of the L eval paths, each beside its plain
 PyTorch version.
 
-  * ``fused_head.fused_stage0``      kernel A, backbone stem + stage 0
-  * ``correlation.gwc_volume``       kernel B, group-wise correlation volume
-  * ``fused_agg_stem.stem_agg``      kernel C, group_stem + agg 3-D convs
+  * ``fused_head.fused_stage0``         kernel A, backbone stem + stage 0
+  * ``correlation.gwc_volume``          kernel B, group-wise correlation volume
+  * ``fused_agg_stem.stem_agg``         kernel C, group_stem + agg 3-D convs
+  * ``fused_agg_stem.volume_stem_agg``  kernel E, B + C with the volume built
+    inside group_stem (``fuse_volume_agg``)
+  * ``fused_hourglass.down_pair``       kernel G, one hourglass down level
+    (``fuse_hourglass``)
+  * ``fused_hourglass.up_pair``         kernel H, one hourglass up level
+    (``fuse_hourglass_up``)
 
 A wrapper runs the plain version when its tensors lie on the CPU and
 launches its kernel when they lie on a CUDA device, raising on anything the
@@ -22,13 +28,16 @@ import torch
 
 
 def wrappers() -> dict:
-    """``{kernel name: wrapper}`` for the kernels of the L eval path."""
+    """``{kernel name: wrapper}`` for the kernels of the L eval paths."""
     from esmstereo_tpu_torch.ops.kernels import correlation, fused_agg_stem
-    from esmstereo_tpu_torch.ops.kernels import fused_head
+    from esmstereo_tpu_torch.ops.kernels import fused_head, fused_hourglass
 
     return {"fused_stage0": fused_head.fused_stage0,
             "gwc_volume": correlation.gwc_volume,
-            "stem_agg": fused_agg_stem.stem_agg}
+            "stem_agg": fused_agg_stem.stem_agg,
+            "volume_stem_agg": fused_agg_stem.volume_stem_agg,
+            "down_pair": fused_hourglass.down_pair,
+            "up_pair": fused_hourglass.up_pair}
 
 
 def on_cuda(what: str, *tensors: torch.Tensor) -> bool:
