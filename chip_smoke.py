@@ -3,33 +3,35 @@
 
     python3 chip_smoke.py            # from the root of the repository
 
-Drives the port's two paths of eval-mode ESMStereo-L (efficientnet_b2, cv4
-group-wise correlation, 48 bins, fp32) with seeded random weights: the
-default one (kernels A, B, C) and the fused cost-volume section
+Drives the port's three paths of eval-mode ESMStereo-L (efficientnet_b2,
+cv4 group-wise correlation, 48 bins, fp32) with seeded random weights: the
+default one (kernels A, B, C); the fused cost-volume section
 (``fuse_volume_agg``, ``fuse_hourglass``, ``fuse_hourglass_up``: kernels A,
-E, G at 3 levels and H at 2 levels). It holds each hand-written kernel
-against its plain PyTorch version:
+E, G at 3 levels and H at 2 levels); and every switch (those three plus
+``fuse_stems`` and ``fuse_mixer``: kernels A, F, E, G, H and I). It holds
+each hand-written kernel against its plain PyTorch version:
 
   1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-  2. build the four kernel sources from ``esmstereo_tpu_torch/csrc`` (one
+  2. build the six kernel sources from ``esmstereo_tpu_torch/csrc`` (one
      ``nvcc`` per source, all at once) and print ``ptxas`` register/spill
      lines;
   3. each kernel and its plain version on the same inputs at the main-path
      shapes (a 540x960 SceneFlow frame padded to 544x992, both eyes):
      max abs / relative error against the stated tolerance, CUDA-event
      times, the bound from bytes and operations, and a yardstick the port
-     never calls (cuDNN's convs for C, G and H; kernels B + C for E, whose
-     peak memory must stay below the volume it never allocates); each
-     hourglass level gets unit-normal inputs, and H's check must be able to
-     see its transposed conv; then each kernel again at small shapes with
-     ragged tiles on every axis;
+     never calls (cuDNN's convs for C, F, G and H; kernels B + C for E,
+     whose peak memory must stay below the volume it never allocates); each
+     hourglass level, F and I get unit-normal inputs, F and I are held
+     relative to max|plain| with no floor of 1, and H's and I's checks must
+     be able to see their transposed conv and dw 7x7; then each kernel
+     again at small shapes with ragged tiles on every axis;
   4. each path's model on the card against the same weights on the CPU
      (plain versions) on a 128x256 pair, and so for each ``fuse_*`` switch
      set alone;
   5. for each path, launch counters set to 0, then 3 requests served
      through ``InferenceRunner`` (uint8 540x960 pairs): shape, finiteness
      and time of each; every kernel of the path must have launched on each
-     request (G at 3 levels, H at 2), and the fused path launches no B or C;
+     request (G at 3 levels, H at 2), and no kernel of another path;
   6. a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and last
      ``{"ok": true, "device": {...}}``.
 
@@ -54,6 +56,8 @@ from esmstereo_tpu_torch.models.esmstereo import ESMStereo, ESMStereoConfig
 from esmstereo_tpu_torch.ops.kernels import _build, wrappers
 from esmstereo_tpu_torch.ops.kernels import correlation, fused_agg_stem
 from esmstereo_tpu_torch.ops.kernels import fused_head, fused_hourglass
+from esmstereo_tpu_torch.ops.kernels import fused_mixer, fused_stems
+from esmstereo_tpu_torch.ops.kernels.activations import gelu
 from esmstereo_tpu_torch.backbones import fused as fused_backbone
 from esmstereo_tpu_torch.nn import blocks
 
@@ -63,6 +67,16 @@ PADDED = (544, 992)
 REQUESTS = 3
 FUSED = ESMStereoConfig(fuse_volume_agg=True, fuse_hourglass=True,
                         fuse_hourglass_up=True)
+ALL = ESMStereoConfig(fuse_stems=True, fuse_volume_agg=True,
+                      fuse_hourglass=True, fuse_hourglass_up=True,
+                      fuse_mixer=True)
+SWITCHES = ("fuse_volume_agg", "fuse_hourglass", "fuse_hourglass_up",
+            "fuse_stems", "fuse_mixer")
+# multiply-adds per /4 pixel of kernel I: to_feat, two FMBlocks (two
+# SMLayers of two 8 -> 16 -> 8 MLPs and a dw 7x7 each, expand, project), up
+MIXER_MACS = (32 * 9 * 16
+              + 2 * (2 * (2 * 2 * 8 * 16 + 16 * 49) + 16 * 9 * 32 + 32 * 16)
+              + 16 * 64)
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 rate and fp32 on the
 # CUDA cores (no tensor cores: every kernel of this slice is fp32 FMA).
 HBM_BYTES_PER_S = 3.35e12
@@ -109,14 +123,18 @@ def require(ok, what: str) -> None:
 
 
 def compare(name: str, got: torch.Tensor, want: torch.Tensor,
-            rtol: float) -> float:
-    """Max abs error; fails unless it is within ``rtol * max(1, max|want|)``."""
+            rtol: float, floor: float = 1.0) -> float:
+    """Max abs error; fails unless it is within
+    ``rtol * max(floor, max|want|)``. With ``floor`` 0 it also fails when
+    max|want| < 0.1, where a relative bound would see too little."""
     require(got.shape == want.shape,
             f"{name}: shape {tuple(got.shape)}, plain {tuple(want.shape)}")
     require(torch.isfinite(got).all(), f"{name}: non-finite kernel output")
     err = float((got - want).abs().max())
     peak = float(want.abs().max())
-    scale = max(1.0, peak)
+    if floor == 0.0:
+        require(peak >= 0.1, f"{name}: max|plain| {peak:.3e} < 0.1")
+    scale = max(floor, peak)
     print(f"  {name}: max abs err {err:.3e}, relative {err / scale:.3e} "
           f"(tolerance {rtol:g} relative; max|plain| {peak:.3e})")
     require(err <= rtol * scale,
@@ -366,11 +384,81 @@ def check_up_pairs(model, gen, downs: list) -> dict:
                       "esmstereo_tpu/attic/fused_hourglass.py:453", levels)
 
 
+def check_stems(model, gen) -> dict:
+    """Kernel F at the main path's shapes: both eyes, 544 x 992, a
+    unit-normal image; both outputs held relative to max|plain|."""
+    img = torch.randn((2, 3, *PADDED), generator=gen).cuda()
+    consts = fused_stems.prepare_consts(model.stem_2, model.stem_4)
+    approx = blocks.GELU_APPROXIMATE
+    got = fused_stems.stems(img, consts, approx)
+    want = fused_stems.stems_plain(img, consts, approx)
+    # fp32 sums of up to 48 * 9 products in another order than cuDNN's
+    err = max(compare(f"stems {name} {tuple(w.shape)}", g, w, 1e-4,
+                      floor=0.0)
+              for name, g, w in zip(("stem_2", "stem_4"), got, want))
+    b, _, h, w = img.shape
+    px2, px4 = b * (h // 2) * (w // 2), b * (h // 4) * (w // 4)
+    macs = px2 * 32 * (3 + 32) * 9 + px4 * 48 * (32 + 48) * 9
+    bms, by = bound(nbytes(img, *consts.values(), *got), 2 * macs)
+    torch_w = {k: v.permute(3, 0, 1, 2).contiguous()
+               for k, v in consts.items() if v.ndim == 4}
+
+    def library():
+        f = torch.nn.functional
+        x = img
+        for s in "24":
+            x = gelu(f.conv2d(x, torch_w[f"wd{s}"], consts[f"td{s}"],
+                              stride=2, padding=1), approx)
+            x = f.relu(f.conv2d(x, torch_w[f"wc{s}"], consts[f"tc{s}"],
+                                padding=1))
+        return x
+
+    return {"name": "stems", "route": "cuda",
+            "source": "esmstereo_tpu_torch/csrc/fused_stems.cu",
+            "replaces": "esmstereo_tpu/ops/pallas/fused_stems.py:174",
+            "max_abs_err": err,
+            "ms": cuda_ms(lambda: fused_stems.stems(img, consts, approx)),
+            "plain_ms": cuda_ms(lambda: fused_stems.stems_plain(
+                img, consts, approx)),
+            "bound_ms": bms, "bound_by": by, "library_ms": cuda_ms(library)}
+
+
+def check_mixer(model, gen) -> dict:
+    """Kernel I at the main path's shapes: a unit-normal (1, 32, 136, 248)
+    spx output, held relative to max|plain|. The plain version with
+    block1.sm2's dw 7x7 zeroed must lie at least 100 tolerances away, so
+    that the comparison sees the section's deepest spatial step."""
+    x = torch.randn((1, 32, PADDED[0] // 4, PADDED[1] // 4),
+                    generator=gen).cuda()
+    consts = fused_mixer.prepare_consts(model.upsample_module.stage2x)
+    got = fused_mixer.mixer(x, consts)
+    want = fused_mixer.mixer_plain(x, consts)
+    # fp32 through 18 chained convs and MLPs, sums of up to 288 products
+    err = compare(f"mixer {tuple(x.shape)}", got, want, 1e-4, floor=0.0)
+    blind = {"packed": consts["packed"].clone()}
+    fused_mixer.unpack(blind["packed"])["block1.sm2.dw_w"].zero_()
+    gap = float((fused_mixer.mixer_plain(x, blind) - want).abs().max())
+    tol = 1e-4 * float(want.abs().max())
+    print(f"    without block1.sm2's dw 7x7 the plain version moves "
+          f"{gap:.3e} (at least 100 tolerances: {100 * tol:.3e})")
+    require(gap >= 100 * tol, "mixer: the comparison cannot see the dw 7x7")
+    px = x.shape[0] * x.shape[2] * x.shape[3]
+    bms, by = bound(nbytes(x, consts["packed"], got), 2 * px * MIXER_MACS)
+    return {"name": "mixer", "route": "cuda",
+            "source": "esmstereo_tpu_torch/csrc/fused_mixer.cu",
+            "replaces": "esmstereo_tpu/attic/fused_mixer.py:212",
+            "max_abs_err": err,
+            "ms": cuda_ms(lambda: fused_mixer.mixer(x, consts)),
+            "plain_ms": cuda_ms(lambda: fused_mixer.mixer_plain(x, consts)),
+            "bound_ms": bms, "bound_by": by, "library_ms": None}
+
+
 def check_ragged(model, gen) -> None:
     """Each kernel against its plain version at small shapes that leave
     ragged tiles on every axis the main path leaves whole (kernel A's rows,
-    kernel C's depth and rows; odd D, H and W for E, G and H), with batch 2
-    for B, C, E, G and H."""
+    kernel C's depth and rows; odd D, H and W for E, G, H and I; F's rows
+    and columns at both levels), with batch 2 for B, C, E, F, G, H and
+    I."""
     dev = torch.device("cuda")
     img = torch.randn((1, 3, 2 * 37, 2 * 45), generator=gen).to(dev)
     consts = fused_backbone.prepare_consts(model.feature)
@@ -418,6 +506,18 @@ def check_ragged(model, gen) -> None:
         compare(f"up_pair src {src_shape} skip {skip_shape}, tanh GELU "
                 f"{approx}", fused_hourglass.up_pair(src, skip, consts, approx),
                 fused_hourglass.up_pair_plain(src, skip, consts, approx), 1e-4)
+    img = torch.randn((2, 3, 44, 100), generator=gen).to(dev)
+    consts = fused_stems.prepare_consts(model.stem_2, model.stem_4)
+    for approx in (False, True):
+        got = fused_stems.stems(img, consts, approx)
+        want = fused_stems.stems_plain(img, consts, approx)
+        for name, g, w in zip(("stem_2", "stem_4"), got, want):
+            compare(f"stems {name} {tuple(w.shape)}, tanh GELU {approx}", g,
+                    w, 1e-4)
+    x = torch.randn((2, 32, 11, 25), generator=gen).to(dev)
+    consts = fused_mixer.prepare_consts(model.upsample_module.stage2x)
+    compare("mixer (2, 32, 11, 25)", fused_mixer.mixer(x, consts),
+            fused_mixer.mixer_plain(x, consts), 1e-4)
 
 
 def check_against_cpu(gen, config: ESMStereoConfig) -> None:
@@ -440,14 +540,17 @@ def check_against_cpu(gen, config: ESMStereoConfig) -> None:
         rel = float((g - w).abs().max()) / max(1.0, float(w.abs().max()))
         print(f"  {key}: relative max err {rel:.3e} (tolerance 1e-4)")
         require(rel < 1e-4, f"{key}: card disagrees with CPU")
-    g, w = got[0].cpu(), want[0]
-    require(g.shape == w.shape == (1, 128, 256) and torch.isfinite(g).all(),
-            "disparity on the card: wrong shape or non-finite")
-    rel = (g - w).abs() / max(1.0, float(w.abs().max()))
-    frac = float((rel < 1e-4).float().mean())
-    print(f"  disparity: {frac:.4%} of pixels within 1e-4 relative "
-          f"(tolerance: at least 99%), max {float(rel.max()):.3e}")
-    require(frac >= 0.99, "disparity: card disagrees with CPU")
+    for key, g, w, shape in (
+            ("disp_2", got_aux["disp_2"].cpu(), want_aux["disp_2"],
+             (1, 64, 128)),
+            ("disparity", got[0].cpu(), want[0], (1, 128, 256))):
+        require(g.shape == w.shape == shape and torch.isfinite(g).all(),
+                f"{key} on the card: wrong shape or non-finite")
+        rel = (g - w).abs() / max(1.0, float(w.abs().max()))
+        frac = float((rel < 1e-4).float().mean())
+        print(f"  {key}: {frac:.4%} of pixels within 1e-4 relative "
+              f"(tolerance: at least 99%), max {float(rel.max()):.3e}")
+        require(frac >= 0.99, f"{key}: card disagrees with CPU")
 
 
 def serve(model, rng: np.random.Generator) -> None:
@@ -489,41 +592,46 @@ def main() -> int:
     model = ESMStereo(device="cuda", seed=SEED)
     print("[3] kernels against their plain versions, main-path shapes")
     with torch.inference_mode():
-        rows = [check_fused_stage0(model, gen)]
+        rows = [check_fused_stage0(model, gen), check_stems(model, gen)]
         row_b, volume = check_gwc_volume(model, gen)
         row_c = check_stem_agg(model, volume)
         del volume
         rows += [row_b, row_c, check_volume_stem_agg(model, gen)]
         row_g, downs = check_down_pairs(model, gen)
-        rows += [row_g, check_up_pairs(model, gen, downs)]
+        rows += [row_g, check_up_pairs(model, gen, downs),
+                 check_mixer(model, gen)]
         for r in rows:
+            lib = r["library_ms"]
+            lib = "none" if lib is None else f"{lib:.4f} ms"
             print(f"  {r['name']}: {r['ms']:.4f} ms (plain "
-                  f"{r['plain_ms']:.4f} ms, library {r['library_ms']}, "
+                  f"{r['plain_ms']:.4f} ms, library {lib}, "
                   f"bound {r['bound_ms']:.4f} ms by {r['bound_by']})")
             for lv in r.get("levels", []):
                 print(f"    level {lv['level']}: {lv['ms']:.4f} ms (plain "
                       f"{lv['plain_ms']:.4f} ms, library "
                       f"{lv['library_ms']:.4f} ms, bound "
                       f"{lv['bound_ms']:.4f} ms by {lv['bound_by']})")
+        row_e = next(r for r in rows if r["name"] == "volume_stem_agg")
         print(f"  volume_stem_agg beside kernels B + C on the same inputs: "
-              f"{rows[3]['ms']:.4f} ms against {rows[3]['b_plus_c_ms']:.4f} "
-              f"ms")
+              f"{row_e['ms']:.4f} ms against {row_e['b_plus_c_ms']:.4f} ms")
         print("  ragged shapes:")
         check_ragged(model, gen)
 
-    # the two paths, then each switch alone
-    for name, config in (("default", ESMStereoConfig()), ("fused", FUSED),
+    # the three paths, then each switch alone
+    paths = {"default": ESMStereoConfig(), "fused": FUSED, "all": ALL}
+    for name, config in (*paths.items(),
                          *((f"{k} alone", ESMStereoConfig(**{k: True}))
-                           for k in ("fuse_volume_agg", "fuse_hourglass",
-                                     "fuse_hourglass_up"))):
+                           for k in SWITCHES)):
         print(f"[4] {name} model on the card against the CPU, 128x256")
         check_against_cpu(gen, config)
 
-    fused = ESMStereo(FUSED, device="cuda", seed=SEED)
-    fused.load_state_dict(model.state_dict())
+    nets = {"default": model}
+    for name in ("fused", "all"):
+        nets[name] = ESMStereo(paths[name], device="cuda", seed=SEED)
+        nets[name].load_state_dict(model.state_dict())
     kernels = wrappers()
     launches = {}
-    for name, net in (("default", model), ("fused", fused)):
+    for name, net in nets.items():
         print(f"[5] {name} path: {REQUESTS} requests through "
               f"InferenceRunner, {FRAME[0]}x{FRAME[1]} padded to "
               f"{PADDED[0]}x{PADDED[1]}")
@@ -533,20 +641,20 @@ def main() -> int:
         torch.cuda.synchronize()
         launches[name] = {k: fn.launches for k, fn in kernels.items()}
         print(f"  launches on the {name} path: {launches[name]}")
-    # wrapper calls per request: G runs at 3 levels, H at 2
+    # wrapper calls per request: G runs at 3 levels, H at 2; every other
+    # kernel of the port must stay at 0 on that path
+    fused_want = {"fused_stage0": 1, "volume_stem_agg": 1, "down_pair": 3,
+                  "up_pair": 2}
     want = {"default": {"fused_stage0": 1, "gwc_volume": 1, "stem_agg": 1},
-            "fused": {"fused_stage0": 1, "volume_stem_agg": 1,
-                      "down_pair": 3, "up_pair": 2}}
+            "fused": fused_want,
+            "all": {**fused_want, "stems": 1, "mixer": 1}}
     for path, per_request in want.items():
         for k, n in launches[path].items():
-            if k in per_request:
-                require(n >= per_request[k] * REQUESTS,
-                        f"{k} launched {n} times in {REQUESTS} requests "
-                        f"on the {path} path")
-            elif path == "fused":
-                require(n == 0, f"{k} launched {n} times on the fused path")
+            require(n == per_request.get(k, 0) * REQUESTS,
+                    f"{k} launched {n} times in {REQUESTS} requests on the "
+                    f"{path} path (want {per_request.get(k, 0)} a request)")
     for r in rows:
-        path = "default" if r["name"] in want["default"] else "fused"
+        path = next(p for p in want if r["name"] in want[p])
         r["launches"] = launches[path][r["name"]]
         r["path"] = path
 

@@ -2,6 +2,7 @@
 
     python -m esmstereo_tpu_torch.eval.profile [--frames 10] [--top 25]
         [--fuse-volume-agg] [--fuse-hourglass] [--fuse-hourglass-up]
+        [--fuse-stems] [--fuse-mixer]
 
 Builds the L model with seeded weights on the card, runs ``--frames``
 forward passes on device-resident inputs under ``torch.profiler``, and
@@ -18,6 +19,11 @@ the JAX model:
                         place of B + C)
   --fuse-hourglass      each hourglass down level as kernel G
   --fuse-hourglass-up   each hourglass up level as kernel H
+  --fuse-stems          stem_2 + stem_4 as kernel F
+  --fuse-mixer          the upsampler's ShuffleMixer section as kernel I
+
+All five together are the configuration that runs every kernel the model
+can reach (A, E, F, G, H and I).
 """
 
 from __future__ import annotations
@@ -54,10 +60,16 @@ def main() -> None:
                     help="the hourglass down levels as kernel G")
     ap.add_argument("--fuse-hourglass-up", action="store_true",
                     help="the hourglass up levels as kernel H")
+    ap.add_argument("--fuse-stems", action="store_true",
+                    help="stem_2 + stem_4 as kernel F")
+    ap.add_argument("--fuse-mixer", action="store_true",
+                    help="the upsampler's ShuffleMixer section as kernel I")
     args = ap.parse_args()
     config = ESMStereoConfig(fuse_volume_agg=args.fuse_volume_agg,
                              fuse_hourglass=args.fuse_hourglass,
-                             fuse_hourglass_up=args.fuse_hourglass_up)
+                             fuse_hourglass_up=args.fuse_hourglass_up,
+                             fuse_stems=args.fuse_stems,
+                             fuse_mixer=args.fuse_mixer)
     if not torch.cuda.is_available():
         raise SystemExit("profile: no CUDA device")
     torch.backends.cudnn.allow_tf32 = False

@@ -13,8 +13,9 @@ weights across by path.
 
 Hand-written kernels carry the path (``ops.kernels``): the fused backbone
 head (inside ``FeaturePyramid``), the volume and group_stem + agg; with the
-config's ``fuse_*`` switches, the volume built inside group_stem and the
-hourglass levels. On CPU tensors their plain PyTorch versions run.
+config's ``fuse_*`` switches, the volume built inside group_stem, the
+hourglass levels, the stem_2 + stem_4 towers and the upsampler's
+ShuffleMixer section. On CPU tensors their plain PyTorch versions run.
 """
 
 from __future__ import annotations
@@ -33,7 +34,8 @@ from esmstereo_tpu_torch.nn.blocks import (Conv2x, ConvBlock, StemBlock,
 from esmstereo_tpu_torch.nn.init import init_model_
 from esmstereo_tpu_torch.nn.shufflemixer import FMBlock, PixelShuffleUp
 from esmstereo_tpu_torch.ops.kernels import (correlation, fused_agg_stem,
-                                             fused_hourglass)
+                                             fused_hourglass, fused_mixer,
+                                             fused_stems)
 from esmstereo_tpu_torch.ops.regression import regression_topk
 from esmstereo_tpu_torch.ops.sampling import resize_bilinear
 
@@ -45,14 +47,17 @@ class ESMStereoConfig:
     ported; anything else raises ``NotImplementedError`` (so
     ``fuse_volume_agg`` runs with the gwc volume only).
 
-    The three ``fuse_*`` switches are the JAX config's opt-in kernel paths
-    (``esmstereo_tpu/models/esmstereo.py:129,150-151``), off by default
-    there and here: ``fuse_volume_agg`` builds the volume inside
-    group_stem (kernel E in place of B + C); ``fuse_hourglass`` runs each
-    hourglass down level as kernel G and ``fuse_hourglass_up`` each up level
-    as kernel H. Each computes the same function as the default path, and
-    they combine freely: ``chip_smoke.py`` holds the card against the CPU
-    with all three off, all three on and each one alone."""
+    The five ``fuse_*`` switches are the JAX config's opt-in kernel paths
+    (``esmstereo_tpu/models/esmstereo.py:95,129,150-151,163``), off by
+    default there and here: ``fuse_stems`` runs stem_2 + stem_4 as kernel
+    F; ``fuse_volume_agg`` builds the volume inside group_stem (kernel E in
+    place of B + C); ``fuse_hourglass`` runs each hourglass down level as
+    kernel G and ``fuse_hourglass_up`` each up level as kernel H;
+    ``fuse_mixer`` runs the upsampler's to_feat -> FMBlock x2 -> shuffle-up
+    section as kernel I. Each computes the same function as the default
+    path, and they combine freely: ``chip_smoke.py`` holds the card against
+    the CPU with all off, with the cost-volume three, with all five and
+    with each one alone."""
 
     max_disp: int = 192
     cost_volume: str = "gwc"
@@ -64,6 +69,8 @@ class ESMStereoConfig:
     fuse_volume_agg: bool = False
     fuse_hourglass: bool = False
     fuse_hourglass_up: bool = False
+    fuse_stems: bool = False
+    fuse_mixer: bool = False
 
     def __post_init__(self):
         got = (self.cost_volume, self.backbone, self.cv_scale,
@@ -248,14 +255,20 @@ class SpxBlock(nn.Module):
 
 class _UpStage(nn.Module):
     """One x2 ESM stage: disparity features -> fuse -> (mix) -> shuffle-up ->
-    tail -> hourglass refinement -> bilinear-up skip + residual."""
+    tail -> hourglass refinement -> bilinear-up skip + residual.
+
+    In eval mode ``fuse_mixer`` runs to_feat -> FMBlock x2 -> shuffle-up as
+    kernel I, as ``PhUpStage2x`` does
+    (``esmstereo_tpu/models/phased_upsample.py:489-498``)."""
 
     def __init__(self, fuse_ch: int, f1_ch: int, f2_ch: int, dm_ch: int,
-                 spx_out: int, n_feats: int, use_mixer: bool, device=None):
+                 spx_out: int, n_feats: int, use_mixer: bool, device=None,
+                 fuse_mixer: bool = False):
         super().__init__()
         self.dm = DispFeatures(dm_ch, device)
         self.spx = SpxBlock(dm_ch + fuse_ch, dm_ch, spx_out, device)
         self.use_mixer = use_mixer
+        self.fuse_mixer = fuse_mixer and use_mixer
         if use_mixer:
             self.to_feat = TorchConv(spx_out, n_feats, 3, 1, 1, device=device)
             self.block0 = FMBlock(n_feats, 7, 2, device)
@@ -268,9 +281,16 @@ class _UpStage(nn.Module):
 
     def forward(self, disp, fuse_feat, ref_f1, ref_f2):
         x = self.spx(torch.cat([self.dm(disp), fuse_feat], dim=1))
-        if self.use_mixer:
-            x = self.block1(self.block0(self.to_feat(x)))
-        x = self.tail(self.up(x))
+        if self.fuse_mixer and not self.training:
+            consts = folded_once(self, fused_mixer.prepare_consts,
+                                 self.to_feat, self.block0, self.block1,
+                                 self.up)
+            x = fused_mixer.mixer(x, consts)
+        else:
+            if self.use_mixer:
+                x = self.block1(self.block0(self.to_feat(x)))
+            x = self.up(x)
+        x = self.tail(x)
         x = self.ref(x, ref_f1, ref_f2)
         h, w = disp.shape[2] * 2, disp.shape[3] * 2
         return resize_bilinear(disp, (h, w)) + x
@@ -279,9 +299,11 @@ class _UpStage(nn.Module):
 class Upsample4(nn.Module):
     """x4 ESM upsampler, two x2 stages (``ESMStereo.py:242-318``)."""
 
-    def __init__(self, f1_ch: int, f2_ch: int, f4_ch: int, device=None):
+    def __init__(self, f1_ch: int, f2_ch: int, f4_ch: int, device=None,
+                 fuse_mixer: bool = False):
         super().__init__()
-        self.stage2x = _UpStage(f2_ch, f1_ch, f2_ch, 32, 32, 16, True, device)
+        self.stage2x = _UpStage(f2_ch, f1_ch, f2_ch, 32, 32, 16, True, device,
+                                fuse_mixer)
         self.stage4x = _UpStage(f4_ch, f2_ch, f4_ch, 32, 16, 16, False, device)
 
     def forward(self, f1x, f2x, f4x, init_disp):
@@ -292,6 +314,10 @@ class Upsample4(nn.Module):
 
 def _stem_agg_consts(model) -> dict:
     return fused_agg_stem.prepare_consts(model.group_stem, model.agg)
+
+
+def _stems_consts(model) -> dict:
+    return fused_stems.prepare_consts(model.stem_2, model.stem_4)
 
 
 class ESMStereo(nn.Module):
@@ -325,7 +351,8 @@ class ESMStereo(nn.Module):
         self.aggregation_out = Aggregation3D(
             red, 16, dev, fuse_pairs=config.fuse_hourglass,
             fuse_up=config.fuse_hourglass_up)
-        self.upsample_module = Upsample4(2 * chans[2], 2 * chans[1], 32, dev)
+        self.upsample_module = Upsample4(2 * chans[2], 2 * chans[1], 32, dev,
+                                         fuse_mixer=config.fuse_mixer)
         if dev.type != "meta":
             init_model_(self, torch.Generator().manual_seed(seed))
         self.eval()
@@ -342,14 +369,20 @@ class ESMStereo(nn.Module):
         bsz = left.shape[0]
         both = torch.cat([left, right], dim=0).permute(0, 3, 1, 2).contiguous()
         f_both = self.feature_up(self.feature(both))
-        s2 = self.stem_2(both)
-        s4 = self.stem_4(s2)
+        approx = blocks.GELU_APPROXIMATE
+        if self.config.fuse_stems:
+            # kernel F: each conv_down map stays in shared memory
+            consts = folded_once(self, _stems_consts, self.stem_2,
+                                 self.stem_4)
+            s2, s4 = fused_stems.stems(both, consts, approx)
+        else:
+            s2 = self.stem_2(both)
+            s4 = self.stem_4(s2)
         m = self.desc(self.conv(torch.cat([f_both[0], s4], dim=1)))
         match_l, match_r = m[:bsz], m[bsz:]
 
         consts = folded_once(self, _stem_agg_consts, self.group_stem,
                              self.agg)
-        approx = blocks.GELU_APPROXIMATE
         if self.config.fuse_volume_agg:
             # kernel E: the 32-group volume never reaches device memory
             volume = fused_agg_stem.volume_stem_agg(

@@ -10,6 +10,10 @@ PyTorch version.
     (``fuse_hourglass``)
   * ``fused_hourglass.up_pair``         kernel H, one hourglass up level
     (``fuse_hourglass_up``)
+  * ``fused_stems.stems``               kernel F, stem_2 + stem_4
+    (``fuse_stems``)
+  * ``fused_mixer.mixer``               kernel I, the upsampler's ShuffleMixer
+    section (``fuse_mixer``)
 
 A wrapper runs the plain version when its tensors lie on the CPU and
 launches its kernel when they lie on a CUDA device, raising on anything the
@@ -31,13 +35,16 @@ def wrappers() -> dict:
     """``{kernel name: wrapper}`` for the kernels of the L eval paths."""
     from esmstereo_tpu_torch.ops.kernels import correlation, fused_agg_stem
     from esmstereo_tpu_torch.ops.kernels import fused_head, fused_hourglass
+    from esmstereo_tpu_torch.ops.kernels import fused_mixer, fused_stems
 
     return {"fused_stage0": fused_head.fused_stage0,
             "gwc_volume": correlation.gwc_volume,
             "stem_agg": fused_agg_stem.stem_agg,
             "volume_stem_agg": fused_agg_stem.volume_stem_agg,
             "down_pair": fused_hourglass.down_pair,
-            "up_pair": fused_hourglass.up_pair}
+            "up_pair": fused_hourglass.up_pair,
+            "stems": fused_stems.stems,
+            "mixer": fused_mixer.mixer}
 
 
 def on_cuda(what: str, *tensors: torch.Tensor) -> bool:

@@ -1,0 +1,111 @@
+"""Kernel F: the stem_2 + stem_4 matching towers (``csrc/fused_stems.cu``).
+
+Replaces ``esmstereo_tpu/ops/pallas/fused_stems.py::fused_stems_apply``.
+Each StemBlock is a 3x3 stride-2 conv + BN + GELU, then a 3x3 conv + BN +
+ReLU; stem_2 takes 3 -> 32 channels, stem_4 32 -> 48. ``prepare_consts``
+folds the eval BatchNorms into the four conv weights, as
+``prepare_stems_consts`` there does (``:79``); the TPU's block-diagonal
+matrices and lane packing are not ported. The weights are kept in the
+kernel's ``(CI, 3, 3, CO)`` order, and the plain version reads that order
+too, so the CPU tests exercise it.
+
+On CUDA a call launches two kernels, one per StemBlock, each with its
+conv_down map in shared memory only; it counts as one launch. H and W
+must be multiples of 4 (the model pads to /32); anything else raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from esmstereo_tpu_torch.nn.blocks import fold_bn
+from esmstereo_tpu_torch.ops.kernels import _build, on_cuda, stream_handle
+from esmstereo_tpu_torch.ops.kernels.activations import gelu
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_KEYS = ("wd2", "td2", "wc2", "tc2", "wd4", "td4", "wc4", "tc4")
+# (CI, CO) of each StemBlock the kernel is written for
+_WIDTHS = {"2": (3, 32), "4": (32, 48)}
+
+
+def prepare_consts(stem_2, stem_4) -> dict:
+    """BN-folded weights of the two ``StemBlock`` modules: ``wd*`` (conv_down)
+    and ``wc*`` (conv) as ``(CI, 3, 3, CO)``, ``td*`` and ``tc*`` their
+    shifts."""
+    consts = {}
+    for s, stem in (("2", stem_2), ("4", stem_4)):
+        wd, td = fold_bn(stem.conv_down.conv.weight, stem.conv_down.bn)
+        wc, tc = fold_bn(stem.conv.weight, stem.bn)
+        consts.update({f"wd{s}": wd.permute(1, 2, 3, 0).contiguous(),
+                       f"td{s}": td.contiguous(),
+                       f"wc{s}": wc.permute(1, 2, 3, 0).contiguous(),
+                       f"tc{s}": tc.contiguous()})
+    return consts
+
+
+def _conv(x: torch.Tensor, k: torch.Tensor, t: torch.Tensor,
+          stride: int) -> torch.Tensor:
+    return F.conv2d(x, k.permute(3, 0, 1, 2), t, stride=stride, padding=1)
+
+
+def stems_plain(img: torch.Tensor, consts: dict, approximate: bool
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version: (B, 3, H, W) -> (stem_2 out (B, 32, H/2, W/2),
+    stem_4 out (B, 48, H/4, W/4))."""
+    outs = []
+    x = img
+    for s in ("2", "4"):
+        x = gelu(_conv(x, consts[f"wd{s}"], consts[f"td{s}"], 2), approximate)
+        x = F.relu(_conv(x, consts[f"wc{s}"], consts[f"tc{s}"], 1))
+        outs.append(x)
+    return outs[0], outs[1]
+
+
+def _check(img: torch.Tensor, consts: dict) -> None:
+    if img.ndim != 4 or img.shape[1] != 3 or img.shape[2] % 4 \
+            or img.shape[3] % 4 or img.shape[2] == 0 or img.shape[3] == 0:
+        raise ValueError(f"stems: image {tuple(img.shape)}; the kernel takes "
+                         f"(B, 3, H, W) with H and W multiples of 4")
+    for s, (ci, co) in _WIDTHS.items():
+        want = {f"wd{s}": (ci, 3, 3, co), f"td{s}": (co,),
+                f"wc{s}": (co, 3, 3, co), f"tc{s}": (co,)}
+        for k, shape in want.items():
+            if tuple(consts[k].shape) != shape:
+                raise ValueError(f"stems: {k} {tuple(consts[k].shape)}, the "
+                                 f"kernel takes {shape}")
+
+
+@functools.cache
+def _fn():
+    fn = _build.load("fused_stems").fused_stems
+    fn.argtypes = [_P] * 11 + [_I] * 4 + [_P]
+    fn.restype = _I
+    return fn
+
+
+def stems(img: torch.Tensor, consts: dict, approximate: bool
+          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, 3, H, W) -> ((B, 32, H/2, W/2), (B, 48, H/4, W/4)): the kernel on
+    CUDA tensors, the plain version on CPU tensors."""
+    _check(img, consts)
+    if not on_cuda("stems", img, *(consts[k] for k in _KEYS)):
+        return stems_plain(img, consts, approximate)
+    b, _, h, w = img.shape
+    s2 = torch.empty((b, 32, h // 2, w // 2), device=img.device,
+                     dtype=torch.float32)
+    s4 = torch.empty((b, 48, h // 4, w // 4), device=img.device,
+                     dtype=torch.float32)
+    err = _fn()(img.data_ptr(), *(consts[k].data_ptr() for k in _KEYS),
+                s2.data_ptr(), s4.data_ptr(), b, h, w, int(approximate),
+                stream_handle(img))
+    _build.check(err, "stems")
+    stems.launches += 1
+    return s2, s4
+
+
+stems.launches = 0

@@ -162,7 +162,8 @@ def test_fused_slice_matches_jax():
 
 def test_fused_wrappers_guard_and_launch_nothing_on_cpu():
     assert set(wrappers()) == {"fused_stage0", "gwc_volume", "stem_agg",
-                               "volume_stem_agg", "down_pair", "up_pair"}
+                               "volume_stem_agg", "down_pair", "up_pair",
+                               "stems", "mixer"}
     with pytest.raises(NotImplementedError):
         ESMStereoConfig(cost_volume="norm_correlation", **FUSED)
     model = ESMStereo(ESMStereoConfig(**FUSED), device="cpu", seed=4)

@@ -212,7 +212,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         fused_head.fused_stage0(torch.zeros(1, 3, 5, 8), {})
     assert set(wrappers()) == {"fused_stage0", "gwc_volume", "stem_agg",
-                               "volume_stem_agg", "down_pair", "up_pair"}
+                               "volume_stem_agg", "down_pair", "up_pair",
+                               "stems", "mixer"}
     # CPU calls run the plain versions and launch nothing
     correlation.gwc_volume(x, x, 4, 32)
     assert all(fn.launches == 0 for fn in wrappers().values())
