@@ -1,22 +1,27 @@
-// Kernel E: the group-wise correlation volume built inside group_stem, fp32.
-// The (B, G, D, H, W) volume is never written to device memory.
+// Kernel E: the correlation volume built inside group_stem (corr_stem for
+// norm-correlation), fp32. The (B, G, D, H, W) volume is never written to
+// device memory.
 //
 // Replaces esmstereo_tpu/ops/pallas/fused_agg_stem.py::
-// folded_volume_stem_agg_apply (pallas_call at :486), gwc form, in the
-// unfolded layout. The wrapper (ops/kernels/fused_agg_stem.py::
-// volume_stem_agg) launches this kernel, which builds each block's volume
-// slab in shared memory from the descriptors and applies group_stem
+// folded_volume_stem_agg_apply (pallas_call at :486), in its gwc form (G = 32)
+// and its norm-correlation form (G = 1, normalised), in the unfolded layout.
+// The wrapper (ops/kernels/fused_agg_stem.py::volume_stem_agg) launches, for
+// the normalised form, kernel B's l2_normalize_groups (csrc/correlation.cu)
+// into scratch, as JAX E normalises outside its pallas_call
+// (fused_agg_stem.py:359-364); then this kernel, which builds each block's
+// volume slab in shared memory from the descriptors and applies group_stem
 // (G -> 8 channels, 3x3x3, BN folded, GELU), writing the 8-channel
 // intermediate; then kernel C's 8 -> 8 conv (csrc/fused_hourglass.cu) for agg.
 // The volume is, as in kernel B (csrc/correlation.cu),
 //     V[b, g, d, h, w] = mean_{c in group g} ref[b, c, h, w] * tgt[b, c, h, w - d]
 // with 0 where w < d, and the conv's zero padding outside the volume.
 //
-// What bounds it on an H100: operations. On the L main path (D=48 at
+// What bounds it on an H100: operations. On the L gwc path (D=48 at
 // 136 x 248) group_stem is 27 * 32 * 8 multiply-adds per voxel, about
 // 22 GFLOP, against 2 x 8.6 MB of descriptors read and 52 MB written; the
 // volume build adds 2 multiply-adds per volume entry. Kernels B + C move the
-// 207 MB volume twice for the same result.
+// 207 MB volume twice for the same result. At G = 1 group_stem is only
+// 27 * 8 multiply-adds per voxel and the volume build 64 per entry.
 //
 // Design for that: a direct conv on the tile of csrc/fused_hourglass.cu,
 // with the volume slab built in place of the load. Each block owns a 32 x 4
@@ -25,10 +30,14 @@
 // (h, w) column and keeps kDc * 8 sums in registers. For each group the
 // block stages the group's reference channels over the tile plus a 1-pixel
 // halo, and its target channels over the columns w - d that the slab's
-// (d, w) pairs reach (B's target window, cut to the depth chunk). It then
-// forms the (kDc+2) x 6 x 34 volume slab with B's arithmetic (fp32 products
-// summed in channel order, times 1/(C/G)), bit for bit B's values, and runs
-// the 27 taps over it.
+// (d, w) pairs reach (B's target window, cut to the depth chunk), at most
+// kChunk channels at a time: a G = 1 group's 64 channels staged whole would
+// take about 118 KB, far above the 48 KB of static shared memory. Each chunk
+// adds its products to the (kDc+2) x 6 x 34 slab's sums in shared memory,
+// continuing each sum in channel order, so the slab holds B's arithmetic
+// (fp32 products summed in channel order, times 1/(C/G)) bit for bit; the
+// gwc group (2 channels) is a single chunk. The 27 taps then run over the
+// slab.
 #include <cuda_runtime.h>
 
 #include "activations.cuh"
@@ -44,6 +53,7 @@ constexpr int kSd = kDc + 2;
 // target columns over the slab: w - d for w in [w0-1, w0+kTw+1) and
 // d in [d0-1, d0+kDc+1); slab entry (sd, sw) reads column sw - sd + kSd - 1
 constexpr int kTgtW = kSw + kSd - 1;
+constexpr int kMaxChunk = 8;   // channels of a group staged at once
 
 template <int C, int G, int CO>
 __global__ void __launch_bounds__(kTw * kTh)
@@ -55,10 +65,12 @@ volume_group_stem_kernel(const float* __restrict__ ref,
                          int approximate) {
     // wgt: [CO][G][27] (BN scale folded); shift: [CO]; wsh: [G][27][CO]
     constexpr int kCpg = C / G;
+    constexpr int kChunk = kCpg < kMaxChunk ? kCpg : kMaxChunk;
+    static_assert(kCpg % kChunk == 0, "a group splits into whole chunks");
     constexpr int kThreads = kTw * kTh;
     __shared__ float wsh[G * 27 * CO];
-    __shared__ float rsh[kCpg * kSh * kSw];
-    __shared__ float tsh[kCpg * kSh * kTgtW];
+    __shared__ float rsh[kChunk * kSh * kSw];
+    __shared__ float tsh[kChunk * kSh * kTgtW];
     __shared__ float vsh[kSd * kSh * kSw];
 
     const int tilesW = (W + kTw - 1) / kTw;
@@ -86,45 +98,55 @@ volume_group_stem_kernel(const float* __restrict__ ref,
     const float inv = 1.0f / kCpg;
 
     for (int g = 0; g < G; ++g) {
-        __syncthreads();  // previous slab fully consumed (and weights loaded)
-        for (int i = tid; i < kCpg * kSh * kSw; i += kThreads) {
-            const int sw = i % kSw;
-            const int sh = (i / kSw) % kSh;
-            const int k = i / (kSw * kSh);
-            const int gh = h0 - 1 + sh, gw = w0 - 1 + sw;
-            rsh[i] = (gh >= 0 && gh < H && gw >= 0 && gw < W)
-                         ? rb[(size_t)(g * kCpg + k) * plane
-                              + (size_t)gh * W + gw]
-                         : 0.0f;
-        }
-        for (int i = tid; i < kCpg * kSh * kTgtW; i += kThreads) {
-            const int tw = i % kTgtW;
-            const int sh = (i / kTgtW) % kSh;
-            const int k = i / (kTgtW * kSh);
-            const int gh = h0 - 1 + sh, gw = tw0 + tw;
-            // columns left of the image are the zeros that make w < d vanish
-            tsh[i] = (gh >= 0 && gh < H && gw >= 0 && gw < W)
-                         ? tb[(size_t)(g * kCpg + k) * plane
-                              + (size_t)gh * W + gw]
-                         : 0.0f;
-        }
-        __syncthreads();
-        for (int i = tid; i < kSd * kSh * kSw; i += kThreads) {
-            const int sw = i % kSw;
-            const int sh = (i / kSw) % kSh;
-            const int sd = i / (kSw * kSh);
-            const int gd = d0 - 1 + sd, gh = h0 - 1 + sh, gw = w0 - 1 + sw;
-            float v = 0.0f;   // the conv's zero padding outside the volume
-            if (gd >= 0 && gd < D && gh >= 0 && gh < H && gw >= 0 && gw < W) {
-                float s = 0.0f;
-#pragma unroll
-                for (int k = 0; k < kCpg; ++k)
-                    s = fmaf(rsh[(k * kSh + sh) * kSw + sw],
-                             tsh[(k * kSh + sh) * kTgtW + sw - sd + kSd - 1],
-                             s);
-                v = s * inv;
+        for (int k0 = 0; k0 < kCpg; k0 += kChunk) {
+            // previous chunk (or the previous group's slab) fully consumed,
+            // and the weights loaded
+            __syncthreads();
+            const int c0 = g * kCpg + k0;
+            for (int i = tid; i < kChunk * kSh * kSw; i += kThreads) {
+                const int sw = i % kSw;
+                const int sh = (i / kSw) % kSh;
+                const int k = i / (kSw * kSh);
+                const int gh = h0 - 1 + sh, gw = w0 - 1 + sw;
+                rsh[i] = (gh >= 0 && gh < H && gw >= 0 && gw < W)
+                             ? rb[(size_t)(c0 + k) * plane
+                                  + (size_t)gh * W + gw]
+                             : 0.0f;
             }
-            vsh[i] = v;
+            for (int i = tid; i < kChunk * kSh * kTgtW; i += kThreads) {
+                const int tw = i % kTgtW;
+                const int sh = (i / kTgtW) % kSh;
+                const int k = i / (kTgtW * kSh);
+                const int gh = h0 - 1 + sh, gw = tw0 + tw;
+                // columns left of the image are the zeros that make w < d
+                // vanish
+                tsh[i] = (gh >= 0 && gh < H && gw >= 0 && gw < W)
+                             ? tb[(size_t)(c0 + k) * plane
+                                  + (size_t)gh * W + gw]
+                             : 0.0f;
+            }
+            __syncthreads();
+            const bool last = k0 + kChunk == kCpg;
+            // each thread owns the same slab entries in every chunk
+            for (int i = tid; i < kSd * kSh * kSw; i += kThreads) {
+                const int sw = i % kSw;
+                const int sh = (i / kSw) % kSh;
+                const int sd = i / (kSw * kSh);
+                const int gd = d0 - 1 + sd, gh = h0 - 1 + sh,
+                          gw = w0 - 1 + sw;
+                float v = 0.0f;   // the conv's zero padding outside the volume
+                if (gd >= 0 && gd < D && gh >= 0 && gh < H && gw >= 0
+                        && gw < W) {
+                    float s = k0 == 0 ? 0.0f : vsh[i];
+#pragma unroll
+                    for (int k = 0; k < kChunk; ++k)
+                        s = fmaf(rsh[(k * kSh + sh) * kSw + sw],
+                                 tsh[(k * kSh + sh) * kTgtW + sw - sd + kSd - 1],
+                                 s);
+                    v = last ? s * inv : s;
+                }
+                vsh[i] = v;
+            }
         }
         __syncthreads();
         const float* wc = wsh + g * 27 * CO;
@@ -168,22 +190,35 @@ volume_group_stem_kernel(const float* __restrict__ ref,
     }
 }
 
+template <int C, int G>
+int launch(const float* ref, const float* tgt, const float* wgt,
+           const float* shift, float* y, int B, int D, int H, int W,
+           int approximate, cudaStream_t stream) {
+    const int tiles = ((W + kTw - 1) / kTw) * ((H + kTh - 1) / kTh);
+    const dim3 grid(tiles, (D + kDc - 1) / kDc, B);
+    const dim3 block(kTw, kTh);
+    volume_group_stem_kernel<C, G, 8><<<grid, block, 0, stream>>>(
+        ref, tgt, wgt, shift, y, D, H, W, approximate);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// ref, tgt: (B, C, H, W); wgt: (CO, G, 3, 3, 3) with the BN scale folded in;
-// shift: (CO,); y: (B, CO, D, H, W). All fp32, contiguous.
-// Returns a cudaError_t; cudaErrorInvalidValue for an unsupported (C, G, CO).
+// ref, tgt: (B, C, H, W), normalised beforehand for norm-correlation; wgt:
+// (CO, G, 3, 3, 3) with the BN scale folded in; shift: (CO,); y: (B, CO, D,
+// H, W). All fp32, contiguous. Returns a cudaError_t; cudaErrorInvalidValue
+// for an unsupported (C, G, CO).
 extern "C" int volume_group_stem(const float* ref, const float* tgt,
                                  const float* wgt, const float* shift,
                                  float* y, int B, int C, int G, int CO, int D,
                                  int H, int W, int approximate,
                                  cudaStream_t stream) {
-    if (C != 64 || G != 32 || CO != 8 || D < 1)
-        return (int)cudaErrorInvalidValue;
-    const int tiles = ((W + kTw - 1) / kTw) * ((H + kTh - 1) / kTh);
-    const dim3 grid(tiles, (D + kDc - 1) / kDc, B);
-    const dim3 block(kTw, kTh);
-    volume_group_stem_kernel<64, 32, 8><<<grid, block, 0, stream>>>(
-        ref, tgt, wgt, shift, y, D, H, W, approximate);
-    return (int)cudaGetLastError();
+    if (CO != 8 || D < 1) return (int)cudaErrorInvalidValue;
+    if (C == 64 && G == 32)
+        return launch<64, 32>(ref, tgt, wgt, shift, y, B, D, H, W,
+                              approximate, stream);
+    if (C == 64 && G == 1)
+        return launch<64, 1>(ref, tgt, wgt, shift, y, B, D, H, W, approximate,
+                             stream);
+    return (int)cudaErrorInvalidValue;
 }

@@ -1,10 +1,12 @@
-"""Where a frame's device time goes: ESMStereo-L eval at 544x992, batch 1.
+"""Where a frame's device time goes: ESMStereo eval at 544x992, batch 1.
 
     python -m esmstereo_tpu_torch.eval.profile [--frames 10] [--top 25]
+        [--cv-scale {4,8}] [--cost-volume {gwc,norm_correlation}]
         [--fuse-volume-agg] [--fuse-hourglass] [--fuse-hourglass-up]
         [--fuse-stems] [--fuse-mixer]
 
-Builds the L model with seeded weights on the card, runs ``--frames``
+Builds the model (L at ``--cv-scale 4``, the default; M at 8) with the
+chosen cost volume and seeded weights on the card, runs ``--frames``
 forward passes on device-resident inputs under ``torch.profiler``, and
 prints the device time per frame by kernel name (sorted, with shares), the
 device busy share of the window, and the frame time from CUDA events
@@ -23,7 +25,8 @@ the JAX model:
   --fuse-mixer          the upsampler's ShuffleMixer section as kernel I
 
 All five together are the configuration that runs every kernel the model
-can reach (A, E, F, G, H and I).
+can reach (A, E, F, G, H and I at cv4; no I at cv8, where ``fuse_mixer``
+reaches nothing, as in JAX).
 """
 
 from __future__ import annotations
@@ -54,6 +57,10 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=10)
     ap.add_argument("--top", type=int, default=25)
+    ap.add_argument("--cv-scale", type=int, choices=(4, 8), default=4,
+                    help="4: ESMStereo-L, 8: ESMStereo-M")
+    ap.add_argument("--cost-volume", choices=("gwc", "norm_correlation"),
+                    default="gwc")
     ap.add_argument("--fuse-volume-agg", action="store_true",
                     help="kernel E in place of kernels B + C")
     ap.add_argument("--fuse-hourglass", action="store_true",
@@ -65,7 +72,9 @@ def main() -> None:
     ap.add_argument("--fuse-mixer", action="store_true",
                     help="the upsampler's ShuffleMixer section as kernel I")
     args = ap.parse_args()
-    config = ESMStereoConfig(fuse_volume_agg=args.fuse_volume_agg,
+    config = ESMStereoConfig(cv_scale=args.cv_scale,
+                             cost_volume=args.cost_volume,
+                             fuse_volume_agg=args.fuse_volume_agg,
                              fuse_hourglass=args.fuse_hourglass,
                              fuse_hourglass_up=args.fuse_hourglass_up,
                              fuse_stems=args.fuse_stems,

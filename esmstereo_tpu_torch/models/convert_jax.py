@@ -1,10 +1,11 @@
 """Weight bridge: JAX variables -> the port's ``state_dict``.
 
-``state_dict_from_jax(variables)`` takes the ``{"params", "batch_stats"}``
-tree of ``esmstereo_tpu.models.ESMStereo`` as nested dicts of numpy arrays
-(``jax.tree.map(np.asarray, variables)``) and returns the ``state_dict`` of
-``models.esmstereo.ESMStereo``. The port names its modules after the flax
-paths, so the bridge is a walk over the tree plus the layout transforms of
+``state_dict_from_jax(variables, config)`` takes the ``{"params",
+"batch_stats"}`` tree of ``esmstereo_tpu.models.ESMStereo`` as nested dicts
+of numpy arrays (``jax.tree.map(np.asarray, variables)``) and returns the
+``state_dict`` of ``models.esmstereo.ESMStereo(config)``. The port names
+its modules after the flax paths, so the bridge is a walk over the tree
+plus the layout transforms of
 ``esmstereo_tpu/models/convert_reference.py:13-18``, inverted:
 
   * conv kernel ``(*k, I, O)`` at ``<path>/Conv_0/kernel`` -> ``<path>.weight``
@@ -93,12 +94,15 @@ def check_against(sd: dict, expected: dict) -> None:
             for k in bad[:8]))
 
 
-def state_dict_from_jax(variables: dict) -> dict[str, torch.Tensor]:
-    """The port's ``ESMStereo`` ``state_dict`` from the variables of the JAX
-    ``ESMStereo`` in its default (L) configuration."""
-    from esmstereo_tpu_torch.models.esmstereo import ESMStereo
+def state_dict_from_jax(variables: dict, config=None
+                        ) -> dict[str, torch.Tensor]:
+    """The port's ``ESMStereo(config)`` ``state_dict`` from the variables of
+    the JAX ``ESMStereo`` in the same configuration (the default, L gwc,
+    when ``config`` is None), checked against that config's model."""
+    from esmstereo_tpu_torch.models.esmstereo import (ESMStereo,
+                                                      ESMStereoConfig)
 
     sd = convert_tree(variables)
-    model = ESMStereo(device="meta")
+    model = ESMStereo(config or ESMStereoConfig(), device="meta")
     check_against(sd, model.state_dict())
     return sd

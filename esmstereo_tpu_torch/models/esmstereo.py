@@ -1,9 +1,11 @@
-"""ESMStereo, L variant, eval mode (NCHW / NCDHW inside).
+"""ESMStereo, L and M variants, eval mode (NCHW / NCDHW inside).
 
-Counterpart of ``esmstereo_tpu/models/esmstereo.py`` for its cv4 branch:
-siamese feature pyramid -> FeatUp -> matching descriptors -> group-wise
-correlation volume -> group_stem + agg -> 3-D hourglass -> top-2
-regression -> ESM upsampling (ShuffleMixer + refinement) -> disparity x 4.
+Counterpart of ``esmstereo_tpu/models/esmstereo.py`` for its cv4 (L) and
+cv8 (M) branches: siamese feature pyramid -> FeatUp -> matching
+descriptors -> group-wise (gwc) or norm-correlation volume ->
+group_stem/corr_stem + agg -> 3-D hourglass -> regression (top-2 at cv4,
+the raw-cost weighted sum at cv8) -> ESM upsampling (ShuffleMixer +
+refinement, two x2 stages at cv4, three at cv8) -> disparity x 4.
 
 The TPU re-layouts of the JAX package (depth folding, phase folding,
 W-phase mixing) are not ported: the port computes the plain function,
@@ -14,7 +16,7 @@ weights across by path.
 Hand-written kernels carry the path (``ops.kernels``): the fused backbone
 head (inside ``FeaturePyramid``), the volume and group_stem + agg; with the
 config's ``fuse_*`` switches, the volume built inside group_stem, the
-hourglass levels, the stem_2 + stem_4 towers and the upsampler's
+hourglass levels, the stem_2 + stem_4 towers and the cv4 upsampler's
 ShuffleMixer section. On CPU tensors their plain PyTorch versions run.
 """
 
@@ -36,28 +38,31 @@ from esmstereo_tpu_torch.nn.shufflemixer import FMBlock, PixelShuffleUp
 from esmstereo_tpu_torch.ops.kernels import (correlation, fused_agg_stem,
                                              fused_hourglass, fused_mixer,
                                              fused_stems)
-from esmstereo_tpu_torch.ops.regression import regression_topk
+from esmstereo_tpu_torch.ops.regression import (disparity_regression,
+                                                regression_topk)
 from esmstereo_tpu_torch.ops.sampling import resize_bilinear
 
 
 @dataclasses.dataclass(frozen=True)
 class ESMStereoConfig:
-    """The configuration fields the port keeps. Only the L variant
-    (cv_scale 4, efficientnet_b2, gwc, 32 groups, reduction 8) in fp32 is
-    ported; anything else raises ``NotImplementedError`` (so
-    ``fuse_volume_agg`` runs with the gwc volume only).
+    """The configuration fields the port keeps. Ported, in fp32 with
+    efficientnet_b2, 32 groups and reduction 8: ``cv_scale`` 4 (L) or 8
+    (M), each with ``cost_volume`` ``"gwc"`` or ``"norm_correlation"``.
+    cv16, mobilenetv2_100 and bfloat16 raise ``NotImplementedError``; cv8
+    with another backbone raises ``ValueError``, as the JAX config does.
 
     The five ``fuse_*`` switches are the JAX config's opt-in kernel paths
     (``esmstereo_tpu/models/esmstereo.py:95,129,150-151,163``), off by
     default there and here: ``fuse_stems`` runs stem_2 + stem_4 as kernel
-    F; ``fuse_volume_agg`` builds the volume inside group_stem (kernel E in
-    place of B + C); ``fuse_hourglass`` runs each hourglass down level as
-    kernel G and ``fuse_hourglass_up`` each up level as kernel H;
-    ``fuse_mixer`` runs the upsampler's to_feat -> FMBlock x2 -> shuffle-up
-    section as kernel I. Each computes the same function as the default
-    path, and they combine freely: ``chip_smoke.py`` holds the card against
-    the CPU with all off, with the cost-volume three, with all five and
-    with each one alone."""
+    F (at cv8 stem_8 stays plain, on F's stem_4); ``fuse_volume_agg``
+    builds the volume inside group_stem or corr_stem (kernel E in place of
+    B + C); ``fuse_hourglass`` runs each hourglass down level as kernel G
+    and ``fuse_hourglass_up`` each up level as kernel H; ``fuse_mixer``
+    runs the cv4 upsampler's to_feat -> FMBlock x2 -> shuffle-up section as
+    kernel I. As in JAX (``PhUpsample8`` takes no such switch),
+    ``fuse_mixer`` changes nothing at cv8, where kernel I never launches.
+    Each switch computes the same function as the default path, and they
+    combine freely at both scales."""
 
     max_disp: int = 192
     cost_volume: str = "gwc"
@@ -73,12 +78,23 @@ class ESMStereoConfig:
     fuse_mixer: bool = False
 
     def __post_init__(self):
-        got = (self.cost_volume, self.backbone, self.cv_scale,
-               self.num_groups, self.reduction, self.dtype)
-        want = ("gwc", "efficientnet_b2", 4, 32, 8, "float32")
-        if got != want:
+        if self.cost_volume not in ("gwc", "norm_correlation"):
+            raise ValueError(f"cost_volume {self.cost_volume!r}")
+        if self.cv_scale not in (4, 8, 16):
+            raise ValueError(f"cv_scale {self.cv_scale}")
+        # the JAX config's variant/backbone constraints (esmstereo.py:189-197)
+        if self.cv_scale == 8 and self.backbone != "efficientnet_b2":
+            raise ValueError("cv_scale=8 requires efficientnet_b2 (the "
+                             "descriptor conv is sized for its /8 features)")
+        if self.cv_scale == 16 and self.backbone != "mobilenetv2_100":
+            raise ValueError("cv_scale=16 requires mobilenetv2_100")
+        rest = (self.backbone, self.num_groups, self.reduction, self.dtype)
+        if self.cv_scale == 16 or rest != ("efficientnet_b2", 32, 8,
+                                           "float32"):
             raise NotImplementedError(
-                f"this slice ports ESMStereo-L only {want}; got {got}")
+                "the port runs L and M (cv_scale 4 or 8 with efficientnet_b2, "
+                f"32 groups, reduction 8, float32); got cv_scale "
+                f"{self.cv_scale}, {rest}")
         if self.max_disp % self.cv_scale:
             raise ValueError(f"max_disp {self.max_disp} is not a multiple "
                              f"of cv_scale {self.cv_scale}")
@@ -90,23 +106,32 @@ def _crop_like(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
 
 
 class FeatUp(nn.Module):
-    """Top-down fusion of the pyramid for cv_scale 4 (``ESMStereo.py:79-125``):
-    ``[x2, x4, x8, x16, x32] -> [x4, x8, x16, x32]``."""
+    """Top-down fusion of the pyramid (``ESMStereo.py:79-125``):
+    ``[x2, x4, x8, x16, x32] -> [x4, x8, x16, x32]``, fused down to /4 at
+    cv_scale 4 and to /8 at cv_scale 8 (where x4 stays the backbone's)."""
 
-    def __init__(self, chans, device=None):
+    def __init__(self, chans, cv_scale: int = 4, device=None):
         super().__init__()
         c = chans
+        self.cv_scale = cv_scale
         self.deconv32_16 = Conv2x(c[4], c[3], c[3], device)
         self.deconv16_8 = Conv2x(2 * c[3], c[2], c[2], device)
-        self.deconv8_4 = Conv2x(2 * c[2], c[1], c[1], device)
-        self.conv4 = ConvBlock(2 * c[1], 2 * c[1], 3, 1, 1, init_mode="msra",
-                               device=device)
+        if cv_scale == 8:
+            self.conv8 = ConvBlock(2 * c[2], 2 * c[2], 3, 1, 1,
+                                   init_mode="msra", device=device)
+        else:
+            self.deconv8_4 = Conv2x(2 * c[2], c[1], c[1], device)
+            self.conv4 = ConvBlock(2 * c[1], 2 * c[1], 3, 1, 1,
+                                   init_mode="msra", device=device)
 
     def forward(self, feats):
         _, x4, x8, x16, x32 = feats
         x16 = self.deconv32_16(x32, x16)
         x8 = self.deconv16_8(x16, x8)
-        x4 = self.conv4(self.deconv8_4(x8, x4))
+        if self.cv_scale == 8:
+            x8 = self.conv8(x8)
+        else:
+            x4 = self.conv4(self.deconv8_4(x8, x4))
         return [x4, x8, x16, x32]
 
 
@@ -262,8 +287,8 @@ class _UpStage(nn.Module):
     (``esmstereo_tpu/models/phased_upsample.py:489-498``)."""
 
     def __init__(self, fuse_ch: int, f1_ch: int, f2_ch: int, dm_ch: int,
-                 spx_out: int, n_feats: int, use_mixer: bool, device=None,
-                 fuse_mixer: bool = False):
+                 spx_out: int, n_feats: int, ref_ch: int, use_mixer: bool,
+                 device=None, fuse_mixer: bool = False):
         super().__init__()
         self.dm = DispFeatures(dm_ch, device)
         self.spx = SpxBlock(dm_ch + fuse_ch, dm_ch, spx_out, device)
@@ -277,7 +302,7 @@ class _UpStage(nn.Module):
                                  2, device)
         self.tail = TorchConv(n_feats, 1, 3, 1, 1, use_bias=True,
                               device=device)
-        self.ref = UpRefinement(32, f1_ch, f2_ch, device)
+        self.ref = UpRefinement(ref_ch, f1_ch, f2_ch, device)
 
     def forward(self, disp, fuse_feat, ref_f1, ref_f2):
         x = self.spx(torch.cat([self.dm(disp), fuse_feat], dim=1))
@@ -302,9 +327,10 @@ class Upsample4(nn.Module):
     def __init__(self, f1_ch: int, f2_ch: int, f4_ch: int, device=None,
                  fuse_mixer: bool = False):
         super().__init__()
-        self.stage2x = _UpStage(f2_ch, f1_ch, f2_ch, 32, 32, 16, True, device,
-                                fuse_mixer)
-        self.stage4x = _UpStage(f4_ch, f2_ch, f4_ch, 32, 16, 16, False, device)
+        self.stage2x = _UpStage(f2_ch, f1_ch, f2_ch, 32, 32, 16, 32, True,
+                                device, fuse_mixer)
+        self.stage4x = _UpStage(f4_ch, f2_ch, f4_ch, 32, 16, 16, 32, False,
+                                device)
 
     def forward(self, f1x, f2x, f4x, init_disp):
         up2 = self.stage2x(init_disp, f2x, f1x, f2x)
@@ -312,16 +338,47 @@ class Upsample4(nn.Module):
         return up4, up2
 
 
+class Upsample8(nn.Module):
+    """x8 ESM upsampler, three x2 stages (``ESMStereo.py:320-428``). The
+    inputs are, as the JAX model passes them, FeatUp's x16 (``f2x``) and x8
+    (``f4x``), the backbone's x4 (``f8x``) and stem_2's map; it returns the
+    disparities at x8, x4 and x2 of ``init_disp``'s resolution."""
+
+    def __init__(self, f2_ch: int, f4_ch: int, f8_ch: int, stem_ch: int,
+                 device=None):
+        super().__init__()
+        self.stage2x = _UpStage(f4_ch, f2_ch, f4_ch, 16, 16, 8, 16, True,
+                                device)
+        self.stage4x = _UpStage(f8_ch, f4_ch, f8_ch, 16, 8, 8, 16, False,
+                                device)
+        self.stage8x = _UpStage(stem_ch, f8_ch, stem_ch, 16, 8, 8, 16, False,
+                                device)
+
+    def forward(self, f2x, f4x, f8x, stem2, init_disp):
+        up2 = self.stage2x(init_disp, f4x, f2x, f4x)
+        up4 = self.stage4x(up2, f8x, f4x, f8x)
+        up8 = self.stage8x(up4, stem2, f8x, stem2)
+        return up8, up4, up2
+
+
 def _stem_agg_consts(model) -> dict:
-    return fused_agg_stem.prepare_consts(model.group_stem, model.agg)
+    return fused_agg_stem.prepare_consts(model.volume_stem, model.agg)
 
 
 def _stems_consts(model) -> dict:
     return fused_stems.prepare_consts(model.stem_2, model.stem_4)
 
 
+# per cv_scale: stem widths (JAX esmstereo.py:517), the pyramid level and
+# stem the descriptors take (:589), the hourglass's add_channel (:612)
+STEM_CHS = {4: (32, 48), 8: (32, 48, 64)}
+MATCH_IDX = {4: (0, 1), 8: (1, 2)}
+ADD_CHANNEL = {4: 16, 8: 8}
+
+
 class ESMStereo(nn.Module):
-    """ESMStereo-L in eval mode (``ESMStereo.py:511-745``, cv4 branch).
+    """ESMStereo-L or -M in eval mode (``ESMStereo.py:511-745``, cv4 and
+    cv8 branches).
 
     ``forward(left, right)`` takes NHWC images ``(B, H, W, 3)`` (H and W
     multiples of 32) and returns ``[disparity (B, H, W)]``; with
@@ -336,23 +393,35 @@ class ESMStereo(nn.Module):
         dev = resolve_device(device)
         self.config = config
         chans = ARCHS[config.backbone].chans
+        v = config.cv_scale
         self.feature = FeaturePyramid(config.backbone, device=dev)
-        self.feature_up = FeatUp(chans, dev)
-        self.stem_2 = StemBlock(3, 32, dev)
-        self.stem_4 = StemBlock(32, 48, dev)
-        match_in = 2 * chans[1] + 48
+        self.feature_up = FeatUp(chans, v, dev)
+        stem_chs = STEM_CHS[v]
+        for i, (cin, cout) in enumerate(zip((3, *stem_chs), stem_chs)):
+            setattr(self, f"stem_{2 ** (i + 1)}", StemBlock(cin, cout, dev))
+        feat_idx, stem_idx = MATCH_IDX[v]
+        # FeatUp's map at /v has twice the pyramid's channels there
+        match_in = 2 * chans[feat_idx + 1] + stem_chs[stem_idx]
         self.conv = ConvBlock(match_in, 64, 3, 1, 1, device=dev)
         # the reference descriptor is a default nn.Conv2d, i.e. with a bias
         self.desc = TorchConv(64, 64, 1, 1, 0, use_bias=True, device=dev)
         red = config.reduction
-        self.group_stem = ConvBlock(config.num_groups, red, 3, 1, 1, dims=3,
-                                    device=dev)
+        if config.cost_volume == "norm_correlation":
+            self.corr_stem = ConvBlock(1, red, 3, 1, 1, dims=3, device=dev)
+        else:
+            self.group_stem = ConvBlock(config.num_groups, red, 3, 1, 1,
+                                        dims=3, device=dev)
         self.agg = ConvBlock(red, red, 3, 1, 1, dims=3, device=dev)
         self.aggregation_out = Aggregation3D(
-            red, 16, dev, fuse_pairs=config.fuse_hourglass,
+            red, ADD_CHANNEL[v], dev, fuse_pairs=config.fuse_hourglass,
             fuse_up=config.fuse_hourglass_up)
-        self.upsample_module = Upsample4(2 * chans[2], 2 * chans[1], 32, dev,
-                                         fuse_mixer=config.fuse_mixer)
+        if v == 8:
+            self.upsample_module = Upsample8(2 * chans[3], 2 * chans[2],
+                                             chans[1], stem_chs[0], dev)
+        else:
+            self.upsample_module = Upsample4(2 * chans[2], 2 * chans[1],
+                                             stem_chs[0], dev,
+                                             fuse_mixer=config.fuse_mixer)
         if dev.type != "meta":
             init_model_(self, torch.Generator().manual_seed(seed))
         self.eval()
@@ -361,50 +430,78 @@ class ESMStereo(nn.Module):
     def num_bins(self) -> int:
         return self.config.max_disp // self.config.cv_scale
 
+    @property
+    def volume_groups(self) -> int:
+        """The volume's channels: 1 for norm-correlation, else the groups."""
+        if self.config.cost_volume == "norm_correlation":
+            return 1
+        return self.config.num_groups
+
+    @property
+    def volume_stem(self) -> ConvBlock:
+        """The volume's first 3-D conv: ``corr_stem`` or ``group_stem``."""
+        if self.config.cost_volume == "norm_correlation":
+            return self.corr_stem
+        return self.group_stem
+
     def forward(self, left: torch.Tensor, right: torch.Tensor,
                 capture_internals: bool = False):
         if self.training:
             raise NotImplementedError("training is not in this slice; "
                                       "call .eval() first")
+        cfg = self.config
         bsz = left.shape[0]
         both = torch.cat([left, right], dim=0).permute(0, 3, 1, 2).contiguous()
         f_both = self.feature_up(self.feature(both))
         approx = blocks.GELU_APPROXIMATE
-        if self.config.fuse_stems:
-            # kernel F: each conv_down map stays in shared memory
+        if cfg.fuse_stems:
+            # kernel F: each conv_down map stays in shared memory; stem_8
+            # runs plain on F's stem_4, as in JAX (esmstereo.py:568-572)
             consts = folded_once(self, _stems_consts, self.stem_2,
                                  self.stem_4)
-            s2, s4 = fused_stems.stems(both, consts, approx)
+            stems = list(fused_stems.stems(both, consts, approx))
         else:
-            s2 = self.stem_2(both)
-            s4 = self.stem_4(s2)
-        m = self.desc(self.conv(torch.cat([f_both[0], s4], dim=1)))
+            stems = [self.stem_2(both)]
+            stems.append(self.stem_4(stems[0]))
+        if cfg.cv_scale == 8:
+            stems.append(self.stem_8(stems[1]))
+        feat_idx, stem_idx = MATCH_IDX[cfg.cv_scale]
+        m = self.desc(self.conv(torch.cat([f_both[feat_idx], stems[stem_idx]],
+                                          dim=1)))
         match_l, match_r = m[:bsz], m[bsz:]
 
-        consts = folded_once(self, _stem_agg_consts, self.group_stem,
+        norm = cfg.cost_volume == "norm_correlation"
+        groups = self.volume_groups
+        consts = folded_once(self, _stem_agg_consts, self.volume_stem,
                              self.agg)
-        if self.config.fuse_volume_agg:
-            # kernel E: the 32-group volume never reaches device memory
+        if cfg.fuse_volume_agg:
+            # kernel E: the volume never reaches device memory
             volume = fused_agg_stem.volume_stem_agg(
-                match_l, match_r, consts, self.num_bins,
-                self.config.num_groups, approx)
+                match_l, match_r, consts, self.num_bins, groups, approx,
+                normalize=norm)
         else:
-            volume = correlation.gwc_volume(match_l, match_r, self.num_bins,
-                                            self.config.num_groups)
+            volume = correlation.correlation_volume(
+                match_l, match_r, self.num_bins, groups, normalize=norm)
             volume = fused_agg_stem.stem_agg(volume, consts, approx)
-        cost = self.aggregation_out(volume)[:, 0]          # (B, D, H/4, W/4)
+        cost = self.aggregation_out(volume)[:, 0]          # (B, D, H/v, W/v)
 
         # regression and the disparity stream stay fp32 (the slice is fp32)
-        init_pred = regression_topk(cost, 2)               # (B, 1, H/4, W/4)
         fl = [f[:bsz] for f in f_both]
-        disp_1, disp_2 = self.upsample_module(fl[1], fl[0], s2[:bsz],
-                                              init_pred)
-        result = [disp_1[:, 0] * 4]
+        if cfg.cv_scale == 8:
+            # the reference regresses the raw cost, with no softmax
+            init_pred = disparity_regression(cost, self.num_bins)
+            outs = self.upsample_module(fl[2], fl[1], fl[0],
+                                        stems[0][:bsz], init_pred)
+        else:
+            init_pred = regression_topk(cost, 2)
+            outs = self.upsample_module(fl[1], fl[0], stems[0][:bsz],
+                                        init_pred)
+        result = [outs[0][:, 0] * 4]
         if capture_internals:
             nhwc = lambda t: t.permute(0, 2, 3, 1)  # noqa: E731
             # keys and pyramid indices as the JAX model's aux dict
             aux = {"cost": cost, "init_pred": nhwc(init_pred),
                    "match_left": nhwc(match_l), "f16": nhwc(fl[3]),
-                   "f4": nhwc(fl[1]), "disp_2": disp_2[:, 0]}
+                   "f4": nhwc(fl[1]), "disp_2": outs[1][:, 0]}
             return result, aux
         return result

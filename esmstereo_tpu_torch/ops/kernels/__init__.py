@@ -1,9 +1,11 @@
-"""Hand-written CUDA kernels of the L eval paths, each beside its plain
-PyTorch version.
+"""Hand-written CUDA kernels of the eval paths of ESMStereo-L and -M (gwc
+and norm-correlation volumes), each beside its plain PyTorch version.
 
   * ``fused_head.fused_stage0``         kernel A, backbone stem + stage 0
-  * ``correlation.gwc_volume``          kernel B, group-wise correlation volume
-  * ``fused_agg_stem.stem_agg``         kernel C, group_stem + agg 3-D convs
+  * ``correlation.correlation_volume``  kernels B and D, the correlation
+    volume (gwc, gwc_norm, norm-correlation)
+  * ``fused_agg_stem.stem_agg``         kernel C, group_stem (corr_stem) + agg
+    3-D convs
   * ``fused_agg_stem.volume_stem_agg``  kernel E, B + C with the volume built
     inside group_stem (``fuse_volume_agg``)
   * ``fused_hourglass.down_pair``       kernel G, one hourglass down level
@@ -32,13 +34,13 @@ import torch
 
 
 def wrappers() -> dict:
-    """``{kernel name: wrapper}`` for the kernels of the L eval paths."""
+    """``{kernel name: wrapper}`` for the kernels of the port's eval paths."""
     from esmstereo_tpu_torch.ops.kernels import correlation, fused_agg_stem
     from esmstereo_tpu_torch.ops.kernels import fused_head, fused_hourglass
     from esmstereo_tpu_torch.ops.kernels import fused_mixer, fused_stems
 
     return {"fused_stage0": fused_head.fused_stage0,
-            "gwc_volume": correlation.gwc_volume,
+            "correlation_volume": correlation.correlation_volume,
             "stem_agg": fused_agg_stem.stem_agg,
             "volume_stem_agg": fused_agg_stem.volume_stem_agg,
             "down_pair": fused_hourglass.down_pair,

@@ -1,7 +1,7 @@
-"""Kernels C and E: group_stem + agg, two 3x3x3 conv + eval BN + GELU
-layers on the cost volume (the direct conv of ``csrc/fused_hourglass.cu``,
-which the hourglass levels share), and the same with the volume built
-inside group_stem (``csrc/fused_volume_agg.cu``).
+"""Kernels C and E: group_stem (corr_stem for norm-correlation) + agg, two
+3x3x3 conv + eval BN + GELU layers on the cost volume (the direct conv of
+``csrc/fused_hourglass.cu``, which the hourglass levels share), and the
+same with the volume built inside group_stem (``csrc/fused_volume_agg.cu``).
 
 C replaces ``esmstereo_tpu/ops/pallas/fused_agg_stem.py::folded_stem_agg_apply``
 and E ``::folded_volume_stem_agg_apply``, in the unfolded
@@ -11,10 +11,12 @@ scale goes into the conv weights, and E takes C's consts. The kernels run
 fp32 end to end and are held against the JAX interpret-mode numbers, not
 the TPU's bf16 matrix-unit operands.
 
-On CUDA, C's wrapper launches the direct-conv kernel twice (32 -> 8, then
-8 -> 8), with the 8-channel intermediate in device memory. E's launches
-the volume + group_stem kernel, then C's 8 -> 8 conv; it reads the two
-descriptor maps and never allocates the 32-group volume.
+On CUDA, C's wrapper launches the direct-conv kernel twice (G -> 8, then
+8 -> 8; G = 32 for gwc, 1 for norm-correlation), with the 8-channel
+intermediate in device memory. E's launches the volume + group_stem
+kernel, then C's 8 -> 8 conv; it reads the two descriptor maps and never
+allocates the volume. Its normalised form first writes the two
+L2-normalised maps into scratch with kernel B's ``l2_normalize_groups``.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import torch.nn.functional as F
 from esmstereo_tpu_torch.nn.blocks import fold_bn
 from esmstereo_tpu_torch.ops.kernels import _build, on_cuda, stream_handle
 from esmstereo_tpu_torch.ops.kernels.activations import gelu
-from esmstereo_tpu_torch.ops.kernels.correlation import gwc_volume_plain
+from esmstereo_tpu_torch.ops.kernels import correlation
 from esmstereo_tpu_torch.ops.kernels.fused_hourglass import conv3d_bn_gelu
 
 _P = ctypes.c_void_p
@@ -51,8 +53,9 @@ def stem_agg_plain(vol: torch.Tensor, consts: dict,
 
 def stem_agg(vol: torch.Tensor, consts: dict,
              approximate: bool) -> torch.Tensor:
-    """(B, 32, D, H, W) -> (B, 8, D, H, W): the kernel on CUDA tensors, the
-    plain version on CPU tensors."""
+    """(B, G, D, H, W) -> (B, 8, D, H, W), G = 32 (group_stem) or 1
+    (corr_stem): the kernel on CUDA tensors, the plain version on CPU
+    tensors."""
     if vol.ndim != 5:
         raise ValueError(f"stem_agg: volume {tuple(vol.shape)}")
     if not on_cuda("stem_agg", vol, *consts.values()):
@@ -69,10 +72,11 @@ stem_agg.launches = 0
 # --- kernel E: the volume built inside group_stem ----------------------------
 
 def volume_stem_agg_plain(ref: torch.Tensor, tgt: torch.Tensor, consts: dict,
-                          max_disp: int, num_groups: int,
-                          approximate: bool) -> torch.Tensor:
+                          max_disp: int, num_groups: int, approximate: bool,
+                          normalize: bool = False) -> torch.Tensor:
     """Plain PyTorch version: kernel B's plain volume, then C's."""
-    vol = gwc_volume_plain(ref, tgt, max_disp, num_groups)
+    vol = correlation.correlation_volume_plain(ref, tgt, max_disp, num_groups,
+                                               normalize)
     return stem_agg_plain(vol, consts, approximate)
 
 
@@ -89,14 +93,11 @@ def volume_stem_agg(ref: torch.Tensor, tgt: torch.Tensor, consts: dict,
                     max_disp: int, num_groups: int, approximate: bool,
                     normalize: bool = False) -> torch.Tensor:
     """Descriptors (B, C, H, W) x 2 -> (B, 8, D, H, W), the same as
-    ``stem_agg(gwc_volume(ref, tgt, D, G))``, with ``D = max_disp``: kernel E
-    on CUDA tensors (the (B, G, D, H, W) volume is never allocated), the
-    plain version on CPU tensors. Kernel E takes C=64, G=32 (the L path);
-    ``normalize`` (norm-correlation) is not in this slice."""
-    if normalize:
-        raise NotImplementedError(
-            "volume_stem_agg: the normalised (norm-correlation) volume is "
-            "not in this slice")
+    ``stem_agg(correlation_volume(ref, tgt, D, G, normalize))``, with
+    ``D = max_disp``: kernel E on CUDA tensors (the (B, G, D, H, W) volume
+    is never allocated), the plain version on CPU tensors. Kernel E takes
+    C=64 with G=32 (gwc) or G=1 (norm-correlation), with or without
+    ``normalize``; it never falls back to B + C."""
     if ref.shape != tgt.shape or ref.ndim != 4:
         raise ValueError(f"volume_stem_agg: shapes {tuple(ref.shape)} "
                          f"{tuple(tgt.shape)}")
@@ -111,11 +112,10 @@ def volume_stem_agg(ref: torch.Tensor, tgt: torch.Tensor, consts: dict,
                          f"groups")
     if not on_cuda("volume_stem_agg", ref, tgt, *consts.values()):
         return volume_stem_agg_plain(ref, tgt, consts, max_disp, num_groups,
-                                     approximate)
-    if (c, num_groups) != (64, 32):
-        raise NotImplementedError(
-            f"volume_stem_agg kernel takes C=64, G=32; got C={c}, "
-            f"G={num_groups}")
+                                     approximate, normalize)
+    correlation.check_kernel_form("volume_stem_agg", c, num_groups)
+    if normalize:
+        ref, tgt = correlation.l2_normalize_pair(ref, tgt, num_groups)
     y = torch.empty((b, 8, max_disp, h, w), device=ref.device,
                     dtype=torch.float32)
     err = _volume_fn()(ref.data_ptr(), tgt.data_ptr(), consts["w1"].data_ptr(),

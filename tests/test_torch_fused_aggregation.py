@@ -161,11 +161,12 @@ def test_fused_slice_matches_jax():
 # --- guards -----------------------------------------------------------------
 
 def test_fused_wrappers_guard_and_launch_nothing_on_cpu():
-    assert set(wrappers()) == {"fused_stage0", "gwc_volume", "stem_agg",
+    assert set(wrappers()) == {"fused_stage0", "correlation_volume",
+                               "stem_agg",
                                "volume_stem_agg", "down_pair", "up_pair",
                                "stems", "mixer"}
     with pytest.raises(NotImplementedError):
-        ESMStereoConfig(cost_volume="norm_correlation", **FUSED)
+        ESMStereoConfig(cv_scale=16, backbone="mobilenetv2_100", **FUSED)
     model = ESMStereo(ESMStereoConfig(**FUSED), device="cpu", seed=4)
     agg = model.aggregation_out
     stem = fused_agg_stem.prepare_consts(model.group_stem, model.agg)
@@ -174,8 +175,8 @@ def test_fused_wrappers_guard_and_launch_nothing_on_cpu():
                                            agg.agg_1_1)
     desc = torch.zeros(1, 64, 4, 8)
     vol = torch.zeros(1, 8, 6, 4, 8)
-    with pytest.raises(NotImplementedError):
-        fused_agg_stem.volume_stem_agg(desc, desc, stem, 6, 32, False,
+    with pytest.raises(ValueError):     # group_stem weights for 32 groups
+        fused_agg_stem.volume_stem_agg(desc, desc, stem, 6, 1, False,
                                        normalize=True)
     # fp32 only, one device only
     with pytest.raises(TypeError):
@@ -194,6 +195,9 @@ def test_fused_wrappers_guard_and_launch_nothing_on_cpu():
     # CPU calls run the plain versions and launch nothing
     with torch.no_grad():
         out = fused_agg_stem.volume_stem_agg(desc, desc, stem, 6, 32, False)
+        assert out.shape == (1, 8, 6, 4, 8)
+        out = fused_agg_stem.volume_stem_agg(desc, desc, stem, 6, 32, False,
+                                             normalize=True)
         assert out.shape == (1, 8, 6, 4, 8)
         assert fused_hourglass.down_pair(vol, down, False).shape == (
             1, 24, 3, 2, 4)

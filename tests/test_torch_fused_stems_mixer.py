@@ -135,7 +135,7 @@ def test_mixer_plain_matches_jax(rng, shape):
     want = _pixel_shuffled(np.asarray(mixer_reference(
         jnp.asarray(x.transpose(0, 2, 3, 1)), mix)))
 
-    port = _UpStage(48, 96, 48, 32, 32, 16, True, device="cpu").eval()
+    port = _UpStage(48, 96, 48, 32, 32, 16, 32, True, device="cpu").eval()
     port.load_state_dict(convert_tree(variables))
     tx = torch.from_numpy(x)
     with torch.no_grad():
@@ -231,7 +231,8 @@ def test_stems_mixer_wrappers_guard_and_launch_nothing_on_cpu():
         s2, s4 = fused_stems.stems(img, sc, False)
         assert s2.shape == (1, 32, 4, 8) and s4.shape == (1, 48, 2, 4)
         assert fused_mixer.mixer(x, mc).shape == (1, 16, 6, 10)
-    assert set(wrappers()) == {"fused_stage0", "gwc_volume", "stem_agg",
+    assert set(wrappers()) == {"fused_stage0", "correlation_volume",
+                               "stem_agg",
                                "volume_stem_agg", "down_pair", "up_pair",
                                "stems", "mixer"}
     assert all(fn.launches == 0 for fn in wrappers().values())

@@ -129,13 +129,15 @@ def test_folded_consts_are_computed_once_per_weights():
 # --- kernel B: group-wise correlation volume --------------------------------
 
 def test_gwc_volume_plain_matches_jax(rng):
-    """(B, C, H, W) = (2, 64, 8, 32), 12 bins, 32 groups: against
-    ``ops.build_gwc_volume`` and the folded Pallas kernel (interpret mode),
-    un-folded. Tolerance 1e-5 (fp32 products and group means)."""
+    """(B, C, H, W) = (2, 64, 8, 32), 12 bins, 32 groups: the gwc form of
+    ``correlation_volume`` against ``ops.build_gwc_volume`` and the folded
+    Pallas kernel (interpret mode), un-folded. Tolerance 1e-5 (fp32
+    products and group means). The normalised forms are in
+    test_torch_variants.py."""
     b, c, h, w, d, g = 2, 64, 8, 32, 12, 32
     ref = rng.standard_normal((b, h, w, c)).astype(np.float32)
     tgt = rng.standard_normal((b, h, w, c)).astype(np.float32)
-    got = correlation.gwc_volume(
+    got = correlation.correlation_volume(
         torch.from_numpy(np.ascontiguousarray(ref.transpose(0, 3, 1, 2))),
         torch.from_numpy(np.ascontiguousarray(tgt.transpose(0, 3, 1, 2))),
         d, g).numpy()                                   # (B, G, D, H, W)
@@ -204,16 +206,20 @@ def test_stem_agg_plain_matches_pallas(rng, approximate):
 def test_wrappers_reject_what_the_kernels_do_not_take():
     x = torch.zeros(1, 64, 4, 8)
     with pytest.raises(TypeError):
-        correlation.gwc_volume(x.double(), x.double(), 4, 32)
+        correlation.correlation_volume(x.double(), x.double(), 4, 32)
     with pytest.raises(ValueError):
-        correlation.gwc_volume(x, x[..., :4], 4, 32)
+        correlation.correlation_volume(x, x[..., :4], 4, 32)
+    with pytest.raises(NotImplementedError):    # the kernel's (C, G) forms
+        correlation.check_kernel_form("correlation_volume", 64, 8)
     with pytest.raises(ValueError):
         fused_agg_stem.stem_agg(x, {}, False)
     with pytest.raises(ValueError):
         fused_head.fused_stage0(torch.zeros(1, 3, 5, 8), {})
-    assert set(wrappers()) == {"fused_stage0", "gwc_volume", "stem_agg",
+    assert set(wrappers()) == {"fused_stage0", "correlation_volume",
+                               "stem_agg",
                                "volume_stem_agg", "down_pair", "up_pair",
                                "stems", "mixer"}
     # CPU calls run the plain versions and launch nothing
-    correlation.gwc_volume(x, x, 4, 32)
+    correlation.correlation_volume(x, x, 4, 32)
+    correlation.correlation_volume(x, x, 4, 1, normalize=True)
     assert all(fn.launches == 0 for fn in wrappers().values())

@@ -123,10 +123,19 @@ def test_runner_pads_and_crops_as_jax():
 
 
 def test_slice_guards(monkeypatch):
-    for kw in ({"cv_scale": 8}, {"backbone": "mobilenetv2_100"},
-               {"cost_volume": "norm_correlation"}, {"dtype": "bfloat16"}):
+    for kw in ({"cv_scale": 16, "backbone": "mobilenetv2_100"},
+               {"backbone": "mobilenetv2_100"}, {"dtype": "bfloat16"},
+               {"cv_scale": 8, "dtype": "bfloat16"}):
         with pytest.raises(NotImplementedError):
             ESMStereoConfig(**kw)
+    # the JAX config's variant/backbone constraints
+    for kw in ({"cv_scale": 8, "backbone": "mobilenetv2_100"},
+               {"cv_scale": 16}, {"cost_volume": "concat"}):
+        with pytest.raises(ValueError):
+            ESMStereoConfig(**kw)
+    for cv in (4, 8):
+        for volume in ("gwc", "norm_correlation"):
+            ESMStereoConfig(cv_scale=cv, cost_volume=volume)
     model = ESMStereo(device="cpu")
     x = torch.zeros(1, 32, 64, 3)
     with pytest.raises(NotImplementedError):
