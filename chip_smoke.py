@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py            # from the root of the repository
 
-Drives six served paths with seeded random weights, all fp32 and
-efficientnet_b2. Three of ESMStereo-L (cv4 group-wise correlation, 48
-bins): the default one (kernels A, B, C); the fused cost-volume section
+Drives ten served paths with seeded random weights, all fp32. Three of
+ESMStereo-L (efficientnet_b2, cv4 group-wise correlation, 48 bins): the
+default one (kernels A, B, C); the fused cost-volume section
 (``fuse_volume_agg``, ``fuse_hourglass``, ``fuse_hourglass_up``: kernels A,
 E, G at 3 levels and H at 2 levels); and every switch (those three plus
 ``fuse_stems`` and ``fuse_mixer``: kernels A, F, E, G, H and I). Three of
@@ -13,16 +13,21 @@ ESMStereo-M (cv8, 24 bins): the default one with the gwc volume (``M``:
 A, B, C), the default one with the norm-correlation volume (``M-norm``: A,
 B's normalised G = 1 form, C on the 1-channel volume), and that one with
 every switch (``M-norm-all``: A, F, E's normalised G = 1 form, G, H; no I,
-which only the cv4 upsampler reaches). It holds each hand-written kernel
-against its plain PyTorch version:
+which only the cv4 upsampler reaches). Three of ESMStereo-S
+(mobilenetv2_100, cv16, 12 bins, the semantic attention multiply): ``S``
+(A's mobilenetv2 form, B, C), ``S-norm`` (A, B's normalised form; corr_stem
+and agg are plain there, as in JAX) and ``S-all`` (every switch: A, B, C,
+F at (16, 24), G and H at S's 12/16/24 channels; neither E nor I reaches
+cv16). And ``C``, the confidence model on S-norm, at a KITTI frame (A, B).
+It holds each hand-written kernel against its plain PyTorch version:
 
   1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
   2. build the six kernel sources from ``esmstereo_tpu_torch/csrc`` (one
      ``nvcc`` per source, all at once) and print ``ptxas`` register/spill
      lines;
   3. each kernel and its plain version on the same inputs at the main-path
-     shapes (a 540x960 SceneFlow frame padded to 544x992, both eyes), L's
-     and then M's: max abs / relative error against the stated tolerance,
+     shapes (a 540x960 SceneFlow frame padded to 544x992, both eyes), L's,
+     M's and S's: max abs / relative error against the stated tolerance,
      CUDA-event times, the bound from bytes and operations, and a yardstick
      the port never calls (cuDNN's convs for C, F, G and H; kernels B + C
      for E, whose gwc form's peak memory must stay below the volume it
@@ -30,17 +35,29 @@ against its plain PyTorch version:
      norm-correlation), E's normalised G = 1 form and C on the 1-channel
      volume at M's shapes; each hourglass level, F and I get unit-normal
      inputs, F, I and the normalised volumes are held relative to
-     max|plain| with no floor of 1, and E's normalised form, H and I must
-     be able to see their volume, transposed conv and dw 7x7; then each
-     kernel again at small shapes with ragged tiles on every axis;
+     max|plain| with no floor of 1. Each form's distinguishing step must be
+     seen: the plain version without it (E's normalised volume, H's
+     transposed conv, I's dw 7x7, A's ReLU6 in place of SiLU, the last 4
+     channels of F's 24 and of G's and H's 12 at S, B's and C's depths past
+     8 at S) must lie at least 100 tolerances away. A's mobilenetv2 form
+     and B's normalised form also at C's shapes (a 375x1242 KITTI frame
+     padded to 384x1248). Then each kernel again at small shapes with
+     ragged tiles on every axis;
   4. each path's model on the card against the same weights on the CPU
-     (plain versions) on a 128x256 pair, for each ``fuse_*`` switch set
-     alone, and for L with the norm-correlation volume, default and with
-     every switch;
+     (plain versions) on a 128x256 pair, each map relative to its max|CPU|,
+     for each ``fuse_*`` switch set alone at cv4, for L with the
+     norm-correlation volume, default and with every switch, and for the
+     confidence model's two maps; then, for the paths where kernel F feeds
+     match_left (L with ``fuse_stems`` alone, M-norm-all, S-all), four
+     draws of fan-in-scaled weights, under which fp32 rounding is
+     amplified: the card and the CPU in fp32 each against the CPU in
+     float64, the card within 10 times the CPU's own distance, and kernels
+     A and F against their plain versions at those weights;
   5. for each path, launch counters set to 0, then 3 requests served
-     through ``InferenceRunner`` (uint8 540x960 pairs): shape, finiteness
-     and time of each; every kernel of the path must have launched on each
-     request (G at 3 levels, H at 2), and no kernel of another path;
+     through ``InferenceRunner`` (uint8 540x960 pairs; 375x1242 for C):
+     shape, finiteness and time of each; every kernel of the path must
+     have launched on each request (G at 3 levels, H at 2), and no kernel
+     of another path;
   6. a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and last
      ``{"ok": true, "device": {...}}``.
 
@@ -52,6 +69,7 @@ script exits non-zero before it prints a result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -61,6 +79,7 @@ import numpy as np
 import torch
 
 from esmstereo_tpu_torch.eval.runner import InferenceRunner
+from esmstereo_tpu_torch.models.confidence import ESMStereoConfidence
 from esmstereo_tpu_torch.models.esmstereo import ESMStereo, ESMStereoConfig
 from esmstereo_tpu_torch.ops.kernels import _build, wrappers
 from esmstereo_tpu_torch.ops.kernels import correlation, fused_agg_stem
@@ -73,6 +92,8 @@ from esmstereo_tpu_torch.nn import blocks
 SEED = 0
 FRAME = (540, 960)            # SceneFlow; the runner pads to 544 x 992
 PADDED = (544, 992)
+KITTI_FRAME = (375, 1242)     # KITTI, the confidence model's
+KITTI_PADDED = (384, 1248)
 REQUESTS = 3
 FUSED = ESMStereoConfig(fuse_volume_agg=True, fuse_hourglass=True,
                         fuse_hourglass_up=True)
@@ -86,6 +107,10 @@ M_NORM_ALL = ESMStereoConfig(cv_scale=8, cost_volume="norm_correlation",
                              **EVERY)
 L_NORM = ESMStereoConfig(cost_volume="norm_correlation")
 L_NORM_ALL = ESMStereoConfig(cost_volume="norm_correlation", **EVERY)
+S_ARGS = dict(cv_scale=16, backbone="mobilenetv2_100")
+S = ESMStereoConfig(**S_ARGS)
+S_NORM = ESMStereoConfig(**S_ARGS, cost_volume="norm_correlation")
+S_ALL = ESMStereoConfig(**S_ARGS, **EVERY)
 # multiply-adds per /4 pixel of kernel I: to_feat, two FMBlocks (two
 # SMLayers of two 8 -> 16 -> 8 MLPs and a dw 7x7 each, expand, project), up
 MIXER_MACS = (32 * 9 * 16
@@ -159,22 +184,58 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor,
     return err
 
 
-def check_fused_stage0(model, gen) -> dict:
-    """Kernel A at the main path's shapes: both eyes, 544 x 992."""
+def require_seen(what: str, blind: torch.Tensor, want: torch.Tensor,
+                 rtol: float, floor: float = 1.0) -> None:
+    """Fail unless ``blind`` (the plain version without the step ``what``
+    names: a weight zeroed or an activation swapped) lies at least 100
+    tolerances from ``want``, the tolerance of ``compare`` with the same
+    ``rtol`` and ``floor``: the comparison sees that step."""
+    gap = float((blind - want).abs().max())
+    tol = rtol * max(floor, float(want.abs().max()))
+    print(f"    without {what} the plain version moves {gap:.3e} (at least "
+          f"100 tolerances: {100 * tol:.3e})")
+    require(gap >= 100 * tol, f"the comparison cannot see {what}")
+
+
+def check_fused_stage0(model, gen, path, padded=PADDED) -> dict:
+    """Kernel A at a main path's shapes (both eyes, ``padded``: 544 x 992,
+    or 384 x 1248 on the confidence path) in the form of ``model``'s
+    backbone. In mobilenetv2_100's form the stem's folded
+    weights are scaled x16, so that the stem's ReLU6 clamps at 6 on part of
+    the image, and the plain version with SiLU in place of the dw's ReLU6
+    (efficientnet_b2's activation) must lie at least 100 tolerances
+    away."""
     dev = torch.device("cuda")
-    img = torch.randn((2, 3, *PADDED), generator=gen).to(dev)
+    img = torch.randn((2, 3, *padded), generator=gen).to(dev)
     consts = fused_backbone.prepare_consts(model.feature)
+    form = fused_head.kernel_form(consts)
+    if form == "mobilenetv2_100":
+        consts = dict(consts, stem_w=consts["stem_w"] * 16.0,
+                      stem_b=consts["stem_b"] * 16.0)
+        consts["packed"] = fused_head.pack_params(consts)
+        stem = torch.nn.functional.conv2d(img, consts["stem_w"],
+                                          consts["stem_b"], stride=2,
+                                          padding=1)
+        above = float((stem > 6.0).float().mean())
+        print(f"  fused_stage0 {form} {tuple(img.shape)}: {above:.2%} of "
+              f"the stem's values above 6 before the clamp")
+        require(above > 0.01, "fused_stage0: the stem never reaches 6")
     got = fused_head.fused_stage0(img, consts)
     want = fused_head.stage0_plain(img, consts)
     # fp32; the SE means sum 135k pixels in another order than torch's mean
-    err = compare("fused_stage0", got, want, 1e-4)
+    err = compare(f"fused_stage0 {form} {tuple(img.shape)}", got, want, 1e-4)
+    if form == "mobilenetv2_100":
+        require_seen("the dw's ReLU6 (SiLU in its place)",
+                     fused_head.stage0_plain(img, dict(consts, act="silu")),
+                     want, 1e-4)
     b, _, h, w = img.shape
     px = b * (h // 2) * (w // 2)
-    c0, c1, c2 = 32, 16, 16
-    macs = px * (c0 * 27 + c0 * 9 + c1 * c0 + c1 * 9 + c2 * c1)
+    macs = px * (consts["stem_w"].numel() + sum(
+        blk["dw_w"].numel() + blk["pw_w"].numel()
+        for blk in consts["blocks"]))
     bms, by = bound(nbytes(img, consts["packed"], got), 2 * macs)
-    return {"name": "fused_stage0", "model": "L", "path": "default",
-            "route": "cuda",
+    return {"name": "fused_stage0", "form": form, "model": variant(model)[0],
+            "path": path, "route": "cuda", "input": list(img.shape),
             "source": "esmstereo_tpu_torch/csrc/fused_head.cu",
             "replaces": "esmstereo_tpu/ops/pallas/fused_head.py:198",
             "max_abs_err": err,
@@ -184,16 +245,18 @@ def check_fused_stage0(model, gen) -> dict:
 
 
 def variant(model) -> str:
-    """``L`` or ``M``, with ``-norm`` for the norm-correlation volume."""
+    """``L``, ``M`` or ``S``, with ``-norm`` for the norm-correlation
+    volume."""
     cfg = model.config
-    name = {4: "L", 8: "M"}[cfg.cv_scale]
+    name = {4: "L", 8: "M", 16: "S"}[cfg.cv_scale]
     return name + ("-norm" if cfg.cost_volume == "norm_correlation" else "")
 
 
-def desc_shape(model) -> tuple:
-    """The main path's (1, 64, H/v, W/v) descriptor map at cv_scale v."""
+def desc_shape(model, padded=PADDED) -> tuple:
+    """A main path's (1, 64, H/v, W/v) descriptor map at cv_scale v for a
+    ``padded`` frame of H x W."""
     v = model.config.cv_scale
-    return (1, 64, PADDED[0] // v, PADDED[1] // v)
+    return (1, 64, padded[0] // v, padded[1] // v)
 
 
 # (groups, normalize) of each form of the volume
@@ -210,13 +273,14 @@ def volume_flops(entries: int, groups: int, desc: torch.Tensor,
     return entries * (2 * cpg + 1) + (6 * desc.numel() if normalize else 0)
 
 
-def check_correlation_volume(model, gen, form: str, path) -> tuple[dict,
-                                                                 torch.Tensor]:
-    """Kernels B and D in one form at the main path's shapes of ``model``:
-    (1, 64, H/v, W/v) descriptors, ``model.num_bins`` bins. The normalised
-    forms are held relative to max|plain| with no floor of 1."""
+def check_correlation_volume(model, gen, form: str, path, padded=PADDED
+                             ) -> tuple[dict, torch.Tensor]:
+    """Kernels B and D in one form at a main path's shapes of ``model``:
+    (1, 64, H/v, W/v) descriptors of a ``padded`` frame, ``model.num_bins``
+    bins. The normalised forms are held relative to max|plain| with no
+    floor of 1."""
     dev = torch.device("cuda")
-    shape = desc_shape(model)
+    shape = desc_shape(model, padded)
     ref = torch.randn(shape, generator=gen).to(dev)
     tgt = torch.randn(shape, generator=gen).to(dev)
     d = model.num_bins
@@ -229,11 +293,15 @@ def check_correlation_volume(model, gen, form: str, path) -> tuple[dict,
         return correlation.correlation_volume_plain(ref, tgt, d, g, norm)
 
     got = kernel()
+    want = plain()
     name = f"correlation_volume {form} {variant(model)[0]} {tuple(got.shape)}"
-    if norm:
-        err = compare(name, got, plain(), 1e-5, floor=0.0, min_peak=1e-3)
-    else:
-        err = compare(name, got, plain(), 1e-5)
+    floor = 0.0 if norm else 1.0
+    err = compare(name, got, want, 1e-5, floor=floor, min_peak=1e-3)
+    if d % 8:
+        # the bins past the last multiple of 8 (S's 12 = 8 + 4)
+        blind = want.clone()
+        blind[:, :, d - d % 8:] = 0.0
+        require_seen(f"bins {d - d % 8}..{d - 1}", blind, want, 1e-5, floor)
     bms, by = bound(nbytes(ref, tgt, got),
                     volume_flops(got.numel(), g, ref, norm))
     row = {"name": "correlation_volume", "form": form,
@@ -261,6 +329,14 @@ def check_stem_agg(model, volume: torch.Tensor, path) -> dict:
     # fp32 sums of up to 864 and 216 products in another order than cuDNN's
     err = compare(f"stem_agg {variant(model)} {tuple(volume.shape)}", got,
                   want, 1e-4)
+    d = volume.shape[2]
+    if d % 8:
+        # the partial depth chunk of the conv's 8-deep tiles (S: 12 = 8 + 4)
+        cut = volume.clone()
+        cut[:, :, d - d % 8:] = 0.0
+        require_seen(f"the volume's depths {d - d % 8}..{d - 1}",
+                     fused_agg_stem.stem_agg_plain(cut, consts, approx),
+                     want, 1e-4)
     vox = got.numel() // co
     flops = 2 * vox * 27 * (ci * co + co * co)
     bms, by = bound(nbytes(volume, consts["w1"], consts["t1"], consts["w2"],
@@ -352,13 +428,8 @@ def check_volume_stem_agg(model, gen, path) -> dict:
                   got, want, 1e-4, floor=0.0 if norm else 1.0,
                   min_peak=0.01)
     if norm:
-        blind = plain(dict(consts, w1=torch.zeros_like(consts["w1"])))
-        gap = float((blind - want).abs().max())
-        tol = 1e-4 * float(want.abs().max())
-        print(f"    without the volume the plain version moves {gap:.3e} "
-              f"(at least 100 tolerances: {100 * tol:.3e})")
-        require(gap >= 100 * tol,
-                "volume_stem_agg: the comparison cannot see the volume")
+        require_seen("the volume", plain(dict(
+            consts, w1=torch.zeros_like(consts["w1"]))), want, 1e-4, 0.0)
     vox = got.numel() // got.shape[1]
     co = got.shape[1]
     flops = (volume_flops(vox * g, g, ref, norm)          # the volume
@@ -388,6 +459,16 @@ def level_rows(name: str, source: str, replaces: str, model, path,
     return row
 
 
+def tail_zeroed(consts: dict, keys, first: int) -> dict:
+    """``consts`` with the output channels from ``first`` on zeroed in the
+    weights and shifts ``keys`` (each with its output channels first)."""
+    out = dict(consts)
+    for k in keys:
+        out[k] = consts[k].clone()
+        out[k][first:] = 0.0
+    return out
+
+
 def check_down_pairs(model, gen, path) -> tuple[dict, list]:
     """Kernel G at each of the hourglass's 3 down levels at the main path's
     shapes of ``model`` (level 1 takes kernel C's (1, 8, D, H/v, W/v)
@@ -409,6 +490,12 @@ def check_down_pairs(model, gen, path) -> tuple[dict, list]:
         err = compare(f"down_pair {variant(model)[0]} level {k} "
                       f"{tuple(x.shape)}", got, want, 1e-4)
         ci, co = x.shape[1], got.shape[1]
+        if co % 8:
+            tail = co - co % 8     # the masked channel tile's first channel
+            require_seen(f"channels {tail}..{co - 1}",
+                         fused_hourglass.down_pair_plain(
+                             x, tail_zeroed(consts, ("wb", "tb"), tail),
+                             approx), want, 1e-4)
         vox = got.numel() // co
         flops = 2 * vox * co * 27 * (ci + co)
         bms, by = bound(nbytes(x, *consts.values(), got), flops)
@@ -453,16 +540,18 @@ def check_up_pairs(model, gen, downs: list, path) -> dict:
         want = fused_hourglass.up_pair_plain(src, skip, consts, approx)
         err = compare(f"up_pair {variant(model)[0]} level {4 - k}->{3 - k} "
                       f"src {tuple(src.shape)}", got, want, 1e-4)
-        blind = fused_hourglass.up_pair_plain(src, skip, dict(
-            consts, wu=torch.zeros_like(consts["wu"]),
-            tu=torch.zeros_like(consts["tu"])), approx)
-        gap = float((blind - want).abs().max())
-        print(f"    without the transposed conv the plain version moves "
-              f"{gap:.3e} (at least 100 tolerances: "
-              f"{100 * 1e-4 * max(1.0, float(want.abs().max())):.3e})")
-        require(gap >= 100 * 1e-4 * max(1.0, float(want.abs().max())),
-                "up_pair: the comparison cannot see the transposed conv")
+        require_seen("the transposed conv", fused_hourglass.up_pair_plain(
+            src, skip, dict(consts, wu=torch.zeros_like(consts["wu"]),
+                            tu=torch.zeros_like(consts["tu"])), approx),
+            want, 1e-4)
         ci, co = src.shape[1], got.shape[1]
+        if co % 8:
+            tail = co - co % 8
+            require_seen(f"channels {tail}..{co - 1}",
+                         fused_hourglass.up_pair_plain(
+                             src, skip, tail_zeroed(consts, ("w3", "t3"),
+                                                    tail), approx),
+                         want, 1e-4)
         vox = got.numel() // co
         # the transposed conv's 8 taps per output, the 1x1x1, the 3x3x3
         flops = 2 * vox * co * (8 * ci + 2 * co + 27 * co)
@@ -490,11 +579,19 @@ def check_up_pairs(model, gen, downs: list, path) -> dict:
                       path, levels)
 
 
-def check_stems(model, gen) -> dict:
+def check_stems(model, gen, path) -> dict:
     """Kernel F at the main path's shapes: both eyes, 544 x 992, a
-    unit-normal image; both outputs held relative to max|plain|."""
+    unit-normal image (x4 at S's widths, whose narrower seeded towers leave
+    stem_4's output under the 0.1 that a bound relative to max|plain| needs
+    otherwise); both outputs held relative to max|plain|. At S's widths
+    (16, 24) the plain version with stem_4's last 4 channels zeroed (past
+    the 16-channel split of L's instance) must lie at least 100 tolerances
+    away."""
     img = torch.randn((2, 3, *PADDED), generator=gen).cuda()
     consts = fused_stems.prepare_consts(model.stem_2, model.stem_4)
+    c2, c4 = fused_stems.widths(consts)
+    if c4 % 16:
+        img = img * 4.0
     approx = blocks.GELU_APPROXIMATE
     got = fused_stems.stems(img, consts, approx)
     want = fused_stems.stems_plain(img, consts, approx)
@@ -502,9 +599,17 @@ def check_stems(model, gen) -> dict:
     err = max(compare(f"stems {name} {tuple(w.shape)}", g, w, 1e-4,
                       floor=0.0)
               for name, g, w in zip(("stem_2", "stem_4"), got, want))
+    if c4 % 16:
+        # the (C, 3, 3, CO) weights hold their output channels last
+        blind = {k: v.clone() for k, v in consts.items()}
+        blind["wc4"][..., c4 - 4:] = 0.0
+        blind["tc4"][c4 - 4:] = 0.0
+        require_seen(f"stem_4's channels {c4 - 4}..{c4 - 1}",
+                     fused_stems.stems_plain(img, blind, approx)[1], want[1],
+                     1e-4, 0.0)
     b, _, h, w = img.shape
     px2, px4 = b * (h // 2) * (w // 2), b * (h // 4) * (w // 4)
-    macs = px2 * 32 * (3 + 32) * 9 + px4 * 48 * (32 + 48) * 9
+    macs = px2 * c2 * (3 + c2) * 9 + px4 * c4 * (c2 + c4) * 9
     bms, by = bound(nbytes(img, *consts.values(), *got), 2 * macs)
     torch_w = {k: v.permute(3, 0, 1, 2).contiguous()
                for k, v in consts.items() if v.ndim == 4}
@@ -519,7 +624,8 @@ def check_stems(model, gen) -> dict:
                                 padding=1))
         return x
 
-    return {"name": "stems", "model": "L", "path": "all", "route": "cuda",
+    return {"name": "stems", "form": f"{c2}, {c4}",
+            "model": variant(model)[0], "path": path, "route": "cuda",
             "source": "esmstereo_tpu_torch/csrc/fused_stems.cu",
             "replaces": "esmstereo_tpu/ops/pallas/fused_stems.py:174",
             "max_abs_err": err,
@@ -543,11 +649,8 @@ def check_mixer(model, gen) -> dict:
     err = compare(f"mixer {tuple(x.shape)}", got, want, 1e-4, floor=0.0)
     blind = {"packed": consts["packed"].clone()}
     fused_mixer.unpack(blind["packed"])["block1.sm2.dw_w"].zero_()
-    gap = float((fused_mixer.mixer_plain(x, blind) - want).abs().max())
-    tol = 1e-4 * float(want.abs().max())
-    print(f"    without block1.sm2's dw 7x7 the plain version moves "
-          f"{gap:.3e} (at least 100 tolerances: {100 * tol:.3e})")
-    require(gap >= 100 * tol, "mixer: the comparison cannot see the dw 7x7")
+    require_seen("block1.sm2's dw 7x7", fused_mixer.mixer_plain(x, blind),
+                 want, 1e-4, 0.0)
     px = x.shape[0] * x.shape[2] * x.shape[3]
     bms, by = bound(nbytes(x, consts["packed"], got), 2 * px * MIXER_MACS)
     return {"name": "mixer", "model": "L", "path": "all", "route": "cuda",
@@ -559,18 +662,22 @@ def check_mixer(model, gen) -> dict:
             "bound_ms": bms, "bound_by": by, "library_ms": None}
 
 
-def check_ragged(model, m_norm, gen) -> None:
+def check_ragged(model, m_norm, s_gwc, gen) -> None:
     """Each kernel against its plain version at small shapes that leave
     ragged tiles on every axis the main path leaves whole (kernel A's rows,
     kernel C's depth and rows; odd D, H and W for E, G, H and I; F's rows
     and columns at both levels), with batch 2 for B, C, E, F, G, H and
     I: ``model`` (L gwc) gives the weights of L's forms, ``m_norm`` (M
-    norm-correlation) those of corr_stem and of M's hourglass widths."""
+    norm-correlation) those of corr_stem and of M's hourglass widths,
+    ``s_gwc`` (S) those of A's mobilenetv2 form, F at (16, 24) and S's
+    hourglass widths."""
     dev = torch.device("cuda")
     img = torch.randn((1, 3, 2 * 37, 2 * 45), generator=gen).to(dev)
-    consts = fused_backbone.prepare_consts(model.feature)
-    compare("fused_stage0 (1, 3, 74, 90)", fused_head.fused_stage0(
-        img, consts), fused_head.stage0_plain(img, consts), 1e-4)
+    for net in (model, s_gwc):
+        consts = fused_backbone.prepare_consts(net.feature)
+        compare(f"fused_stage0 {net.config.backbone} (1, 3, 74, 90)",
+                fused_head.fused_stage0(img, consts),
+                fused_head.stage0_plain(img, consts), 1e-4)
     ref = torch.randn((2, 64, 5, 70), generator=gen).to(dev)
     tgt = torch.randn((2, 64, 5, 70), generator=gen).to(dev)
     for form, (g, norm) in FORMS.items():
@@ -608,9 +715,10 @@ def check_ragged(model, m_norm, gen) -> None:
                 fused_agg_stem.volume_stem_agg_plain(ref, tgt, c64, d, 1,
                                                      approx, True), 1e-4,
                 floor=0.0, min_peak=0.01)
-    # the hourglass at L's widths (8 -> 24 -> 40 -> 72) and M's (8 -> 16 ->
-    # 24 -> 40)
-    for net, (c1, c2, c3) in ((model, (24, 40, 72)), (m_norm, (16, 24, 40))):
+    # the hourglass at L's widths (8 -> 24 -> 40 -> 72), M's (8 -> 16 ->
+    # 24 -> 40) and S's (8 -> 12 -> 16 -> 24)
+    for net, (c1, c2, c3) in ((model, (24, 40, 72)), (m_norm, (16, 24, 40)),
+                              (s_gwc, (12, 16, 24))):
         agg = net.aggregation_out
         for k, shape, approx in ((1, (2, 8, 13, 9, 21), False),
                                  (2, (2, c1, 7, 5, 19), True),
@@ -636,32 +744,45 @@ def check_ragged(model, m_norm, gen) -> None:
                     fused_hourglass.up_pair_plain(src, skip, consts, approx),
                     1e-4)
     img = torch.randn((2, 3, 44, 100), generator=gen).to(dev)
-    consts = fused_stems.prepare_consts(model.stem_2, model.stem_4)
-    for approx in (False, True):
-        got = fused_stems.stems(img, consts, approx)
-        want = fused_stems.stems_plain(img, consts, approx)
-        for name, g, w in zip(("stem_2", "stem_4"), got, want):
-            compare(f"stems {name} {tuple(w.shape)}, tanh GELU {approx}", g,
-                    w, 1e-4)
+    for net in (model, s_gwc):
+        consts = fused_stems.prepare_consts(net.stem_2, net.stem_4)
+        for approx in (False, True):
+            got = fused_stems.stems(img, consts, approx)
+            want = fused_stems.stems_plain(img, consts, approx)
+            for name, g, w in zip(("stem_2", "stem_4"), got, want):
+                compare(f"stems {name} {tuple(w.shape)}, tanh GELU "
+                        f"{approx}", g, w, 1e-4)
     x = torch.randn((2, 32, 11, 25), generator=gen).to(dev)
     consts = fused_mixer.prepare_consts(model.upsample_module.stage2x)
     compare("mixer (2, 32, 11, 25)", fused_mixer.mixer(x, consts),
             fused_mixer.mixer_plain(x, consts), 1e-4)
 
 
-def check_against_cpu(gen, config: ESMStereoConfig) -> None:
+def check_against_cpu(gen, config: ESMStereoConfig,
+                      confidence: bool = False) -> None:
     """The model on the card (kernels) == the same weights on the CPU
-    (plain versions) on a small pair. At cv4 the hourglass output is
-    sharpened (``conv1_up`` x 30) so that top-2 regression rarely meets a
-    near-tie, and the 1% exemption covers the pixels where it still does;
-    cv8's regression of the raw cost is continuous, so there disp_2 and the
-    disparity must hold on every pixel."""
-    cpu = ESMStereo(config, device="cpu", seed=SEED + 1)
-    every_pixel = config.cv_scale == 8
-    if not every_pixel:
-        with torch.no_grad():
+    (plain versions) on a small pair, each map relative to its max|CPU|:
+    the init rules leave some maps tiny (S's cost is ~1e-11 at 128x256,
+    M's ~1e-5), where a tolerance with a floor of 1 would see nothing. At
+    cv4 the hourglass output is sharpened (``conv1_up`` x 30) so that top-2
+    regression rarely meets a near-tie, and the 1% exemption covers the
+    pixels where it still does; cv8's and cv16's regression of the raw cost
+    is continuous, so there disp_2 and the disparity must hold on every
+    pixel. With ``confidence`` the model is the confidence model on
+    ``config``, its ``scale_bn3`` (zero at init, which fixes the enlarged
+    grid's scale at 1) gets scales in [0.75, 1.25), and its confidence map
+    must hold on every pixel too."""
+    cls = ESMStereoConfidence if confidence else ESMStereo
+    cpu = cls(config, device="cpu", seed=SEED + 1)
+    every_pixel = config.cv_scale != 4
+    with torch.no_grad():
+        if not every_pixel:
             cpu.aggregation_out.conv1_up.conv.weight.mul_(30.0)
-    gpu = ESMStereo(config, device="cuda", seed=SEED + 1)
+        if confidence:
+            bn = cpu.confidence_net.scale_bn3
+            bn.weight.copy_(0.75 + 0.5 * torch.rand(bn.weight.shape,
+                                                    generator=gen))
+    gpu = cls(config, device="cuda", seed=SEED + 1)
     gpu.load_state_dict(cpu.state_dict())
     left = torch.randn((1, 128, 256, 3), generator=gen)
     right = torch.randn((1, 128, 256, 3), generator=gen)
@@ -670,35 +791,170 @@ def check_against_cpu(gen, config: ESMStereoConfig) -> None:
         got, got_aux = gpu(left.cuda(), right.cuda(), capture_internals=True)
     for key in ("match_left", "cost"):
         g, w = got_aux[key].cpu(), want_aux[key]
-        rel = float((g - w).abs().max()) / max(1.0, float(w.abs().max()))
-        print(f"  {key}: relative max err {rel:.3e} (tolerance 1e-4)")
+        peak = float(w.abs().max())
+        require(peak > 0.0, f"{key}: all zero on the CPU")
+        rel = float((g - w).abs().max()) / peak
+        print(f"  {key}: max err {rel:.3e} of max|CPU| {peak:.3e} "
+              f"(tolerance 1e-4)")
         require(rel < 1e-4, f"{key}: card disagrees with CPU")
     need = 1.0 if every_pixel else 0.99
-    for key, g, w, shape in (
-            ("disp_2", got_aux["disp_2"].cpu(), want_aux["disp_2"],
-             (1, 64, 128)),
-            ("disparity", got[0].cpu(), want[0], (1, 128, 256))):
+    # disp_2 is the first upsampling stage's output: /2 of the input, /4
+    # at cv16 (two x4 stages)
+    up = 4 if config.cv_scale == 16 else 2
+    maps = [("disp_2", got_aux["disp_2"], want_aux["disp_2"],
+             (1, 128 // up, 256 // up)),
+            ("disparity", got[0], want[0], (1, 128, 256))]
+    if confidence:
+        maps.append(("confidence", got[1], want[1], (1, 128, 256)))
+    for key, g, w, shape in maps:
+        g = g.cpu()
         require(g.shape == w.shape == shape and torch.isfinite(g).all(),
                 f"{key} on the card: wrong shape or non-finite")
-        rel = (g - w).abs() / max(1.0, float(w.abs().max()))
+        peak = float(w.abs().max())
+        require(peak > 0.0, f"{key}: all zero on the CPU")
+        rel = (g - w).abs() / peak
         frac = float((rel < 1e-4).float().mean())
-        print(f"  {key}: {frac:.4%} of pixels within 1e-4 relative "
-              f"(tolerance: at least {need:.0%}), max {float(rel.max()):.3e}")
+        print(f"  {key}: {frac:.4%} of pixels within 1e-4 of max|CPU| "
+              f"{peak:.3e} (tolerance: at least {need:.0%}), max "
+              f"{float(rel.max()):.3e}")
         require(frac >= need, f"{key}: card disagrees with CPU")
 
 
-def serve(model, rng: np.random.Generator) -> None:
-    """Answer ``REQUESTS`` uint8 pairs; check and print each disparity."""
+def fan_in_scaled_(model, gen: torch.Generator) -> None:
+    """Redraw ``model``'s weights by the CPU tests' rule
+    (``tests/test_torch_kernels.py::random_variables``): N(0, 2 / fan) for
+    each conv weight, fan its elements per leading index; BN and layer-norm
+    scales in [0.75, 1.25), biases and running means 0.1 N(0, 1), running
+    variances in [0.5, 1.5)."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if p.ndim >= 2:
+                v = torch.randn(p.shape, generator=gen) * (2.0 / p[0].numel()
+                                                           ) ** 0.5
+            elif name.endswith("weight"):
+                v = 0.75 + 0.5 * torch.rand(p.shape, generator=gen)
+            else:
+                v = 0.1 * torch.randn(p.shape, generator=gen)
+            p.copy_(v)
+        for name, b in model.named_buffers():
+            if name.endswith("running_mean"):
+                b.copy_(0.1 * torch.randn(b.shape, generator=gen))
+            elif name.endswith("running_var"):
+                b.copy_(0.5 + torch.rand(b.shape, generator=gen))
+
+
+@contextlib.contextmanager
+def float64_plain():
+    """While open, the wrappers (fp32 only, as the slice is) let float64
+    CPU tensors through to their plain versions, and nothing else: the
+    float64 reference of ``check_conditioning``. Their launch counts do not
+    move."""
+    mods = (correlation, fused_agg_stem, fused_head, fused_hourglass,
+            fused_mixer, fused_stems)
+    saved = {m: m.on_cuda for m in mods}
+
+    def plain_only(what, *tensors):
+        require(all(t.device.type == "cpu" and t.dtype == torch.float64
+                    for t in tensors), f"{what}: the float64 reference "
+                "takes float64 CPU tensors only")
+        return False
+
+    try:
+        for m in mods:
+            m.on_cuda = plain_only
+        yield
+    finally:
+        for m, fn in saved.items():
+            m.on_cuda = fn
+
+
+def check_conditioning(name: str, config: ESMStereoConfig,
+                       draws=(0, 1, 2, 3)) -> None:
+    """The card under fan-in-scaled weights (``fan_in_scaled_``), where the
+    comparison of [4] with the CPU in fp32 does not hold: the model on the
+    card, and the same weights on the CPU in fp32, each against the CPU in
+    float64 (plain versions) on a 128x256 pair, for each draw of weights.
+    The fp32 CPU's own distance from float64 says how far these weights
+    amplify fp32 rounding; the card must come within 10 times that (or 1e-5
+    of max|float64|, where the CPU is nearer) on match_left and cost, and at
+    cv8 and cv16 (continuous regression) on disp_2 and the disparity too.
+    Kernels A and F (the kernels upstream of match_left; F where
+    ``config`` has ``fuse_stems``) are also held against their plain
+    versions on the card at these weights, at 1e-4 of max(1, max|plain|)."""
+    keys = ["match_left", "cost"]
+    if config.cv_scale != 4:
+        keys += ["disp_2", "disparity"]
+    for draw in draws:
+        wgen = torch.Generator().manual_seed(SEED + 100 + draw)
+        cpu = ESMStereo(config, device="cpu", seed=SEED)
+        fan_in_scaled_(cpu, wgen)
+        gpu = ESMStereo(config, device="cuda", seed=SEED)
+        gpu.load_state_dict(cpu.state_dict())
+        f64 = ESMStereo(config, device="cpu", seed=SEED)
+        f64.load_state_dict(cpu.state_dict())
+        f64.double()
+        left = torch.randn((1, 128, 256, 3), generator=wgen)
+        right = torch.randn((1, 128, 256, 3), generator=wgen)
+        with torch.inference_mode():
+            maps = {}
+            for tag, net, dev, dt in (("card", gpu, "cuda", torch.float32),
+                                      ("cpu", cpu, "cpu", torch.float32)):
+                disp, aux = net(left.to(dev), right.to(dev),
+                                capture_internals=True)
+                maps[tag] = dict(aux, disparity=disp[0])
+            with float64_plain():
+                disp, aux = f64(left.double(), right.double(),
+                                capture_internals=True)
+            maps["f64"] = dict(aux, disparity=disp[0])
+            img = torch.randn((2, 3, 128, 256), generator=wgen).cuda()
+            consts = fused_backbone.prepare_consts(gpu.feature)
+            compare(f"{name} draw {draw}: fused_stage0",
+                    fused_head.fused_stage0(img, consts),
+                    fused_head.stage0_plain(img, consts), 1e-4)
+            if config.fuse_stems:
+                sc = fused_stems.prepare_consts(gpu.stem_2, gpu.stem_4)
+                approx = blocks.GELU_APPROXIMATE
+                for part, g, w in zip(("stem_2", "stem_4"),
+                                      fused_stems.stems(img, sc, approx),
+                                      fused_stems.stems_plain(img, sc,
+                                                              approx)):
+                    compare(f"{name} draw {draw}: stems {part}", g, w, 1e-4)
+        for key in keys:
+            want = maps["f64"][key]
+            peak = float(want.abs().max())
+            require(peak > 0.0, f"{key}: all zero in float64")
+            err = {tag: float((maps[tag][key].cpu().double() - want).abs()
+                              .max()) / peak for tag in ("card", "cpu")}
+            card_cpu = float((maps["card"][key].cpu() - maps["cpu"][key])
+                             .abs().max()) / peak
+            print(f"  {name} draw {draw} {key}: card {err['card']:.3e}, CPU "
+                  f"fp32 {err['cpu']:.3e} of max|float64| {peak:.3e} from "
+                  f"float64; card against CPU fp32 {card_cpu:.3e}")
+            require(err["card"] <= max(10.0 * err["cpu"], 1e-5),
+                    f"{name} {key}: the card is further from float64 than "
+                    f"the fp32 CPU's rounding explains")
+
+
+def serve(model, rng: np.random.Generator, frame=FRAME) -> None:
+    """Answer ``REQUESTS`` uint8 pairs of ``frame``; check and print each
+    disparity (and confidence map, from the confidence model)."""
     runner = InferenceRunner(model)
     for i in range(REQUESTS):
-        left = rng.integers(0, 256, (*FRAME, 3), dtype=np.uint8)
+        left = rng.integers(0, 256, (*frame, 3), dtype=np.uint8)
         right = np.roll(left, -8, axis=1)          # a constant 8-px shift
-        disp, dt = runner(left, right)
-        require(disp.shape == FRAME, f"request {i}: disparity {disp.shape}")
-        require(np.isfinite(disp).all(), f"request {i}: non-finite disparity")
-        print(f"  request {i}: {FRAME[0]}x{FRAME[1]} -> disparity "
-              f"{disp.shape}, {dt * 1e3:.2f} ms "
-              f"(range {disp.min():.3f} .. {disp.max():.3f})")
+        out, dt = runner(left, right)
+        maps = out if isinstance(out, tuple) else (out,)
+        for name, m in zip(("disparity", "confidence"), maps):
+            require(m.shape == frame, f"request {i}: {name} {m.shape}")
+            require(np.isfinite(m).all(), f"request {i}: non-finite {name}")
+        if len(maps) == 2:
+            require(((maps[1] >= 0) & (maps[1] <= 1)).all(),
+                    f"request {i}: confidence outside [0, 1]")
+        ranges = ", ".join(f"{name} {m.min():.3f} .. {m.max():.3f}"
+                           for name, m in zip(("disparity", "confidence"),
+                                              maps))
+        print(f"  request {i}: {frame[0]}x{frame[1]} -> {len(maps)} map(s) "
+              f"{maps[0].shape}, {dt * 1e3:.2f} ms ({ranges})")
 
 
 def main() -> int:
@@ -726,9 +982,13 @@ def main() -> int:
     model = ESMStereo(device="cuda", seed=SEED)
     m_gwc = ESMStereo(M, device="cuda", seed=SEED)
     m_norm = ESMStereo(M_NORM, device="cuda", seed=SEED)
+    s_gwc = ESMStereo(S, device="cuda", seed=SEED)
+    s_norm = ESMStereo(S_NORM, device="cuda", seed=SEED)
+    conf = ESMStereoConfidence(S_NORM, device="cuda", seed=SEED)
     print("[3] kernels against their plain versions, main-path shapes")
     with torch.inference_mode():
-        rows = [check_fused_stage0(model, gen), check_stems(model, gen)]
+        rows = [check_fused_stage0(model, gen, "default"),
+                check_stems(model, gen, "all")]
         # L: kernel C on kernel B's volume, then E, G, H, I
         row_b, volume = check_correlation_volume(model, gen, "gwc",
                                                  "default")
@@ -752,6 +1012,22 @@ def main() -> int:
         del vol1
         row_g, downs = check_down_pairs(m_norm, gen, "M-norm-all")
         rows += [row_g, check_up_pairs(m_norm, gen, downs, "M-norm-all")]
+        # S: A's mobilenetv2 form, F at (16, 24), B (gwc and norm) and C at
+        # 12 bins, G and H at 8 -> 12 -> 16 -> 24 channels
+        rows += [check_fused_stage0(s_gwc, gen, "S"),
+                 check_stems(s_gwc, gen, "S-all")]
+        row_b, volume = check_correlation_volume(s_gwc, gen, "gwc", "S")
+        rows += [row_b, check_stem_agg(s_gwc, volume, "S"),
+                 check_correlation_volume(s_norm, gen, "norm", "S-norm")[0]]
+        del volume
+        row_g, downs = check_down_pairs(s_gwc, gen, "S-all")
+        rows += [row_g, check_up_pairs(s_gwc, gen, downs, "S-all")]
+        # C: A's mobilenetv2 form and B's normalised form at the KITTI
+        # frame's 384 x 1248 (descriptors (1, 64, 24, 78), 12 bins)
+        c_rows = [check_fused_stage0(conf.stereo, gen, "C", KITTI_PADDED),
+                  check_correlation_volume(conf.stereo, gen, "norm", "C",
+                                           KITTI_PADDED)[0]]
+        rows += [dict(r, model="C") for r in c_rows]
         for r in rows:
             lib = r["library_ms"]
             lib = "none" if lib is None else f"{lib:.4f} ms"
@@ -768,45 +1044,68 @@ def main() -> int:
                 print(f"    beside kernels B + C on the same inputs: "
                       f"{r['ms']:.4f} ms against {r['b_plus_c_ms']:.4f} ms")
         print("  ragged shapes:")
-        check_ragged(model, m_norm, gen)
+        check_ragged(model, m_norm, s_gwc, gen)
 
-    # the six served paths' configurations, each switch alone, and L with
-    # the norm-correlation volume
+    # the served paths' configurations (C's is S-norm's), each switch alone
+    # at cv4, and L with the norm-correlation volume
     paths = {"default": ESMStereoConfig(), "fused": FUSED, "all": ALL,
-             "M": M, "M-norm": M_NORM, "M-norm-all": M_NORM_ALL}
+             "M": M, "M-norm": M_NORM, "M-norm-all": M_NORM_ALL,
+             "S": S, "S-norm": S_NORM, "S-all": S_ALL}
     for name, config in (*paths.items(),
                          *((f"{k} alone", ESMStereoConfig(**{k: True}))
                            for k in SWITCHES),
                          ("L-norm", L_NORM), ("L-norm-all", L_NORM_ALL)):
         print(f"[4] {name} model on the card against the CPU, 128x256")
         check_against_cpu(gen, config)
+    print("[4] C (the confidence model on S-norm) on the card against the "
+          "CPU, 128x256")
+    check_against_cpu(gen, S_NORM, confidence=True)
+    # the card at fan-in-scaled weights, against float64: the paths whose
+    # kernels feed match_left with kernel F (L with fuse_stems alone,
+    # M-norm-all, S-all)
+    for name, config in (("fuse_stems alone", ESMStereoConfig(fuse_stems=True)),
+                         ("M-norm-all", M_NORM_ALL), ("S-all", S_ALL)):
+        print(f"[4] {name} at fan-in-scaled weights: the card and the CPU "
+              f"in fp32 against the CPU in float64, 128x256")
+        check_conditioning(name, config)
 
-    nets = {"default": model, "M": m_gwc, "M-norm": m_norm}
+    nets = {"default": model, "M": m_gwc, "M-norm": m_norm, "S": s_gwc,
+            "S-norm": s_norm}
     for name, source in (("fused", model), ("all", model),
-                         ("M-norm-all", m_norm)):
+                         ("M-norm-all", m_norm), ("S-all", s_gwc)):
         nets[name] = ESMStereo(paths[name], device="cuda", seed=SEED)
         nets[name].load_state_dict(source.state_dict())
+    nets["C"] = conf
     kernels = wrappers()
     launches = {}
     for name, net in nets.items():
+        frame = KITTI_FRAME if name == "C" else FRAME
+        padded = [(n // 32 + 1) * 32 for n in frame]
         print(f"[5] {name} path: {REQUESTS} requests through "
-              f"InferenceRunner, {FRAME[0]}x{FRAME[1]} padded to "
-              f"{PADDED[0]}x{PADDED[1]}")
+              f"InferenceRunner, {frame[0]}x{frame[1]} padded to "
+              f"{padded[0]}x{padded[1]}")
         for fn in kernels.values():
             fn.launches = 0
-        serve(net, np.random.default_rng(SEED))
+        serve(net, np.random.default_rng(SEED), frame)
         torch.cuda.synchronize()
         launches[name] = {k: fn.launches for k, fn in kernels.items()}
-        print(f"  launches on the {name} path: {launches[name]}")
+        print(f"  launches per request on the {name} path: "
+              f"{ {k: n / REQUESTS for k, n in launches[name].items()} }")
     # wrapper calls per request: G runs at 3 levels, H at 2; every other
-    # kernel of the port must stay at 0 on that path (I on every cv8 path)
+    # kernel of the port must stay at 0 on that path (I on every cv8 and
+    # cv16 path, E on every cv16 path, C where corr_stem and agg are plain)
     default_want = {"fused_stage0": 1, "correlation_volume": 1, "stem_agg": 1}
     fused_want = {"fused_stage0": 1, "volume_stem_agg": 1, "down_pair": 3,
                   "up_pair": 2}
+    s_norm_want = {"fused_stage0": 1, "correlation_volume": 1}
     want = {"default": default_want, "fused": fused_want,
             "all": {**fused_want, "stems": 1, "mixer": 1},
             "M": default_want, "M-norm": default_want,
-            "M-norm-all": {**fused_want, "stems": 1}}
+            "M-norm-all": {**fused_want, "stems": 1},
+            "S": default_want, "S-norm": s_norm_want,
+            "S-all": {**default_want, "stems": 1, "down_pair": 3,
+                      "up_pair": 2},
+            "C": s_norm_want}
     for path, per_request in want.items():
         for k, n in launches[path].items():
             require(n == per_request.get(k, 0) * REQUESTS,

@@ -7,9 +7,10 @@ the architecture tables (``:38-93``) and the timm-style blocks
 
 The stem activation is ReLU6 on both backbones (the reference swaps it
 in, ``ESMStereo.py:51,60``); the blocks use the arch's activation (SiLU on
-efficientnet_b2). In eval mode the stem and stage 0 run as one fused
-operation (``backbones.fused``, kernel A of ``ops.kernels.fused_head``),
-which takes efficientnet_b2 only; the plain modules run in training mode.
+efficientnet_b2, ReLU6 on mobilenetv2_100). In eval mode the stem and
+stage 0 run as one fused operation (``backbones.fused``, kernel A of
+``ops.kernels.fused_head``), in either backbone's form; the plain modules
+run in training mode.
 """
 
 from __future__ import annotations

@@ -18,29 +18,26 @@ from esmstereo_tpu_torch.ops.kernels.fused_head import fused_stage0, pack_params
 
 def prepare_consts(pyramid) -> dict:
     """BN-folded stem and stage-0 weights of ``pyramid`` (eval statistics),
-    and the same packed in the kernel's order (``packed``). Only
-    efficientnet_b2's stage 0 (two blocks with SqueezeExcite) is in this
-    slice; mobilenetv2's single block without SE raises."""
-    if pyramid.arch != "efficientnet_b2":
-        raise NotImplementedError(
-            f"the fused head takes efficientnet_b2 only, not {pyramid.arch}")
+    the blocks' activation (``act``), and the same packed in the kernel's
+    order (``packed``): efficientnet_b2's two blocks with SqueezeExcite, or
+    mobilenetv2_100's one block without."""
     stem_w, stem_b = fold_bn(pyramid.conv_stem.weight, pyramid.bn1)
     blocks = []
     for name in pyramid.block_names[0]:
         blk = getattr(pyramid, name)
         dw_w, dw_b = fold_bn(blk.conv_dw.weight, blk.bn1)
         pw_w, pw_b = fold_bn(blk.conv_pw.weight, blk.bn2)
-        se = blk.se
-        blocks.append({
-            "dw_w": dw_w[:, 0], "dw_b": dw_b,
-            "se_w1": se.conv_reduce.weight[:, :, 0, 0],
-            "se_b1": se.conv_reduce.bias,
-            "se_w2": se.conv_expand.weight[:, :, 0, 0],
-            "se_b2": se.conv_expand.bias,
-            "pw_w": pw_w[:, :, 0, 0], "pw_b": pw_b,
-            "residual": blk.residual,
-        })
-    consts = {"stem_w": stem_w, "stem_b": stem_b, "blocks": blocks}
+        block = {"dw_w": dw_w[:, 0], "dw_b": dw_b, "pw_w": pw_w[:, :, 0, 0],
+                 "pw_b": pw_b, "residual": blk.residual}
+        if blk.se is not None:
+            se = blk.se
+            block.update({"se_w1": se.conv_reduce.weight[:, :, 0, 0],
+                          "se_b1": se.conv_reduce.bias,
+                          "se_w2": se.conv_expand.weight[:, :, 0, 0],
+                          "se_b2": se.conv_expand.bias})
+        blocks.append(block)
+    consts = {"stem_w": stem_w, "stem_b": stem_b, "blocks": blocks,
+              "act": pyramid.cfg.act}
     consts["packed"] = pack_params(consts)
     return consts
 

@@ -1,13 +1,20 @@
-// Kernel A: backbone stem + stage 0 of efficientnet_b2, eval mode, fp32.
+// Kernel A: backbone stem + stage 0, eval mode, fp32, in the two layouts
+// of the JAX kernel (efficientnet_b2 and mobilenetv2_100).
 //
 // Replaces esmstereo_tpu/ops/pallas/fused_head.py::fused_stage0_apply
 // (pallas_call at :393). From an NCHW image (B, 3, Hi, Wi) it computes, on the
-// (Hi/2, Wi/2) grid:
+// (Hi/2, Wi/2) grid, for efficientnet_b2 (2 blocks with SqueezeExcite, SiLU):
 //   x0 = relu6(conv3x3 s2 p1 (img) + b)                       32 ch (stem)
 //   a0 = silu(dw3x3(x0) + b); g0 = SE(mean a0)                 block 0
 //   y0 = pw(a0 * g0) + b                                      16 ch
 //   a1 = silu(dw3x3(y0) + b); g1 = SE(mean a1)                 block 1
 //   out = pw(a1 * g1) + b + y0                                16 ch
+// and for mobilenetv2_100 (1 block, no SE, no residual since 32 != 16, ReLU6
+// on the stem and on the dw, nothing after the pw; JAX fused_head.py:93-98,
+// 217-221, and the stem's ReLU6 on both backbones, backbones/efficientnet.py
+// :10-13):
+//   x0 = relu6(conv3x3 s2 p1 (img) + b)                       32 ch (stem)
+//   out = pw(relu6(dw3x3(x0) + b)) + b                        16 ch
 // with every eval BatchNorm folded into the weights and biases by the
 // wrapper; SE(m) = sigmoid(W2 silu(W1 m + b1) + b2).
 //
@@ -31,6 +38,13 @@
 // Recomputing the stem is cheaper than storing the 32-channel x0 (35 MB);
 // y0 (17 MB) makes one round trip. The partial sums are reduced in a fixed
 // order, so results are the same from run to run (no atomics).
+//
+// mobilenetv2_100's form needs no mean over the image, so it is one launch
+// (stage0_single): the stem recomputed on the dw's 1-pixel halo into shared
+// memory, as pass 1 does, then dw 3x3 + ReLU6 and the pw in registers, and
+// only the 16-channel output leaves the block. At 2 x 544 x 992 it moves the
+// same bytes as the efficientnet form (0.009 ms) for 1664 multiply-adds a
+// pixel (0.013 ms at 67 TFLOP/s): operations bound it, narrowly.
 #include <cuda_runtime.h>
 
 #include "activations.cuh"
@@ -63,14 +77,33 @@ constexpr int OFF_PW1_W = OFF_SE1_B2 + C1;         // [C2][C1]
 constexpr int OFF_PW1_B = OFF_PW1_W + C2 * C1;     // [C2]
 constexpr int kParams = OFF_PW1_B + C2;
 
+// mobilenetv2_100 stage 0: stem 3 -> 32 (as above), DS block 32 -> C1 = 16
+// without SE or residual
+constexpr int M_OFF_DW_W = OFF_STEM_B + C0;        // [C0][9]
+constexpr int M_OFF_DW_B = M_OFF_DW_W + C0 * 9;    // [C0]
+constexpr int M_OFF_PW_W = M_OFF_DW_B + C0;        // [C1][C0]
+constexpr int M_OFF_PW_B = M_OFF_PW_W + C1 * C0;   // [C1]
+constexpr int kParamsSingle = M_OFF_PW_B + C1;
+
+// the packed layouts the wrapper may pass (fused_stage0's `form`)
+enum Form { kEfficientNetB2 = 0, kMobileNetV2 = 1 };
+enum Act { kSilu, kRelu6 };
+
 __host__ __device__ constexpr int patch_floats(int ny, int nx) { return 3 * (2 * ny + 1) * (2 * nx + 1); }
 constexpr int kSmem1 = kParams + patch_floats(kTh + 2, kTw + 2) + C0 * (kTh + 2) * (kTw + 2);
 constexpr int kSmem2 = kParams + patch_floats(kTh + 4, kTw + 4) + C0 * (kTh + 4) * (kTw + 4) +
                        C1 * (kTh + 2) * (kTw + 2);
 constexpr int kSmem3 = kParams + C1 * (kTh + 2) * (kTw + 2);
+constexpr int kSmemSingle = kParamsSingle + patch_floats(kTh + 2, kTw + 2) +
+                            C0 * (kTh + 2) * (kTw + 2);
 
-__device__ void load_params(const float* __restrict__ prm, float* p, int tid) {
-    for (int i = tid; i < kParams; i += kThreads) p[i] = prm[i];
+__device__ void load_params(const float* __restrict__ prm, float* p, int n, int tid) {
+    for (int i = tid; i < n; i += kThreads) p[i] = prm[i];
+}
+
+template <Act A>
+__device__ __forceinline__ float act(float x) {
+    return A == kSilu ? silu(x) : relu6(x);
 }
 
 // Image rows/cols feeding x0 rows [gy0, gy0+ny) and cols [gx0, gx0+nx):
@@ -116,10 +149,10 @@ __device__ void stem_tile(const float* patch, const float* p, float* x0, int gy0
     }
 }
 
-// a[c] = silu(dw3x3(t)[c] + b[c]) at tile position (ly, lx) of a [C][ny][nx] tile.
-template <int C>
-__device__ __forceinline__ void dw_silu(const float* t, int ny, int nx, int ly, int lx,
-                                        const float* w, const float* bias, float* a) {
+// a[c] = act(dw3x3(t)[c] + b[c]) at tile position (ly, lx) of a [C][ny][nx] tile.
+template <int C, Act A>
+__device__ __forceinline__ void dw_act(const float* t, int ny, int nx, int ly, int lx,
+                                       const float* w, const float* bias, float* a) {
 #pragma unroll
     for (int c = 0; c < C; ++c) {
         const float* tc = t + c * ny * nx;
@@ -129,7 +162,7 @@ __device__ __forceinline__ void dw_silu(const float* t, int ny, int nx, int ly, 
 #pragma unroll
             for (int kw = 0; kw < 3; ++kw)
                 s = fmaf(w[c * 9 + kh * 3 + kw], tc[(ly - 1 + kh) * nx + lx - 1 + kw], s);
-        a[c] = silu(s);
+        a[c] = act<A>(s);
     }
 }
 
@@ -167,7 +200,7 @@ stage0_pass1(const float* __restrict__ img, const float* __restrict__ prm,
     const int gy0 = blockIdx.y * kTh - 1, gx0 = blockIdx.x * kTw - 1;
     const int ny = kTh + 2, nx = kTw + 2;
 
-    load_params(prm, p, tid);
+    load_params(prm, p, kParams, tid);
     load_patch(img + (size_t)b * 3 * Hi * Wi, patch, gy0, gx0, ny, nx, Hi, Wi, tid);
     __syncthreads();
     stem_tile(patch, p, x0, gy0, gx0, ny, nx, H, W, tid);
@@ -176,7 +209,7 @@ stage0_pass1(const float* __restrict__ img, const float* __restrict__ prm,
     const int gy = blockIdx.y * kTh + threadIdx.y, gx = blockIdx.x * kTw + threadIdx.x;
     float a[C0];
     if (gy < H && gx < W) {
-        dw_silu<C0>(x0, ny, nx, threadIdx.y + 1, threadIdx.x + 1, p + OFF_DW0_W, p + OFF_DW0_B, a);
+        dw_act<C0, kSilu>(x0, ny, nx, threadIdx.y + 1, threadIdx.x + 1, p + OFF_DW0_W, p + OFF_DW0_B, a);
     } else {
 #pragma unroll
         for (int c = 0; c < C0; ++c) a[c] = 0.0f;
@@ -231,7 +264,7 @@ stage0_pass2(const float* __restrict__ img, const float* __restrict__ prm,
     const int nyy = kTh + 2, nxy = kTw + 2;  // y0 tile, 1-pixel halo
     const int gy0 = blockIdx.y * kTh - 2, gx0 = blockIdx.x * kTw - 2;
 
-    load_params(prm, p, tid);
+    load_params(prm, p, kParams, tid);
     load_patch(img + (size_t)b * 3 * Hi * Wi, patch, gy0, gx0, nyx, nxx, Hi, Wi, tid);
     __syncthreads();
     stem_tile(patch, p, x0, gy0, gx0, nyx, nxx, H, W, tid);
@@ -243,7 +276,7 @@ stage0_pass2(const float* __restrict__ img, const float* __restrict__ prm,
         const int gy = gy0 + 1 + ly, gx = gx0 + 1 + lx;
         if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
             float a[C0];
-            dw_silu<C0>(x0, nyx, nxx, ly + 1, lx + 1, p + OFF_DW0_W, p + OFF_DW0_B, a);
+            dw_act<C0, kSilu>(x0, nyx, nxx, ly + 1, lx + 1, p + OFF_DW0_W, p + OFF_DW0_B, a);
 #pragma unroll
             for (int c = 0; c < C0; ++c) a[c] *= g0[c];
 #pragma unroll 4
@@ -267,7 +300,7 @@ stage0_pass2(const float* __restrict__ img, const float* __restrict__ prm,
         float* yb = y0buf + (size_t)b * C1 * plane + (size_t)gy * W + gx;
 #pragma unroll
         for (int o = 0; o < C1; ++o) yb[o * plane] = y0[o * nyy * nxy + ly * nxy + lx];
-        dw_silu<C1>(y0, nyy, nxy, ly, lx, p + OFF_DW1_W, p + OFF_DW1_B, a);
+        dw_act<C1, kSilu>(y0, nyy, nxy, ly, lx, p + OFF_DW1_W, p + OFF_DW1_B, a);
     } else {
 #pragma unroll
         for (int c = 0; c < C1; ++c) a[c] = 0.0f;
@@ -290,7 +323,7 @@ stage0_pass3(const float* __restrict__ y0buf, const float* __restrict__ prm,
     const size_t plane = (size_t)H * W;
     const float* yb = y0buf + (size_t)b * C1 * plane;
 
-    load_params(prm, p, tid);
+    load_params(prm, p, kParams, tid);
     for (int i = tid; i < C1 * ny * nx; i += kThreads) {
         const int c = i / (ny * nx);
         const int ly = (i / nx) % ny, lx = i % nx;
@@ -304,7 +337,7 @@ stage0_pass3(const float* __restrict__ y0buf, const float* __restrict__ prm,
     if (gy >= H || gx >= W) return;
     const int ly = threadIdx.y + 1, lx = threadIdx.x + 1;
     float a[C1];
-    dw_silu<C1>(y0, ny, nx, ly, lx, p + OFF_DW1_W, p + OFF_DW1_B, a);
+    dw_act<C1, kSilu>(y0, ny, nx, ly, lx, p + OFF_DW1_W, p + OFF_DW1_B, a);
     const float* g1 = gates1 + (size_t)b * C1;
 #pragma unroll
     for (int c = 0; c < C1; ++c) a[c] *= g1[c];
@@ -318,36 +351,88 @@ stage0_pass3(const float* __restrict__ y0buf, const float* __restrict__ prm,
     }
 }
 
+// mobilenetv2_100's form, in one pass: out = pw(relu6(dw(x0))) on a 32 x 4
+// tile, x0 = relu6(stem) recomputed on the tile and its 1-pixel halo.
+__global__ void __launch_bounds__(kThreads)
+stage0_single(const float* __restrict__ img, const float* __restrict__ prm,
+              float* __restrict__ out, int Hi, int Wi) {
+    extern __shared__ float sm[];
+    float* p = sm;
+    float* patch = p + kParamsSingle;
+    float* x0 = patch + patch_floats(kTh + 2, kTw + 2);
+    const int H = Hi / 2, W = Wi / 2;
+    const int b = blockIdx.z;
+    const int tid = threadIdx.y * kTw + threadIdx.x;
+    const int gy0 = blockIdx.y * kTh - 1, gx0 = blockIdx.x * kTw - 1;
+    const int ny = kTh + 2, nx = kTw + 2;
+
+    load_params(prm, p, kParamsSingle, tid);
+    load_patch(img + (size_t)b * 3 * Hi * Wi, patch, gy0, gx0, ny, nx, Hi, Wi, tid);
+    __syncthreads();
+    stem_tile(patch, p, x0, gy0, gx0, ny, nx, H, W, tid);
+    __syncthreads();
+
+    const int gy = blockIdx.y * kTh + threadIdx.y, gx = blockIdx.x * kTw + threadIdx.x;
+    if (gy >= H || gx >= W) return;
+    float a[C0];
+    dw_act<C0, kRelu6>(x0, ny, nx, threadIdx.y + 1, threadIdx.x + 1, p + M_OFF_DW_W,
+                       p + M_OFF_DW_B, a);
+    const size_t plane = (size_t)H * W;
+    float* ob = out + (size_t)b * C1 * plane + (size_t)gy * W + gx;
+#pragma unroll 4
+    for (int o = 0; o < C1; ++o) {
+        float s = p[M_OFF_PW_B + o];
+#pragma unroll
+        for (int c = 0; c < C0; ++c) s = fmaf(p[M_OFF_PW_W + o * C0 + c], a[c], s);
+        ob[o * plane] = s;
+    }
+}
+
 int tiles_x(int W) { return (W + kTw - 1) / kTw; }
 int tiles_y(int H) { return (H + kTh - 1) / kTh; }
 
 }  // namespace
 
-extern "C" int stage0_params_size() { return kParams; }
+// form: kEfficientNetB2 (0) or kMobileNetV2 (1); -1 for another.
+extern "C" int stage0_params_size(int form) {
+    return form == kEfficientNetB2 ? kParams : form == kMobileNetV2 ? kParamsSingle : -1;
+}
 
-// Scratch the wrapper allocates: partial0, gates0, partial1, gates1, y0.
-extern "C" long long stage0_workspace_floats(int B, int Hi, int Wi) {
+// Scratch the wrapper allocates for the efficientnet_b2 form: partial0,
+// gates0, partial1, gates1, y0. The mobilenetv2_100 form needs none.
+extern "C" long long stage0_workspace_floats(int form, int B, int Hi, int Wi) {
+    if (form != kEfficientNetB2) return 0;
     const int H = Hi / 2, W = Wi / 2;
     const long long tiles = (long long)tiles_x(W) * tiles_y(H);
     return B * tiles * (C0 + C1) + (long long)B * (C0 + C1) + (long long)B * C1 * H * W;
 }
 
-// img: (B, 3, Hi, Wi); params: stage0_params_size() floats in the packed
-// order above; out: (B, 16, Hi/2, Wi/2); ws: stage0_workspace_floats().
-// Hi and Wi must be even. All fp32, contiguous. Returns a cudaError_t.
-extern "C" int fused_stage0(const float* img, const float* params, float* out, float* ws,
-                            int B, int Hi, int Wi, cudaStream_t stream) {
+// img: (B, 3, Hi, Wi); params: stage0_params_size(form) floats in the
+// form's packed order above; out: (B, 16, Hi/2, Wi/2); ws:
+// stage0_workspace_floats(form, ...). Hi and Wi must be even. All fp32,
+// contiguous. Returns a cudaError_t (cudaErrorInvalidValue for another form).
+extern "C" int fused_stage0(int form, const float* img, const float* params, float* out,
+                            float* ws, int B, int Hi, int Wi, cudaStream_t stream) {
     const int H = Hi / 2, W = Wi / 2;
     const int tx = tiles_x(W), ty = tiles_y(H), tiles = tx * ty;
+    const dim3 grid(tx, ty, B), block(kTw, kTh);
+    cudaError_t err;
+    if (form == kMobileNetV2) {
+        err = cudaFuncSetAttribute(stage0_single, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   kSmemSingle * (int)sizeof(float));
+        if (err != cudaSuccess) return (int)err;
+        stage0_single<<<grid, block, kSmemSingle * sizeof(float), stream>>>(img, params, out,
+                                                                            Hi, Wi);
+        return (int)cudaGetLastError();
+    }
+    if (form != kEfficientNetB2) return (int)cudaErrorInvalidValue;
     float* partial0 = ws;
     float* gates0 = partial0 + (size_t)B * tiles * C0;
     float* partial1 = gates0 + (size_t)B * C0;
     float* gates1 = partial1 + (size_t)B * tiles * C1;
     float* y0 = gates1 + (size_t)B * C1;
 
-    const dim3 grid(tx, ty, B), block(kTw, kTh);
     const float inv_count = 1.0f / ((float)H * (float)W);
-    cudaError_t err;
     err = cudaFuncSetAttribute(stage0_pass1, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                kSmem1 * (int)sizeof(float));
     if (err != cudaSuccess) return (int)err;

@@ -23,15 +23,23 @@
 // of output pixels, a chunk of kDc output depths and kCot output channels;
 // each thread owns one (h, w) column and keeps kDc * kCot sums in
 // registers. Tiling the output channels by 8 keeps that register count at
-// every width (8, 24, 40, 72 channels) instead of spilling at the wide
-// ones; each channel tile reads the input again, from L2. Input channels
-// stream through shared memory one at a time as the tile's halo slab,
-// beside that channel's weights for the tile. For each input channel and
-// (kh, kw) tap of the stride-1 conv a thread loads its kDc+2 depth values
-// once and reuses each for three kd taps and 8 outputs. The transposed conv
-// is written in gather form (each output sums the 2 x 2 x 2 input taps that
-// reach it), so it needs no atomics and repeats bit for bit. No tensor
-// cores: fp32 parity first.
+// every width (8 to 72 channels) instead of spilling at the wide ones; each
+// channel tile reads the input again, from L2. A width that is not a
+// multiple of 8 (ESMStereo-S's 12) runs the kernels' masked instances
+// (kMasked): the last tile's weight loads read zeros past CO and its
+// stores skip those channels. Whole widths (L's and M's) run the unmasked
+// instances, whose code is that of widths of 8 only: masking every width
+// cost the shared conv 40-60% at L's and M's shapes, at the same register
+// counts. The tail tile's 4 idle channels cost a third of the
+// 12-channel level's arithmetic, which at S's tiny levels is not what
+// bounds it (a narrower instance would be a second kernel to hold).
+// Input channels stream through shared memory one at a time as the tile's
+// halo slab, beside that channel's weights for the tile. For each input
+// channel and (kh, kw) tap of the stride-1 conv a thread loads its kDc+2
+// depth values once and reuses each for three kd taps and 8 outputs. The
+// transposed conv is written in gather form (each output sums the 2 x 2 x 2
+// input taps that reach it), so it needs no atomics and repeats bit for
+// bit. No tensor cores: fp32 parity first.
 #include <cuda_runtime.h>
 
 #include "activations.cuh"
@@ -58,7 +66,9 @@ __device__ __forceinline__ bool inside(int d, int h, int w, int D, int H,
     return d >= 0 && d < D && h >= 0 && h < H && w >= 0 && w < W;
 }
 
-// Writes a thread's kDc x kCot sums, plus the folded BN shift, through GELU.
+// Writes a thread's kDc x kCot sums, plus the folded BN shift, through GELU;
+// kMasked skips the channels past CO.
+template <bool kMasked>
 __device__ __forceinline__ void store_tile(
         const float (&acc)[kDc][kCot], const float* __restrict__ shift,
         float* __restrict__ y, int b, int CO, int co0, int d0, int h, int w,
@@ -74,14 +84,15 @@ __device__ __forceinline__ void store_tile(
         if (d >= D) break;
 #pragma unroll
         for (int o = 0; o < kCot; ++o)
-            yb[(size_t)o * vol + (size_t)d * plane] =
-                gelu(acc[dd][o] + shift[co0 + o], approx);
+            if (!kMasked || co0 + o < CO)
+                yb[(size_t)o * vol + (size_t)d * plane] =
+                    gelu(acc[dd][o] + shift[co0 + o], approx);
     }
 }
 
 // conv3d k3, stride S, padding 1: x (B, CI, D, H, W) -> y (B, CO, Do, Ho, Wo).
 // wgt: (CO, CI, 3, 3, 3) with the BN scale folded in; shift: (CO,).
-template <int S>
+template <int S, bool kMasked>
 __global__ void __launch_bounds__(kThreads)
 conv3d_k3_kernel(const float* __restrict__ x, const float* __restrict__ wgt,
                  const float* __restrict__ shift, float* __restrict__ y,
@@ -127,7 +138,8 @@ conv3d_k3_kernel(const float* __restrict__ x, const float* __restrict__ wgt,
         }
         for (int i = tid; i < 27 * kCot; i += kThreads) {
             const int k = i % 27, o = i / 27;
-            wsh[k * kCot + o] = wgt[((size_t)(co0 + o) * CI + ci) * 27 + k];
+            wsh[k * kCot + o] = !kMasked || co0 + o < CO
+                ? wgt[((size_t)(co0 + o) * CI + ci) * 27 + k] : 0.0f;
         }
         __syncthreads();
 #pragma unroll
@@ -155,8 +167,8 @@ conv3d_k3_kernel(const float* __restrict__ x, const float* __restrict__ wgt,
             }
         }
     }
-    store_tile(acc, shift, y, b, CO, co0, do0, ho0 + ty, wo0 + tx, Do, Ho, Wo,
-               approximate);
+    store_tile<kMasked>(acc, shift, y, b, CO, co0, do0, ho0 + ty, wo0 + tx, Do,
+                        Ho, Wo, approximate);
 }
 
 // ConvTranspose3d k4 s2 p1 in gather form. On one axis, output q sums the
@@ -173,6 +185,7 @@ constexpr int kUd = kDc / 2 + 2;
 // x (B, CI, Ds, Hs, Ws) -> y (B, CO, D2, H2, W2), the transposed conv's
 // (2 Ds, 2 Hs, 2 Ws) output cropped to its leading D2 x H2 x W2 corner.
 // wgt: (CI, CO, 4, 4, 4) with the BN scale folded in; shift: (CO,).
+template <bool kMasked>
 __global__ void __launch_bounds__(kThreads)
 deconv3d_k4s2_kernel(const float* __restrict__ x,
                      const float* __restrict__ wgt,
@@ -218,7 +231,8 @@ deconv3d_k4s2_kernel(const float* __restrict__ x,
         }
         for (int i = tid; i < 64 * kCot; i += kThreads) {
             const int k = i % 64, o = i / 64;
-            wsh[k * kCot + o] = wgt[((size_t)ci * CO + co0 + o) * 64 + k];
+            wsh[k * kCot + o] = !kMasked || co0 + o < CO
+                ? wgt[((size_t)ci * CO + co0 + o) * 64 + k] : 0.0f;
         }
         __syncthreads();
 #pragma unroll
@@ -253,14 +267,15 @@ deconv3d_k4s2_kernel(const float* __restrict__ x,
             }
         }
     }
-    store_tile(acc, shift, y, b, CO, co0, do0, ho0 + ty, wo0 + tx, D2, H2, W2,
-               approximate);
+    store_tile<kMasked>(acc, shift, y, b, CO, co0, do0, ho0 + ty, wo0 + tx, D2,
+                        H2, W2, approximate);
 }
 
 // 1x1x1 conv over the channel concat [up | skip], each (B, CO, N) with N
 // voxels: y = GELU(wgt[:, :CO] up + wgt[:, CO:] skip + shift). wgt: (CO, 2 CO)
 // with the BN scale folded in. One thread per voxel and kCot outputs; the
 // loads of a warp are 32 neighbouring voxels of one channel.
+template <bool kMasked>
 __global__ void __launch_bounds__(256)
 conv1x1_cat_kernel(const float* __restrict__ up,
                    const float* __restrict__ skip,
@@ -273,7 +288,8 @@ conv1x1_cat_kernel(const float* __restrict__ up,
     const int cin = 2 * CO;
     for (int i = threadIdx.x; i < cin * kCot; i += blockDim.x) {
         const int c = i % cin, o = i / cin;
-        wsh[c * kCot + o] = wgt[(size_t)(co0 + o) * cin + c];
+        wsh[c * kCot + o] = !kMasked || co0 + o < CO
+            ? wgt[(size_t)(co0 + o) * cin + c] : 0.0f;
     }
     __syncthreads();
     const int v = blockIdx.x * blockDim.x + threadIdx.x;
@@ -299,13 +315,16 @@ conv1x1_cat_kernel(const float* __restrict__ up,
     float* yb = y + ((size_t)b * CO + co0) * N + v;
 #pragma unroll
     for (int o = 0; o < kCot; ++o)
-        yb[(size_t)o * N] = gelu(acc[o] + shift[co0 + o], approx);
+        if (!kMasked || co0 + o < CO)
+            yb[(size_t)o * N] = gelu(acc[o] + shift[co0 + o], approx);
 }
 
 }  // namespace
 
 // All tensors fp32 and contiguous. Each entry point returns a cudaError_t:
-// cudaErrorInvalidValue for shapes it does not take (CO not a multiple of 8).
+// cudaErrorInvalidValue for shapes it does not take.
+
+static int channel_tiles(int CO) { return (CO + kCot - 1) / kCot; }
 
 // x: (B, CI, D, H, W); wgt: (CO, CI, 3, 3, 3); shift: (CO,);
 // y: (B, CO, (D-1)/stride+1, (H-1)/stride+1, (W-1)/stride+1).
@@ -313,20 +332,19 @@ extern "C" int conv3d_k3_bn_gelu(const float* x, const float* wgt,
                                  const float* shift, float* y, int B, int CI,
                                  int CO, int D, int H, int W, int stride,
                                  int approximate, cudaStream_t stream) {
-    if (CO % kCot || CI < 1 || (stride != 1 && stride != 2))
+    if (CO < 1 || CI < 1 || (stride != 1 && stride != 2))
         return (int)cudaErrorInvalidValue;
     const int Do = (D - 1) / stride + 1;
     const int Ho = (H - 1) / stride + 1;
     const int Wo = (W - 1) / stride + 1;
     const dim3 grid(((Wo + kTw - 1) / kTw) * ((Ho + kTh - 1) / kTh),
-                    ((Do + kDc - 1) / kDc) * (CO / kCot), B);
+                    ((Do + kDc - 1) / kDc) * channel_tiles(CO), B);
     const dim3 block(kTw, kTh);
-    if (stride == 1)
-        conv3d_k3_kernel<1><<<grid, block, 0, stream>>>(
-            x, wgt, shift, y, CI, CO, D, H, W, Do, Ho, Wo, approximate);
-    else
-        conv3d_k3_kernel<2><<<grid, block, 0, stream>>>(
-            x, wgt, shift, y, CI, CO, D, H, W, Do, Ho, Wo, approximate);
+    auto kernel = stride == 1
+        ? (CO % kCot ? conv3d_k3_kernel<1, true> : conv3d_k3_kernel<1, false>)
+        : (CO % kCot ? conv3d_k3_kernel<2, true> : conv3d_k3_kernel<2, false>);
+    kernel<<<grid, block, 0, stream>>>(x, wgt, shift, y, CI, CO, D, H, W, Do,
+                                       Ho, Wo, approximate);
     return (int)cudaGetLastError();
 }
 
@@ -336,13 +354,15 @@ extern "C" int hourglass_deconv(const float* x, const float* wgt,
                                 const float* shift, float* y, int B, int CI,
                                 int CO, int Ds, int Hs, int Ws, int D2, int H2,
                                 int W2, int approximate, cudaStream_t stream) {
-    if (CO % kCot || CI < 1 || D2 > 2 * Ds || H2 > 2 * Hs || W2 > 2 * Ws)
+    if (CO < 1 || CI < 1 || D2 > 2 * Ds || H2 > 2 * Hs || W2 > 2 * Ws)
         return (int)cudaErrorInvalidValue;
     const dim3 grid(((W2 + kTw - 1) / kTw) * ((H2 + kTh - 1) / kTh),
-                    ((D2 + kDc - 1) / kDc) * (CO / kCot), B);
+                    ((D2 + kDc - 1) / kDc) * channel_tiles(CO), B);
     const dim3 block(kTw, kTh);
-    deconv3d_k4s2_kernel<<<grid, block, 0, stream>>>(
-        x, wgt, shift, y, CI, CO, Ds, Hs, Ws, D2, H2, W2, approximate);
+    auto kernel = CO % kCot ? deconv3d_k4s2_kernel<true>
+                            : deconv3d_k4s2_kernel<false>;
+    kernel<<<grid, block, 0, stream>>>(x, wgt, shift, y, CI, CO, Ds, Hs, Ws,
+                                       D2, H2, W2, approximate);
     return (int)cudaGetLastError();
 }
 
@@ -351,10 +371,12 @@ extern "C" int hourglass_conv1x1_cat(const float* up, const float* skip,
                                      const float* wgt, const float* shift,
                                      float* y, int B, int CO, int N,
                                      int approximate, cudaStream_t stream) {
-    if (CO % kCot || 2 * CO > kMaxCat || N < 1)
+    if (CO < 1 || 2 * CO > kMaxCat || N < 1)
         return (int)cudaErrorInvalidValue;
-    const dim3 grid((N + 255) / 256, CO / kCot, B);
-    conv1x1_cat_kernel<<<grid, 256, 0, stream>>>(up, skip, wgt, shift, y, CO,
-                                                 N, approximate);
+    const dim3 grid((N + 255) / 256, channel_tiles(CO), B);
+    auto kernel = CO % kCot ? conv1x1_cat_kernel<true>
+                            : conv1x1_cat_kernel<false>;
+    kernel<<<grid, 256, 0, stream>>>(up, skip, wgt, shift, y, CO, N,
+                                     approximate);
     return (int)cudaGetLastError();
 }

@@ -1,7 +1,8 @@
 // Kernel F: the stem_2 + stem_4 matching towers, fp32. Each StemBlock is
 //   conv3x3 stride 2 pad 1 + folded BN + GELU   (conv_down)
 //   conv3x3 stride 1 pad 1 + folded BN + ReLU   (conv)
-// with 3 -> 32 channels (stem_2, at 1/2) and 32 -> 48 (stem_4, at 1/4).
+// with 3 -> 32 channels (stem_2, at 1/2) and 32 -> 48 (stem_4, at 1/4) in
+// ESMStereo-L and -M, or 3 -> 16 and 16 -> 24 in ESMStereo-S.
 //
 // Replaces esmstereo_tpu/ops/pallas/fused_stems.py::fused_stems_apply
 // (pallas_call at :302). The TPU kernel splits the image into row-parity
@@ -12,7 +13,9 @@
 //
 // What bounds it on an H100: operations. Both eyes at 544x992 are 5.05 G
 // multiply-adds (10.1 GFLOP, 0.151 ms at 67 TFLOP/s fp32) against 13 MB
-// read and 47.5 MB written (0.018 ms at 3.35 TB/s).
+// read and 47.5 MB written (0.018 ms at 3.35 TB/s). At S's widths: 1.33 G
+// multiply-adds (0.040 ms) against 13 MB read and 22.7 MB written (0.011
+// ms).
 //
 // Design for that: a block owns an 8 x 32 tile of one StemBlock's output.
 //   1. It computes conv_down over the tile plus a 1-px halo (10 x 34 px,
@@ -21,18 +24,21 @@
 //      memory in chunks of CC channels as the tile's 21 x 69 stride-2
 //      window, even columns and odd columns apart, so that the 32 lanes of
 //      a warp read 32 neighbouring words for every tap. A thread owns up to
-//      4 of the 340 halo pixels and 16 channels, and reuses each weight
-//      vector (a broadcast float4) for its pixels. The halo costs
-//      (10 * 34) / (8 * 32) = 1.33x of the smaller conv of the pair.
+//      4 of the 340 halo pixels and K1 channels (16, or 8 where C is not a
+//      multiple of 16), and reuses each weight vector (a broadcast float4)
+//      for its pixels. The halo costs (10 * 34) / (8 * 32) = 1.33x of the
+//      smaller conv of the pair.
 //   2. It runs the stride-1 conv from shared memory. A thread owns 4 rows
-//      of one column and C/4 output channels (32 or 48 sums): for each
-//      input channel and column tap it loads 6 values once and reuses
+//      of one column and C/4 output channels (4 to 12; 16 to 48 sums): for
+//      each input channel and column tap it loads 6 values once and reuses
 //      them for the 3 row taps; a warp reads 32 neighbouring columns (no
-//      bank conflicts) and one weight vector (a broadcast, as float4).
+//      bank conflicts) and one weight vector (a broadcast, as float4, or
+//      float2 where C/4 is not a multiple of 4).
 // Weights arrive as (CI, 3, 3, CO), output channel fastest, and reach
 // shared memory in chunks of input channels, so that a block needs
-// 65 KB (stem_2, 3 blocks an SM) or 96 KB (stem_4, 2 blocks an SM). No
-// tensor cores: fp32 parity first.
+// 65 KB (stem_2, 3 blocks an SM) or 96 KB (stem_4, 2 blocks an SM) at L's
+// widths. Every instance asserts the divisibility it relies on at compile
+// time. No tensor cores: fp32 parity first.
 #include <cuda_runtime.h>
 
 #include "activations.cuh"
@@ -46,19 +52,20 @@ constexpr int kThreads = 256;   // (kTh / kP) * kTw pixel groups x 4 channel gro
 constexpr int kMh = kTh + 2;    // conv_down rows a tile needs (1-px halo)
 constexpr int kMw = kTw + 2;
 constexpr int kMid = kMh * kMw;
-constexpr int kK1 = 16;         // conv_down channels per thread
 constexpr int kSh = 2 * kMh + 1;    // input rows of a tile's window
 constexpr int kSw = 2 * kMw + 1;    // input columns of a tile's window
 constexpr int kHalf = kMw + 1;      // columns of one parity, at most
 constexpr int kSrow = 2 * kHalf;    // a window row: even columns, then odd
-constexpr int kCw = 16;         // input channels per chunk of conv's weights
 
 static_assert((kTh / kP) * kTw * 4 == kThreads, "thread layout");
 
 // CC: input channels per chunk of the conv_down window.
 template <int CI, int C, int CC>
 struct Stem {
+    static constexpr int kK1 = C % 16 == 0 ? 16 : 8;   // conv_down channels a thread
+    static constexpr int kCw = C % 16 == 0 ? 16 : 8;   // input channels a chunk of conv
     static constexpr int kK = C / 4;             // second-conv channels a thread
+    static constexpr int kVec = kK % 4 == 0 ? 4 : 2;   // floats a weight load
     static constexpr int kGroups = C / kK1;      // conv_down channel groups
     static constexpr int kP1 =                   // conv_down pixels a thread
         (kMid * kGroups + kThreads - 1) / kThreads;
@@ -68,10 +75,39 @@ struct Stem {
     static constexpr int kBuf2 = kCw * 9 * C;    // a chunk of conv weights
     static constexpr int kBuf = kBuf1 > kBuf2 ? kBuf1 : kBuf2;
     static constexpr size_t kSmem = sizeof(float) * (kBuf + C * kMid);
-    static_assert(CI % CC == 0 && C % kCw == 0 && C % kK1 == 0 && kK % 4 == 0,
-                  "channels");
+    // every split below must be exact: an instance that does not fit fails
+    // to compile rather than computing on a remainder it never visits
+    static_assert(CI % CC == 0, "conv_down's input chunks");
+    static_assert(C % kCw == 0, "conv's input chunks");
+    static_assert(C % kK1 == 0 && kK1 % 4 == 0, "conv_down's channel groups");
+    static_assert(C % 4 == 0 && kK % kVec == 0, "conv's 4 channel groups");
     static_assert(kGroups * kQ <= kThreads, "conv_down thread layout");
 };
+
+// n = K consecutive weights from shared memory, as float4 (or float2) loads.
+template <int K, int V>
+__device__ __forceinline__ void load_weights(const float* src, float (&wr)[K]) {
+    static_assert(K % V == 0 && (V == 2 || V == 4), "vector width");
+    if constexpr (V == 4) {
+        const float4* w4 = reinterpret_cast<const float4*>(src);
+#pragma unroll
+        for (int u = 0; u < K / 4; ++u) {
+            const float4 w = w4[u];
+            wr[4 * u + 0] = w.x;
+            wr[4 * u + 1] = w.y;
+            wr[4 * u + 2] = w.z;
+            wr[4 * u + 3] = w.w;
+        }
+    } else {
+        const float2* w2 = reinterpret_cast<const float2*>(src);
+#pragma unroll
+        for (int u = 0; u < K / 2; ++u) {
+            const float2 w = w2[u];
+            wr[2 * u + 0] = w.x;
+            wr[2 * u + 1] = w.y;
+        }
+    }
+}
 
 __device__ __forceinline__ void stage(float* dst, const float* __restrict__ src,
                                       int n) {
@@ -88,6 +124,8 @@ stem_block_kernel(const float* __restrict__ x, const float* __restrict__ wd,
                   int W, int approximate) {
     using S = Stem<CI, C, CC>;
     constexpr int K = S::kK;
+    constexpr int K1 = S::kK1;
+    constexpr int Cw = S::kCw;
     constexpr int P1 = S::kP1;
     constexpr int Q = S::kQ;
     extern __shared__ float4 smem4[];
@@ -115,11 +153,11 @@ stem_block_kernel(const float* __restrict__ x, const float* __restrict__ wd,
         const int p = q + Q * j;
         off[j] = p < kMid ? 2 * (p / kMw) * kSrow + p % kMw : 0;
     }
-    float acc1[P1][kK1];
+    float acc1[P1][K1];
 #pragma unroll
     for (int j = 0; j < P1; ++j)
 #pragma unroll
-        for (int k = 0; k < kK1; ++k) acc1[j][k] = 0.0f;
+        for (int k = 0; k < K1; ++k) acc1[j][k] = 0.0f;
     const float* xb = x + (size_t)b * CI * H * W;
     const int iy0 = 2 * oy0 - 3, ix0 = 2 * ox0 - 3;   // window origin
     for (int c0 = 0; c0 < CI; c0 += CC) {
@@ -140,24 +178,16 @@ stem_block_kernel(const float* __restrict__ x, const float* __restrict__ wd,
             for (int kh = 0; kh < 3; ++kh) {
 #pragma unroll
                 for (int kw = 0; kw < 3; ++kw) {
-                    const float4* w4 = reinterpret_cast<const float4*>(
-                        wsh + ((c * 3 + kh) * 3 + kw) * C + g * kK1);
-                    float wr[kK1];
-#pragma unroll
-                    for (int u = 0; u < kK1 / 4; ++u) {
-                        const float4 w = w4[u];
-                        wr[4 * u + 0] = w.x;
-                        wr[4 * u + 1] = w.y;
-                        wr[4 * u + 2] = w.z;
-                        wr[4 * u + 3] = w.w;
-                    }
+                    float wr[K1];
+                    load_weights<K1, 4>(
+                        wsh + ((c * 3 + kh) * 3 + kw) * C + g * K1, wr);
                     const float* wt = win + (c * kSh + kh) * kSrow
                                       + (kw == 1 ? kHalf : kw / 2);
 #pragma unroll
                     for (int j = 0; j < P1; ++j) {
                         const float v = wt[off[j]];
 #pragma unroll
-                        for (int k = 0; k < kK1; ++k)
+                        for (int k = 0; k < K1; ++k)
                             acc1[j][k] = fmaf(v, wr[k], acc1[j][k]);
                     }
                 }
@@ -171,11 +201,11 @@ stem_block_kernel(const float* __restrict__ x, const float* __restrict__ wd,
             if (p >= kMid) break;
             const int gy = oy0 - 1 + p / kMw, gx = ox0 - 1 + p % kMw;
             const bool inside = gy >= 0 && gy < Ho && gx >= 0 && gx < Wo;
-            float* m = mid + g * kK1 * kMid + p;
+            float* m = mid + g * K1 * kMid + p;
 #pragma unroll
-            for (int k = 0; k < kK1; ++k)
+            for (int k = 0; k < K1; ++k)
                 m[k * kMid] = inside
-                    ? gelu(acc1[j][k] + td[g * kK1 + k], approx) : 0.0f;
+                    ? gelu(acc1[j][k] + td[g * K1 + k], approx) : 0.0f;
         }
     }
 
@@ -189,11 +219,11 @@ stem_block_kernel(const float* __restrict__ x, const float* __restrict__ wd,
     for (int p = 0; p < kP; ++p)
 #pragma unroll
         for (int k = 0; k < K; ++k) acc[p][k] = 0.0f;
-    for (int c0 = 0; c0 < C; c0 += kCw) {
+    for (int c0 = 0; c0 < C; c0 += Cw) {
         __syncthreads();   // mid complete; the previous chunk consumed
         stage(wsh, wc + (size_t)c0 * 9 * C, S::kBuf2);
         __syncthreads();
-        for (int c = 0; c < kCw; ++c) {
+        for (int c = 0; c < Cw; ++c) {
             const float* mc = mid + (c0 + c) * kMid + r0 * kMw + col;
 #pragma unroll
             for (int kw = 0; kw < 3; ++kw) {
@@ -202,17 +232,9 @@ stem_block_kernel(const float* __restrict__ x, const float* __restrict__ wd,
                 for (int j = 0; j < kP + 2; ++j) colv[j] = mc[j * kMw + kw];
 #pragma unroll
                 for (int kh = 0; kh < 3; ++kh) {
-                    const float4* w4 = reinterpret_cast<const float4*>(
-                        wsh + ((c * 3 + kh) * 3 + kw) * C + co0);
                     float wr[K];
-#pragma unroll
-                    for (int u = 0; u < K / 4; ++u) {
-                        const float4 w = w4[u];
-                        wr[4 * u + 0] = w.x;
-                        wr[4 * u + 1] = w.y;
-                        wr[4 * u + 2] = w.z;
-                        wr[4 * u + 3] = w.w;
-                    }
+                    load_weights<K, S::kVec>(
+                        wsh + ((c * 3 + kh) * 3 + kw) * C + co0, wr);
 #pragma unroll
                     for (int p = 0; p < kP; ++p)
 #pragma unroll
@@ -257,23 +279,35 @@ int launch_stem(const float* x, const float* wd, const float* td,
 }  // namespace
 
 // All tensors fp32 and contiguous; returns a cudaError_t
-// (cudaErrorInvalidValue for H or W not a positive multiple of 4).
-// img: (B, 3, H, W); s2: (B, 32, H/2, W/2); s4: (B, 48, H/4, W/4).
-// wd2: (3, 3, 3, 32), wc2: (32, 3, 3, 32), wd4: (32, 3, 3, 48),
-// wc4: (48, 3, 3, 48), each (CI, kh, kw, CO) with the BN scale folded in;
+// (cudaErrorInvalidValue for H or W not a positive multiple of 4, or
+// widths (C2, C4) other than (32, 48) and (16, 24)).
+// img: (B, 3, H, W); s2: (B, C2, H/2, W/2); s4: (B, C4, H/4, W/4).
+// wd2: (3, 3, 3, C2), wc2: (C2, 3, 3, C2), wd4: (C2, 3, 3, C4),
+// wc4: (C4, 3, 3, C4), each (CI, kh, kw, CO) with the BN scale folded in;
 // td*, tc*: the BN shifts.
 extern "C" int fused_stems(const float* img, const float* wd2,
                            const float* td2, const float* wc2,
                            const float* tc2, const float* wd4,
                            const float* td4, const float* wc4,
                            const float* tc4, float* s2, float* s4, int B,
-                           int H, int W, int approximate,
+                           int H, int W, int C2, int C4, int approximate,
                            cudaStream_t stream) {
     if (B < 1 || H < 4 || W < 4 || H % 4 || W % 4)
         return (int)cudaErrorInvalidValue;
-    const int err = launch_stem<3, 32, 3>(img, wd2, td2, wc2, tc2, s2, B, H, W,
-                                       approximate, stream);
-    if (err != 0) return err;
-    return launch_stem<32, 48, 4>(s2, wd4, td4, wc4, tc4, s4, B, H / 2, W / 2,
-                               approximate, stream);
+    int err;
+    if (C2 == 32 && C4 == 48) {
+        err = launch_stem<3, 32, 3>(img, wd2, td2, wc2, tc2, s2, B, H, W,
+                                    approximate, stream);
+        if (err != 0) return err;
+        return launch_stem<32, 48, 4>(s2, wd4, td4, wc4, tc4, s4, B, H / 2,
+                                      W / 2, approximate, stream);
+    }
+    if (C2 == 16 && C4 == 24) {
+        err = launch_stem<3, 16, 3>(img, wd2, td2, wc2, tc2, s2, B, H, W,
+                                    approximate, stream);
+        if (err != 0) return err;
+        return launch_stem<16, 24, 4>(s2, wd4, td4, wc4, tc4, s4, B, H / 2,
+                                      W / 2, approximate, stream);
+    }
+    return (int)cudaErrorInvalidValue;
 }

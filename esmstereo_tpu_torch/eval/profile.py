@@ -1,12 +1,17 @@
-"""Where a frame's device time goes: ESMStereo eval at 544x992, batch 1.
+"""Where a frame's device time goes: ESMStereo eval, batch 1, at 544x992
+(a SceneFlow frame padded), or 384x1248 (a KITTI frame padded) for the
+confidence model.
 
     python -m esmstereo_tpu_torch.eval.profile [--frames 10] [--top 25]
-        [--cv-scale {4,8}] [--cost-volume {gwc,norm_correlation}]
-        [--fuse-volume-agg] [--fuse-hourglass] [--fuse-hourglass-up]
-        [--fuse-stems] [--fuse-mixer]
+        [--cv-scale {4,8,16}] [--cost-volume {gwc,norm_correlation}]
+        [--confidence] [--fuse-volume-agg] [--fuse-hourglass]
+        [--fuse-hourglass-up] [--fuse-stems] [--fuse-mixer]
 
-Builds the model (L at ``--cv-scale 4``, the default; M at 8) with the
-chosen cost volume and seeded weights on the card, runs ``--frames``
+Builds the model (L at ``--cv-scale 4``, the default; M at 8; S at 16,
+which implies mobilenetv2_100; ``--confidence`` builds the confidence
+model on S) with the chosen cost volume and seeded weights on the card,
+prints the kernel launches of one frame (the CUDA kernels the profiler
+saw and the port's wrapper calls), runs ``--frames``
 forward passes on device-resident inputs under ``torch.profiler``, and
 prints the device time per frame by kernel name (sorted, with shares), the
 device busy share of the window, and the frame time from CUDA events
@@ -26,7 +31,8 @@ the JAX model:
 
 All five together are the configuration that runs every kernel the model
 can reach (A, E, F, G, H and I at cv4; no I at cv8, where ``fuse_mixer``
-reaches nothing, as in JAX).
+reaches nothing, as in JAX; at cv16 A, B, C, F, G and H: neither
+``fuse_volume_agg`` nor ``fuse_mixer`` reaches anything there).
 """
 
 from __future__ import annotations
@@ -37,9 +43,12 @@ import subprocess
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from esmstereo_tpu_torch.models.confidence import ESMStereoConfidence
 from esmstereo_tpu_torch.models.esmstereo import ESMStereo, ESMStereoConfig
+from esmstereo_tpu_torch.ops.kernels import wrappers
 
 PADDED = (544, 992)     # a SceneFlow 540x960 frame padded to the next /32
+KITTI_PADDED = (384, 1248)   # a KITTI 375x1242 frame padded to the next /32
 
 
 def frame_ms(model, left, right, frames: int) -> float:
@@ -57,10 +66,14 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=10)
     ap.add_argument("--top", type=int, default=25)
-    ap.add_argument("--cv-scale", type=int, choices=(4, 8), default=4,
-                    help="4: ESMStereo-L, 8: ESMStereo-M")
+    ap.add_argument("--cv-scale", type=int, choices=(4, 8, 16), default=4,
+                    help="4: ESMStereo-L, 8: ESMStereo-M, 16: ESMStereo-S "
+                         "(mobilenetv2_100)")
     ap.add_argument("--cost-volume", choices=("gwc", "norm_correlation"),
                     default="gwc")
+    ap.add_argument("--confidence", action="store_true",
+                    help="the confidence model on ESMStereo-S (implies "
+                         "--cv-scale 16) at a padded KITTI frame, 384x1248")
     ap.add_argument("--fuse-volume-agg", action="store_true",
                     help="kernel E in place of kernels B + C")
     ap.add_argument("--fuse-hourglass", action="store_true",
@@ -72,7 +85,10 @@ def main() -> None:
     ap.add_argument("--fuse-mixer", action="store_true",
                     help="the upsampler's ShuffleMixer section as kernel I")
     args = ap.parse_args()
-    config = ESMStereoConfig(cv_scale=args.cv_scale,
+    cv_scale = 16 if args.confidence else args.cv_scale
+    config = ESMStereoConfig(cv_scale=cv_scale,
+                             backbone=("mobilenetv2_100" if cv_scale == 16
+                                       else "efficientnet_b2"),
                              cost_volume=args.cost_volume,
                              fuse_volume_agg=args.fuse_volume_agg,
                              fuse_hourglass=args.fuse_hourglass,
@@ -87,14 +103,22 @@ def main() -> None:
                           "--format=csv,noheader"], check=True,
                          capture_output=True, text=True).stdout.strip())
 
-    print(f"config: {config}")
-    model = ESMStereo(config, device="cuda", seed=0)
+    print(f"config: {config}, confidence model: {args.confidence}")
+    cls = ESMStereoConfidence if args.confidence else ESMStereo
+    model = cls(config, device="cuda", seed=0)
     gen = torch.Generator().manual_seed(0)
-    shape = (1, *PADDED, 3)
+    shape = (1, *(KITTI_PADDED if args.confidence else PADDED), 3)
+    print(f"input: {shape}")
     left = torch.randn(shape, generator=gen).cuda()
     right = torch.randn(shape, generator=gen).cuda()
+    kernels = wrappers()
     with torch.inference_mode():
         frame_ms(model, left, right, 3)                    # build + warm up
+        for fn in kernels.values():
+            fn.launches = 0
+        frame_ms(model, left, right, 1)
+        launched = {k: fn.launches for k, fn in kernels.items()
+                    if fn.launches}
         wall = frame_ms(model, left, right, args.frames)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -110,6 +134,8 @@ def main() -> None:
                          e.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
+    print(f"per frame: {sum(r[1] for r in rows)} CUDA kernel launches "
+          f"(profiler calls); the port's wrapper calls: {launched}")
     print(f"frame: {wall:.3f} ms (CUDA events, no profiler); "
           f"{window:.3f} ms under the profiler; device busy {busy:.3f} ms "
           f"per frame ({busy / window:.1%} of the window)")

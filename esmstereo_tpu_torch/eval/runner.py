@@ -2,7 +2,8 @@
 
 Counterpart of ``esmstereo_tpu/eval/runner.py``: normalise, pad each image
 top-left up to the NEXT multiple of 32 (zero fill, as the reference's PIL
-crop with negative offsets), run the model, cut the padding off.
+crop with negative offsets), run the model, cut the padding off. A
+confidence model's two maps are cropped alike.
 """
 
 from __future__ import annotations
@@ -25,17 +26,20 @@ def pad_to_next_multiple(img: np.ndarray, m: int = 32) -> np.ndarray:
 
 
 class InferenceRunner:
-    """uint8 HWC pair -> disparity map, on the model's device."""
+    """uint8 HWC pair -> disparity map (and, for
+    ``models.confidence.ESMStereoConfidence``, the confidence map), on the
+    model's device."""
 
     def __init__(self, model: torch.nn.Module) -> None:
         self.model = model.eval()
         self.device = next(model.parameters()).device
 
-    def __call__(self, left_u8: np.ndarray, right_u8: np.ndarray
-                 ) -> tuple[np.ndarray, float]:
-        """Return (disparity H x W float32, wall seconds). The time covers
-        the host-to-device copy, the forward pass and the copy back, and
-        ends after the device has finished (the copy back waits for it)."""
+    def __call__(self, left_u8: np.ndarray, right_u8: np.ndarray):
+        """Return (disparity H x W float32, wall seconds); for a confidence
+        model ((disparity, confidence), wall seconds), both H x W float32.
+        The time covers the host-to-device copy, the forward pass and the
+        copies back, and ends after the device has finished (a copy back
+        waits for it)."""
         h, w = left_u8.shape[:2]
         left = pad_to_next_multiple(normalize_image(left_u8))[None]
         right = pad_to_next_multiple(normalize_image(right_u8))[None]
@@ -43,7 +47,10 @@ class InferenceRunner:
         with torch.inference_mode():
             lt = torch.from_numpy(left).to(self.device)
             rt = torch.from_numpy(right).to(self.device)
-            disp = self.model(lt, rt)[0].cpu().numpy()
+            out = self.model(lt, rt)
+            # ESMStereo returns [disparity]; the confidence model a pair
+            maps = [m.cpu().numpy() for m in out]
         dt = time.perf_counter() - t0
         hi, wi = left.shape[1:3]
-        return disp[0, hi - h:, wi - w:], dt
+        maps = [m[0, hi - h:, wi - w:] for m in maps]
+        return (maps[0] if len(maps) == 1 else tuple(maps)), dt

@@ -1,9 +1,12 @@
 """Weight bridge: JAX variables -> the port's ``state_dict``.
 
 ``state_dict_from_jax(variables, config)`` takes the ``{"params",
-"batch_stats"}`` tree of ``esmstereo_tpu.models.ESMStereo`` as nested dicts
-of numpy arrays (``jax.tree.map(np.asarray, variables)``) and returns the
-``state_dict`` of ``models.esmstereo.ESMStereo(config)``. The port names
+"batch_stats"}`` tree of ``esmstereo_tpu.models.ESMStereo`` (or of
+``ESMStereoConfidence``, whose ``stereo`` and ``confidence_net`` subtrees it
+recognises) as nested dicts of numpy arrays
+(``jax.tree.map(np.asarray, variables)``) and returns the ``state_dict`` of
+``models.esmstereo.ESMStereo(config)`` (or of
+``models.confidence.ESMStereoConfidence(config)``). The port names
 its modules after the flax paths, so the bridge is a walk over the tree
 plus the layout transforms of
 ``esmstereo_tpu/models/convert_reference.py:13-18``, inverted:
@@ -98,11 +101,20 @@ def state_dict_from_jax(variables: dict, config=None
                         ) -> dict[str, torch.Tensor]:
     """The port's ``ESMStereo(config)`` ``state_dict`` from the variables of
     the JAX ``ESMStereo`` in the same configuration (the default, L gwc,
-    when ``config`` is None), checked against that config's model."""
+    when ``config`` is None), checked against that config's model. A tree
+    with a ``confidence_net`` subtree is the JAX ``ESMStereoConfidence``'s,
+    checked against the port's ``ESMStereoConfidence(config)`` (the
+    default, S gwc, when ``config`` is None)."""
+    from esmstereo_tpu_torch.models.confidence import (CONFIDENCE_CONFIG,
+                                                       ESMStereoConfidence)
     from esmstereo_tpu_torch.models.esmstereo import (ESMStereo,
                                                       ESMStereoConfig)
 
     sd = convert_tree(variables)
-    model = ESMStereo(config or ESMStereoConfig(), device="meta")
+    if "confidence_net" in variables.get("params", {}):
+        model = ESMStereoConfidence(config or CONFIDENCE_CONFIG,
+                                    device="meta")
+    else:
+        model = ESMStereo(config or ESMStereoConfig(), device="meta")
     check_against(sd, model.state_dict())
     return sd

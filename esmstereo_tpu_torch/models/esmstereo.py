@@ -1,11 +1,13 @@
-"""ESMStereo, L and M variants, eval mode (NCHW / NCDHW inside).
+"""ESMStereo, L, M and S variants, eval mode (NCHW / NCDHW inside).
 
-Counterpart of ``esmstereo_tpu/models/esmstereo.py`` for its cv4 (L) and
-cv8 (M) branches: siamese feature pyramid -> FeatUp -> matching
-descriptors -> group-wise (gwc) or norm-correlation volume ->
-group_stem/corr_stem + agg -> 3-D hourglass -> regression (top-2 at cv4,
-the raw-cost weighted sum at cv8) -> ESM upsampling (ShuffleMixer +
-refinement, two x2 stages at cv4, three at cv8) -> disparity x 4.
+Counterpart of ``esmstereo_tpu/models/esmstereo.py`` for its cv4 (L), cv8
+(M) and cv16 (S) branches: siamese feature pyramid -> FeatUp (cv4, cv8;
+S takes the raw mobilenetv2 pyramid) -> matching descriptors -> group-wise
+(gwc) or norm-correlation volume (at cv16 multiplied by a semantic
+attention map) -> group_stem/corr_stem + agg -> 3-D hourglass ->
+regression (top-2 at cv4, the raw-cost weighted sum at cv8 and cv16) ->
+ESM upsampling (ShuffleMixer + refinement: two x2 stages at cv4, three at
+cv8, two x4 stages at cv16) -> disparity x 4.
 
 The TPU re-layouts of the JAX package (depth folding, phase folding,
 W-phase mixing) are not ported: the port computes the plain function,
@@ -14,10 +16,12 @@ names follow the JAX parameter tree so ``models.convert_jax`` can carry
 weights across by path.
 
 Hand-written kernels carry the path (``ops.kernels``): the fused backbone
-head (inside ``FeaturePyramid``), the volume and group_stem + agg; with the
-config's ``fuse_*`` switches, the volume built inside group_stem, the
-hourglass levels, the stem_2 + stem_4 towers and the cv4 upsampler's
-ShuffleMixer section. On CPU tensors their plain PyTorch versions run.
+head (inside ``FeaturePyramid``), the volume and group_stem + agg (at cv16
+norm-correlation corr_stem and agg stay plain, as in JAX); with the
+config's ``fuse_*`` switches, the volume built inside group_stem (cv4,
+cv8), the hourglass levels, the stem_2 + stem_4 towers and the cv4
+upsampler's ShuffleMixer section. On CPU tensors their plain PyTorch
+versions run.
 """
 
 from __future__ import annotations
@@ -45,11 +49,12 @@ from esmstereo_tpu_torch.ops.sampling import resize_bilinear
 
 @dataclasses.dataclass(frozen=True)
 class ESMStereoConfig:
-    """The configuration fields the port keeps. Ported, in fp32 with
-    efficientnet_b2, 32 groups and reduction 8: ``cv_scale`` 4 (L) or 8
-    (M), each with ``cost_volume`` ``"gwc"`` or ``"norm_correlation"``.
-    cv16, mobilenetv2_100 and bfloat16 raise ``NotImplementedError``; cv8
-    with another backbone raises ``ValueError``, as the JAX config does.
+    """The configuration fields the port keeps. Ported, in fp32 with 32
+    groups and reduction 8: ``cv_scale`` 4 (L) or 8 (M) with
+    efficientnet_b2, and 16 (S) with mobilenetv2_100, each with
+    ``cost_volume`` ``"gwc"`` or ``"norm_correlation"``. cv8 or cv16 with
+    another backbone raises ``ValueError``, as the JAX config does;
+    mobilenetv2_100 at cv4 and bfloat16 raise ``NotImplementedError``.
 
     The five ``fuse_*`` switches are the JAX config's opt-in kernel paths
     (``esmstereo_tpu/models/esmstereo.py:95,129,150-151,163``), off by
@@ -59,10 +64,13 @@ class ESMStereoConfig:
     B + C); ``fuse_hourglass`` runs each hourglass down level as kernel G
     and ``fuse_hourglass_up`` each up level as kernel H; ``fuse_mixer``
     runs the cv4 upsampler's to_feat -> FMBlock x2 -> shuffle-up section as
-    kernel I. As in JAX (``PhUpsample8`` takes no such switch),
-    ``fuse_mixer`` changes nothing at cv8, where kernel I never launches.
-    Each switch computes the same function as the default path, and they
-    combine freely at both scales."""
+    kernel I. As in JAX (``PhUpsample8`` and ``PhUpsample16`` take no such
+    switch), ``fuse_mixer`` changes nothing at cv8 and cv16, where kernel I
+    never launches; nor does ``fuse_volume_agg`` at cv16, where the
+    attention multiply sits between the volume and its stem
+    (``esmstereo_tpu/models/esmstereo.py:650-651``), so kernel E never
+    launches there. Each switch computes the same function as the default
+    path, and they combine freely at every scale."""
 
     max_disp: int = 192
     cost_volume: str = "gwc"
@@ -87,14 +95,17 @@ class ESMStereoConfig:
             raise ValueError("cv_scale=8 requires efficientnet_b2 (the "
                              "descriptor conv is sized for its /8 features)")
         if self.cv_scale == 16 and self.backbone != "mobilenetv2_100":
-            raise ValueError("cv_scale=16 requires mobilenetv2_100")
+            raise ValueError("cv_scale=16 requires mobilenetv2_100 (the "
+                             "semantic and descriptor convs are sized for "
+                             "its 96-channel /16 features)")
+        backbone = "mobilenetv2_100" if self.cv_scale == 16 else \
+            "efficientnet_b2"
         rest = (self.backbone, self.num_groups, self.reduction, self.dtype)
-        if self.cv_scale == 16 or rest != ("efficientnet_b2", 32, 8,
-                                           "float32"):
+        if rest != (backbone, 32, 8, "float32"):
             raise NotImplementedError(
-                "the port runs L and M (cv_scale 4 or 8 with efficientnet_b2, "
-                f"32 groups, reduction 8, float32); got cv_scale "
-                f"{self.cv_scale}, {rest}")
+                "the port runs L and M (cv_scale 4 or 8 with efficientnet_b2) "
+                "and S (cv_scale 16 with mobilenetv2_100), 32 groups, "
+                f"reduction 8, float32; got cv_scale {self.cv_scale}, {rest}")
         if self.max_disp % self.cv_scale:
             raise ValueError(f"max_disp {self.max_disp} is not a multiple "
                              f"of cv_scale {self.cv_scale}")
@@ -279,8 +290,9 @@ class SpxBlock(nn.Module):
 
 
 class _UpStage(nn.Module):
-    """One x2 ESM stage: disparity features -> fuse -> (mix) -> shuffle-up ->
-    tail -> hourglass refinement -> bilinear-up skip + residual.
+    """One ESM stage of ``scale`` (2, or 4 at cv16): disparity features ->
+    fuse -> (mix) -> shuffle-up by ``scale`` -> tail -> hourglass
+    refinement -> bilinear-up skip by ``scale`` + residual.
 
     In eval mode ``fuse_mixer`` runs to_feat -> FMBlock x2 -> shuffle-up as
     kernel I, as ``PhUpStage2x`` does
@@ -288,8 +300,9 @@ class _UpStage(nn.Module):
 
     def __init__(self, fuse_ch: int, f1_ch: int, f2_ch: int, dm_ch: int,
                  spx_out: int, n_feats: int, ref_ch: int, use_mixer: bool,
-                 device=None, fuse_mixer: bool = False):
+                 device=None, fuse_mixer: bool = False, scale: int = 2):
         super().__init__()
+        self.scale = scale
         self.dm = DispFeatures(dm_ch, device)
         self.spx = SpxBlock(dm_ch + fuse_ch, dm_ch, spx_out, device)
         self.use_mixer = use_mixer
@@ -299,7 +312,7 @@ class _UpStage(nn.Module):
             self.block0 = FMBlock(n_feats, 7, 2, device)
             self.block1 = FMBlock(n_feats, 7, 2, device)
         self.up = PixelShuffleUp(n_feats if use_mixer else spx_out, n_feats,
-                                 2, device)
+                                 scale, device)
         self.tail = TorchConv(n_feats, 1, 3, 1, 1, use_bias=True,
                               device=device)
         self.ref = UpRefinement(ref_ch, f1_ch, f2_ch, device)
@@ -317,7 +330,7 @@ class _UpStage(nn.Module):
             x = self.up(x)
         x = self.tail(x)
         x = self.ref(x, ref_f1, ref_f2)
-        h, w = disp.shape[2] * 2, disp.shape[3] * 2
+        h, w = disp.shape[2] * self.scale, disp.shape[3] * self.scale
         return resize_bilinear(disp, (h, w)) + x
 
 
@@ -361,6 +374,28 @@ class Upsample8(nn.Module):
         return up8, up4, up2
 
 
+class Upsample16(nn.Module):
+    """x16 ESM upsampler, two x4 stages (``ESMStereo.py:430-509``). The
+    inputs are, as the JAX model passes them, the backbone's x8 (``f1x``),
+    ``conv_f2``'s x16 map (``f2x``), the backbone's x4 (``f4x``) and
+    ``conv_f0``'s x2 map (``f8x``); it returns the disparities at x16 and
+    x4 of ``init_disp``'s resolution. ``PhUpsample16``, the JAX default, is
+    a phase re-layout of the same function; the port computes this one."""
+
+    def __init__(self, f1_ch: int, f2_ch: int, f4_ch: int, f8_ch: int,
+                 device=None):
+        super().__init__()
+        self.stage2x = _UpStage(f2_ch, f2_ch, f1_ch, 16, 16, 8, 16, True,
+                                device, scale=4)
+        self.stage4x = _UpStage(f4_ch, f4_ch, f8_ch, 16, 8, 8, 16, False,
+                                device, scale=4)
+
+    def forward(self, f1x, f2x, f4x, f8x, init_disp):
+        up2 = self.stage2x(init_disp, f2x, f2x, f1x)
+        up4 = self.stage4x(up2, f4x, f4x, f8x)
+        return up4, up2
+
+
 def _stem_agg_consts(model) -> dict:
     return fused_agg_stem.prepare_consts(model.volume_stem, model.agg)
 
@@ -371,14 +406,16 @@ def _stems_consts(model) -> dict:
 
 # per cv_scale: stem widths (JAX esmstereo.py:517), the pyramid level and
 # stem the descriptors take (:589), the hourglass's add_channel (:612)
-STEM_CHS = {4: (32, 48), 8: (32, 48, 64)}
-MATCH_IDX = {4: (0, 1), 8: (1, 2)}
-ADD_CHANNEL = {4: 16, 8: 8}
+STEM_CHS = {4: (32, 48), 8: (32, 48, 64), 16: (16, 24, 32, 40)}
+MATCH_IDX = {4: (0, 1), 8: (1, 2), 16: (3, 3)}
+ADD_CHANNEL = {4: 16, 8: 8, 16: 4}
+# cv16's semantic attention: semantic_0's and semantic_1's widths (:613)
+SEMANTIC_CHS = {"gwc": (64, 32), "norm_correlation": (32, 8)}
 
 
 class ESMStereo(nn.Module):
-    """ESMStereo-L or -M in eval mode (``ESMStereo.py:511-745``, cv4 and
-    cv8 branches).
+    """ESMStereo-L, -M or -S in eval mode (``ESMStereo.py:511-745``, the
+    cv4, cv8 and cv16 branches).
 
     ``forward(left, right)`` takes NHWC images ``(B, H, W, 3)`` (H and W
     multiples of 32) and returns ``[disparity (B, H, W)]``; with
@@ -395,17 +432,25 @@ class ESMStereo(nn.Module):
         chans = ARCHS[config.backbone].chans
         v = config.cv_scale
         self.feature = FeaturePyramid(config.backbone, device=dev)
-        self.feature_up = FeatUp(chans, v, dev)
+        if v != 16:
+            # cv16 takes the raw pyramid (JAX esmstereo.py:497-514)
+            self.feature_up = FeatUp(chans, v, dev)
         stem_chs = STEM_CHS[v]
         for i, (cin, cout) in enumerate(zip((3, *stem_chs), stem_chs)):
             setattr(self, f"stem_{2 ** (i + 1)}", StemBlock(cin, cout, dev))
         feat_idx, stem_idx = MATCH_IDX[v]
-        # FeatUp's map at /v has twice the pyramid's channels there
-        match_in = 2 * chans[feat_idx + 1] + stem_chs[stem_idx]
+        # FeatUp's map at /v has twice the pyramid's channels there; cv16
+        # takes the pyramid's own /16 map
+        feat_ch = chans[3] if v == 16 else 2 * chans[feat_idx + 1]
+        match_in = feat_ch + stem_chs[stem_idx]
         self.conv = ConvBlock(match_in, 64, 3, 1, 1, device=dev)
         # the reference descriptor is a default nn.Conv2d, i.e. with a bias
         self.desc = TorchConv(64, 64, 1, 1, 0, use_bias=True, device=dev)
         red = config.reduction
+        if v == 16:
+            mid, out = SEMANTIC_CHS[config.cost_volume]
+            self.semantic_0 = ConvBlock(chans[3], mid, 3, 1, 1, device=dev)
+            self.semantic_1 = TorchConv(mid, out, 3, 1, 1, device=dev)
         if config.cost_volume == "norm_correlation":
             self.corr_stem = ConvBlock(1, red, 3, 1, 1, dims=3, device=dev)
         else:
@@ -415,7 +460,11 @@ class ESMStereo(nn.Module):
         self.aggregation_out = Aggregation3D(
             red, ADD_CHANNEL[v], dev, fuse_pairs=config.fuse_hourglass,
             fuse_up=config.fuse_hourglass_up)
-        if v == 8:
+        if v == 16:
+            self.conv_f2 = ConvBlock(chans[3], 32, 3, 1, 1, device=dev)
+            self.conv_f0 = ConvBlock(chans[0], 24, 3, 1, 1, device=dev)
+            self.upsample_module = Upsample16(chans[2], 32, chans[1], 24, dev)
+        elif v == 8:
             self.upsample_module = Upsample8(2 * chans[3], 2 * chans[2],
                                              chans[1], stem_chs[0], dev)
         else:
@@ -450,52 +499,64 @@ class ESMStereo(nn.Module):
             raise NotImplementedError("training is not in this slice; "
                                       "call .eval() first")
         cfg = self.config
+        v = cfg.cv_scale
         bsz = left.shape[0]
         both = torch.cat([left, right], dim=0).permute(0, 3, 1, 2).contiguous()
-        f_both = self.feature_up(self.feature(both))
+        f_both = self.feature(both)
+        if v != 16:
+            f_both = self.feature_up(f_both)
         approx = blocks.GELU_APPROXIMATE
         if cfg.fuse_stems:
             # kernel F: each conv_down map stays in shared memory; stem_8
-            # runs plain on F's stem_4, as in JAX (esmstereo.py:568-572)
+            # (and stem_16) run plain on F's stem_4, as in JAX
+            # (esmstereo.py:568-572)
             consts = folded_once(self, _stems_consts, self.stem_2,
                                  self.stem_4)
             stems = list(fused_stems.stems(both, consts, approx))
         else:
             stems = [self.stem_2(both)]
             stems.append(self.stem_4(stems[0]))
-        if cfg.cv_scale == 8:
-            stems.append(self.stem_8(stems[1]))
-        feat_idx, stem_idx = MATCH_IDX[cfg.cv_scale]
+        for i in range(2, len(STEM_CHS[v])):
+            stems.append(getattr(self, f"stem_{2 ** (i + 1)}")(stems[-1]))
+        feat_idx, stem_idx = MATCH_IDX[v]
         m = self.desc(self.conv(torch.cat([f_both[feat_idx], stems[stem_idx]],
                                           dim=1)))
         match_l, match_r = m[:bsz], m[bsz:]
+        fl = [f[:bsz] for f in f_both]
 
         norm = cfg.cost_volume == "norm_correlation"
         groups = self.volume_groups
-        consts = folded_once(self, _stem_agg_consts, self.volume_stem,
-                             self.agg)
-        if cfg.fuse_volume_agg:
-            # kernel E: the volume never reaches device memory
-            volume = fused_agg_stem.volume_stem_agg(
-                match_l, match_r, consts, self.num_bins, groups, approx,
-                normalize=norm)
+        if v == 16:
+            volume = self._cv16_volume(match_l, match_r, fl[3], approx)
         else:
-            volume = correlation.correlation_volume(
-                match_l, match_r, self.num_bins, groups, normalize=norm)
-            volume = fused_agg_stem.stem_agg(volume, consts, approx)
+            consts = folded_once(self, _stem_agg_consts, self.volume_stem,
+                                 self.agg)
+            if cfg.fuse_volume_agg:
+                # kernel E: the volume never reaches device memory
+                volume = fused_agg_stem.volume_stem_agg(
+                    match_l, match_r, consts, self.num_bins, groups, approx,
+                    normalize=norm)
+            else:
+                volume = correlation.correlation_volume(
+                    match_l, match_r, self.num_bins, groups, normalize=norm)
+                volume = fused_agg_stem.stem_agg(volume, consts, approx)
         cost = self.aggregation_out(volume)[:, 0]          # (B, D, H/v, W/v)
 
         # regression and the disparity stream stay fp32 (the slice is fp32)
-        fl = [f[:bsz] for f in f_both]
-        if cfg.cv_scale == 8:
-            # the reference regresses the raw cost, with no softmax
-            init_pred = disparity_regression(cost, self.num_bins)
-            outs = self.upsample_module(fl[2], fl[1], fl[0],
-                                        stems[0][:bsz], init_pred)
-        else:
+        if v == 4:
             init_pred = regression_topk(cost, 2)
             outs = self.upsample_module(fl[1], fl[0], stems[0][:bsz],
                                         init_pred)
+        else:
+            # the reference regresses the raw cost, with no softmax
+            init_pred = disparity_regression(cost, self.num_bins)
+            if v == 8:
+                outs = self.upsample_module(fl[2], fl[1], fl[0],
+                                            stems[0][:bsz], init_pred)
+            else:
+                outs = self.upsample_module(fl[2], self.conv_f2(fl[3]),
+                                            fl[1], self.conv_f0(fl[0]),
+                                            init_pred)
         result = [outs[0][:, 0] * 4]
         if capture_internals:
             nhwc = lambda t: t.permute(0, 2, 3, 1)  # noqa: E731
@@ -505,3 +566,21 @@ class ESMStereo(nn.Module):
                    "f4": nhwc(fl[1]), "disp_2": outs[1][:, 0]}
             return result, aux
         return result
+
+    def _cv16_volume(self, match_l, match_r, f16, approx):
+        """cv16's volume through group_stem/corr_stem and agg, with the
+        semantic attention map of the /16 features multiplied in: on the
+        32-group gwc volume before group_stem (kernel B, the multiply, then
+        kernel C), or on corr_stem's 8 channels before agg (kernel B's
+        normalised G = 1 form, then plain ConvBlocks: JAX runs no kernel
+        between them either, esmstereo.py:643,731-739)."""
+        att = self.semantic_1(self.semantic_0(f16))[:, :, None]
+        if self.config.cost_volume == "norm_correlation":
+            volume = correlation.correlation_volume(
+                match_l, match_r, self.num_bins, 1, normalize=True)
+            return self.agg(self.corr_stem(volume) * att)
+        volume = correlation.correlation_volume(
+            match_l, match_r, self.num_bins, self.config.num_groups)
+        consts = folded_once(self, _stem_agg_consts, self.volume_stem,
+                             self.agg)
+        return fused_agg_stem.stem_agg(volume * att, consts, approx)

@@ -1,21 +1,28 @@
-"""Hand-written CUDA kernels of the eval paths of ESMStereo-L and -M (gwc
-and norm-correlation volumes), each beside its plain PyTorch version.
+"""Hand-written CUDA kernels of the eval paths of ESMStereo-L, -M and -S
+(gwc and norm-correlation volumes) and the confidence model, each beside
+its plain PyTorch version, with the forms each wrapper takes:
 
-  * ``fused_head.fused_stage0``         kernel A, backbone stem + stage 0
+  * ``fused_head.fused_stage0``         kernel A, backbone stem + stage 0, in
+    two layouts (``fused_head.FORMS``): efficientnet_b2's (two blocks with
+    SqueezeExcite, SiLU; three passes) and mobilenetv2_100's (one block, no
+    SE, ReLU6; one pass)
   * ``correlation.correlation_volume``  kernels B and D, the correlation
-    volume (gwc, gwc_norm, norm-correlation)
+    volume (gwc, gwc_norm, norm-correlation) from 64-channel descriptors,
+    any number of bins
   * ``fused_agg_stem.stem_agg``         kernel C, group_stem (corr_stem) + agg
-    3-D convs
+    3-D convs, G = 32 or 1 volume channels, any depth
   * ``fused_agg_stem.volume_stem_agg``  kernel E, B + C with the volume built
-    inside group_stem (``fuse_volume_agg``)
+    inside group_stem (``fuse_volume_agg``; cv4 and cv8 only)
   * ``fused_hourglass.down_pair``       kernel G, one hourglass down level
-    (``fuse_hourglass``)
+    (``fuse_hourglass``), any number of output channels (tiled by 8, the
+    last tile masked: L's 24/40/72, M's 16/24/40, S's 12/16/24)
   * ``fused_hourglass.up_pair``         kernel H, one hourglass up level
-    (``fuse_hourglass_up``)
+    (``fuse_hourglass_up``), the same channel rule, at most 128
   * ``fused_stems.stems``               kernel F, stem_2 + stem_4
-    (``fuse_stems``)
-  * ``fused_mixer.mixer``               kernel I, the upsampler's ShuffleMixer
-    section (``fuse_mixer``)
+    (``fuse_stems``), at the widths ``fused_stems.WIDTHS``: (32, 48) for L
+    and M, (16, 24) for S
+  * ``fused_mixer.mixer``               kernel I, the cv4 upsampler's
+    ShuffleMixer section (``fuse_mixer``; L only)
 
 A wrapper runs the plain version when its tensors lie on the CPU and
 launches its kernel when they lie on a CUDA device, raising on anything the

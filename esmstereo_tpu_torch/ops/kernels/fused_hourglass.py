@@ -16,8 +16,9 @@ interpret-mode numbers, not the TPU's bf16 matrix-unit operands.
 On CUDA a down level launches two kernels (k3 s2, then k3 s1) and an up
 level three (the transposed conv, the 1x1x1 conv over ``[up | skip]``, the
 k3 s1 conv), with the intermediates in device memory; each wrapper call
-counts as one launch. Output channels must be multiples of 8 (the
-hourglass's 24, 40 and 72 are).
+counts as one launch. The kernels tile output channels by 8 and mask the
+last tile, so any width runs (L's 24, 40, 72; M's 16, 24, 40; S's 12, 16,
+24); the 1x1x1 conv takes at most 128 output channels.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ from esmstereo_tpu_torch.ops.kernels.activations import gelu
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_CO_TILE = 8
+_MAX_CAT_CO = 128       # the 1x1x1 conv's 2 CO inputs fit kMaxCat = 256
 
 
 def prepare_down_consts(conv_s2, conv_s1) -> dict:
@@ -94,13 +95,6 @@ def _fns():
     return conv, deconv, cat
 
 
-def _check_co(what: str, co: int) -> None:
-    if co % _CO_TILE:
-        raise NotImplementedError(
-            f"{what} kernel takes multiples of {_CO_TILE} output channels; "
-            f"got {co}")
-
-
 def conv3d_bn_gelu(x: torch.Tensor, w: torch.Tensor, t: torch.Tensor,
                    stride: int, approximate: bool) -> torch.Tensor:
     """One launch of the direct conv3d k3 p1 (stride 1 or 2) + folded BN +
@@ -110,7 +104,6 @@ def conv3d_bn_gelu(x: torch.Tensor, w: torch.Tensor, t: torch.Tensor,
     co = w.shape[0]
     if tuple(w.shape) != (co, ci, 3, 3, 3) or tuple(t.shape) != (co,):
         raise ValueError(f"conv3d: weight {tuple(w.shape)} for {ci} inputs")
-    _check_co("conv3d", co)
     out = [(n - 1) // stride + 1 for n in (d, h, wd)]
     y = torch.empty((b, co, *out), device=x.device, dtype=torch.float32)
     err = _fns()[0](x.data_ptr(), w.data_ptr(), t.data_ptr(), y.data_ptr(),
@@ -156,7 +149,9 @@ def up_pair(src: torch.Tensor, skip: torch.Tensor, consts: dict,
                          f"{co} channels")
     if not on_cuda("up_pair", src, skip, *consts.values()):
         return up_pair_plain(src, skip, consts, approximate)
-    _check_co("up_pair", co)
+    if co > _MAX_CAT_CO:
+        raise NotImplementedError(f"up_pair kernel takes at most "
+                                  f"{_MAX_CAT_CO} channels; got {co}")
     _, deconv, cat = _fns()
     approx = int(approximate)
     stream = stream_handle(src)

@@ -2,8 +2,9 @@
 
 Replaces ``esmstereo_tpu/ops/pallas/fused_stems.py::fused_stems_apply``.
 Each StemBlock is a 3x3 stride-2 conv + BN + GELU, then a 3x3 conv + BN +
-ReLU; stem_2 takes 3 -> 32 channels, stem_4 32 -> 48. ``prepare_consts``
-folds the eval BatchNorms into the four conv weights, as
+ReLU; stem_2 takes 3 -> C2 channels, stem_4 C2 -> C4, with (C2, C4) one
+of ``WIDTHS``: (32, 48) in ESMStereo-L and -M, (16, 24) in -S.
+``prepare_consts`` folds the eval BatchNorms into the four conv weights, as
 ``prepare_stems_consts`` there does (``:79``); the TPU's block-diagonal
 matrices and lane packing are not ported. The weights are kept in the
 kernel's ``(CI, 3, 3, CO)`` order, and the plain version reads that order
@@ -29,8 +30,8 @@ from esmstereo_tpu_torch.ops.kernels.activations import gelu
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _KEYS = ("wd2", "td2", "wc2", "tc2", "wd4", "td4", "wc4", "tc4")
-# (CI, CO) of each StemBlock the kernel is written for
-_WIDTHS = {"2": (3, 32), "4": (32, 48)}
+# (C2, C4): the stems' widths the kernel has an instance for
+WIDTHS = frozenset({(32, 48), (16, 24)})
 
 
 def prepare_consts(stem_2, stem_4) -> dict:
@@ -55,8 +56,8 @@ def _conv(x: torch.Tensor, k: torch.Tensor, t: torch.Tensor,
 
 def stems_plain(img: torch.Tensor, consts: dict, approximate: bool
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version: (B, 3, H, W) -> (stem_2 out (B, 32, H/2, W/2),
-    stem_4 out (B, 48, H/4, W/4))."""
+    """Plain PyTorch version: (B, 3, H, W) -> (stem_2 out (B, C2, H/2, W/2),
+    stem_4 out (B, C4, H/4, W/4))."""
     outs = []
     x = img
     for s in ("2", "4"):
@@ -66,43 +67,54 @@ def stems_plain(img: torch.Tensor, consts: dict, approximate: bool
     return outs[0], outs[1]
 
 
-def _check(img: torch.Tensor, consts: dict) -> None:
-    if img.ndim != 4 or img.shape[1] != 3 or img.shape[2] % 4 \
-            or img.shape[3] % 4 or img.shape[2] == 0 or img.shape[3] == 0:
-        raise ValueError(f"stems: image {tuple(img.shape)}; the kernel takes "
-                         f"(B, 3, H, W) with H and W multiples of 4")
-    for s, (ci, co) in _WIDTHS.items():
+def widths(consts: dict) -> tuple[int, int]:
+    """(C2, C4) of ``consts``; raises ``ValueError`` unless it is one of
+    ``WIDTHS`` and every weight has its shape."""
+    c2, c4 = consts["td2"].shape[0], consts["td4"].shape[0]
+    if (c2, c4) not in WIDTHS:
+        raise ValueError(f"stems: widths {(c2, c4)}, the kernel takes "
+                         f"{sorted(WIDTHS)}")
+    for s, (ci, co) in (("2", (3, c2)), ("4", (c2, c4))):
         want = {f"wd{s}": (ci, 3, 3, co), f"td{s}": (co,),
                 f"wc{s}": (co, 3, 3, co), f"tc{s}": (co,)}
         for k, shape in want.items():
             if tuple(consts[k].shape) != shape:
                 raise ValueError(f"stems: {k} {tuple(consts[k].shape)}, the "
                                  f"kernel takes {shape}")
+    return c2, c4
+
+
+def _check(img: torch.Tensor, consts: dict) -> tuple[int, int]:
+    if img.ndim != 4 or img.shape[1] != 3 or img.shape[2] % 4 \
+            or img.shape[3] % 4 or img.shape[2] == 0 or img.shape[3] == 0:
+        raise ValueError(f"stems: image {tuple(img.shape)}; the kernel takes "
+                         f"(B, 3, H, W) with H and W multiples of 4")
+    return widths(consts)
 
 
 @functools.cache
 def _fn():
     fn = _build.load("fused_stems").fused_stems
-    fn.argtypes = [_P] * 11 + [_I] * 4 + [_P]
+    fn.argtypes = [_P] * 11 + [_I] * 6 + [_P]
     fn.restype = _I
     return fn
 
 
 def stems(img: torch.Tensor, consts: dict, approximate: bool
           ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(B, 3, H, W) -> ((B, 32, H/2, W/2), (B, 48, H/4, W/4)): the kernel on
+    """(B, 3, H, W) -> ((B, C2, H/2, W/2), (B, C4, H/4, W/4)): the kernel on
     CUDA tensors, the plain version on CPU tensors."""
-    _check(img, consts)
+    c2, c4 = _check(img, consts)
     if not on_cuda("stems", img, *(consts[k] for k in _KEYS)):
         return stems_plain(img, consts, approximate)
     b, _, h, w = img.shape
-    s2 = torch.empty((b, 32, h // 2, w // 2), device=img.device,
+    s2 = torch.empty((b, c2, h // 2, w // 2), device=img.device,
                      dtype=torch.float32)
-    s4 = torch.empty((b, 48, h // 4, w // 4), device=img.device,
+    s4 = torch.empty((b, c4, h // 4, w // 4), device=img.device,
                      dtype=torch.float32)
     err = _fn()(img.data_ptr(), *(consts[k].data_ptr() for k in _KEYS),
-                s2.data_ptr(), s4.data_ptr(), b, h, w, int(approximate),
-                stream_handle(img))
+                s2.data_ptr(), s4.data_ptr(), b, h, w, c2, c4,
+                int(approximate), stream_handle(img))
     _build.check(err, "stems")
     stems.launches += 1
     return s2, s4

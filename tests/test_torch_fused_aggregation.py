@@ -165,8 +165,12 @@ def test_fused_wrappers_guard_and_launch_nothing_on_cpu():
                                "stem_agg",
                                "volume_stem_agg", "down_pair", "up_pair",
                                "stems", "mixer"}
+    # cv16 (S) takes the switches; fuse_volume_agg reaches nothing there
+    ESMStereoConfig(cv_scale=16, backbone="mobilenetv2_100", **FUSED)
+    with pytest.raises(ValueError):
+        ESMStereoConfig(cv_scale=16, **FUSED)
     with pytest.raises(NotImplementedError):
-        ESMStereoConfig(cv_scale=16, backbone="mobilenetv2_100", **FUSED)
+        ESMStereoConfig(backbone="mobilenetv2_100", **FUSED)
     model = ESMStereo(ESMStereoConfig(**FUSED), device="cpu", seed=4)
     agg = model.aggregation_out
     stem = fused_agg_stem.prepare_consts(model.group_stem, model.agg)

@@ -61,36 +61,71 @@ def random_variables(shapes: dict, rng) -> dict:
 
 # --- kernel A: stem + stage 0 ---------------------------------------------
 
-def test_fused_stage0_plain_matches_pallas(rng):
-    """32x64 images, tile_rows 8 (as tests/test_fused_head.py). Tolerance
-    1e-5, the bound of the JAX package's own kernel test."""
+@pytest.mark.parametrize("arch", ["efficientnet_b2", "mobilenetv2_100"])
+def test_fused_stage0_plain_matches_pallas(rng, arch):
+    """32x64 images, tile_rows 8 (as tests/test_fused_head.py), in both of
+    the kernel's forms: efficientnet_b2's two SE blocks with SiLU and
+    mobilenetv2_100's one block with ReLU6. Tolerance 1e-5, the bound of
+    the JAX package's own kernel test."""
     img = rng.standard_normal((2, 32, 64, 3)).astype(np.float32)
-    jp = JaxPyramid(arch="efficientnet_b2")
+    jp = JaxPyramid(arch=arch)
     v = random_variables(jax.eval_shape(
         lambda x: jp.init(jax.random.key(0), x, train=False), img), rng)
-    consts = jfh.prepare_consts(v["params"], v["batch_stats"], act="silu",
+    act = {"efficientnet_b2": "silu", "mobilenetv2_100": "relu6"}[arch]
+    consts = jfh.prepare_consts(v["params"], v["batch_stats"], act=act,
                                 width=img.shape[2] // 2)
     want = np.asarray(jfh.fused_stage0_apply(jnp.asarray(img), consts,
                                              tile_rows=8, interpret=True))
 
-    pyr = FeaturePyramid("efficientnet_b2", device="cpu").eval()
+    pyr = FeaturePyramid(arch, device="cpu").eval()
     pyr.load_state_dict(convert_tree(v))
     x = torch.from_numpy(np.ascontiguousarray(img.transpose(0, 3, 1, 2)))
     with torch.no_grad():
-        got = fused_head.fused_stage0(x, fused.prepare_consts(pyr))
+        tconsts = fused.prepare_consts(pyr)
+        got = fused_head.fused_stage0(x, tconsts)
         feats = pyr(x)
+    assert fused_head.kernel_form(tconsts) == arch
+    assert tconsts["packed"].numel() == {"efficientnet_b2": 2876,
+                                         "mobilenetv2_100": 1744}[arch]
     np.testing.assert_allclose(got.numpy().transpose(0, 2, 3, 1), want,
                                rtol=1e-5, atol=1e-5)
     # in eval mode the pyramid takes the fused head
     np.testing.assert_array_equal(feats[0].numpy(), got.numpy())
 
 
-def test_fused_head_raises_on_mobilenetv2():
+def test_fused_head_raises_on_mobilenetv2(rng):
+    """The eval-mode mobilenetv2_100 pyramid takes kernel A's ReLU6 form
+    and matches the JAX pyramid (5 levels, 32x64, seeded variables) within
+    1e-4 relative to max(1, max|JAX|); kernel A raises on a mobilenetv2
+    stage 0 in a layout it lacks (SiLU in place of ReLU6, or an SE gate),
+    and the training-mode pyramid runs the plain modules."""
+    img = rng.standard_normal((2, 32, 64, 3)).astype(np.float32)
+    jp = JaxPyramid(arch="mobilenetv2_100")
+    v = random_variables(jax.eval_shape(
+        lambda x: jp.init(jax.random.key(0), x, train=False), img), rng)
+    want = jax.jit(lambda v, x: jp.apply(v, x, train=False))(
+        v, jnp.asarray(img))
+
     pyr = FeaturePyramid("mobilenetv2_100", device="cpu").eval()
+    pyr.load_state_dict(convert_tree(v))
+    x = torch.from_numpy(np.ascontiguousarray(img.transpose(0, 3, 1, 2)))
+    with torch.no_grad():
+        consts = fused.prepare_consts(pyr)
+        feats = pyr(x)
+        head = fused_head.fused_stage0(x, consts)
+    np.testing.assert_array_equal(feats[0].numpy(), head.numpy())
+    assert len(feats) == len(want) == 5
+    for g, w in zip(feats, want):
+        w = np.asarray(w).transpose(0, 3, 1, 2)
+        assert g.shape == w.shape
+        assert np.abs(g.numpy() - w).max() < 1e-4 * max(1.0, np.abs(w).max())
     with pytest.raises(NotImplementedError):
-        fused.prepare_consts(pyr)
-    with pytest.raises(NotImplementedError), torch.no_grad():
-        pyr(torch.zeros(1, 3, 32, 64))
+        fused_head.kernel_form(dict(consts, act="silu"))
+    se = {"se_w1": torch.zeros(8, 32), "se_b1": torch.zeros(8),
+          "se_w2": torch.zeros(32, 8), "se_b2": torch.zeros(32)}
+    with pytest.raises(NotImplementedError):
+        fused_head.kernel_form(dict(consts, blocks=[
+            dict(consts["blocks"][0], **se)]))
     assert len(pyr.train()(torch.zeros(1, 3, 32, 64))) == 5
 
 
