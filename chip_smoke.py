@@ -3,7 +3,11 @@
 
     python3 chip_smoke.py            # from the root of the repository
 
-Drives ten served paths with seeded random weights, all fp32. Three of
+Drives twelve served paths with seeded random weights: ten in fp32, and
+ESMStereo-L at the deploy numerics that ``bench.py`` measures, bf16
+compute with tanh GELU (``L-deploy``: kernel A writing bf16, B's bf16 form,
+C's bf16 form) and the same with the int8 volume (``L-deploy-int8``: A, B,
+the quantisation in plain torch ops, C's int8 form). The fp32 ones: three of
 ESMStereo-L (efficientnet_b2, cv4 group-wise correlation, 48 bins): the
 default one (kernels A, B, C); the fused cost-volume section
 (``fuse_volume_agg``, ``fuse_hourglass``, ``fuse_hourglass_up``: kernels A,
@@ -52,25 +56,34 @@ It holds each hand-written kernel against its plain PyTorch version:
      draws of fan-in-scaled weights, under which fp32 rounding is
      amplified: the card and the CPU in fp32 each against the CPU in
      float64, the card within 10 times the CPU's own distance, and kernels
-     A and F against their plain versions at those weights;
+     A and F against their plain versions at those weights; then each
+     deploy path on the card against the same path on the CPU, beside the
+     CPU's own bf16 distance from the CPU in fp32 (the deploy numerics'
+     own error), which the card may not exceed on the cost and the
+     disparity, with tests/test_bf16.py's flip and sub-pixel bounds on the
+     disparity;
   5. for each path, launch counters set to 0, then 3 requests served
      through ``InferenceRunner`` (uint8 540x960 pairs; 375x1242 for C):
      shape, finiteness and time of each; every kernel of the path must
-     have launched on each request (G at 3 levels, H at 2), and no kernel
+     have launched on each request (G at 3 levels, H at 2), in the path's
+     form (bf16 or int8 on the deploy paths, fp32 elsewhere), and no kernel
      of another path;
   6. a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and last
      ``{"ok": true, "device": {...}}``.
 
 TF32 is off throughout (``cudnn.allow_tf32 = False``, matmul precision
-"highest"): the slice is fp32, and so are the plain versions it is held
-against. Any failure raises; nothing is caught. Without a CUDA device the
-script exits non-zero before it prints a result.
+"highest"): the fp32 paths are fp32, and so are the plain versions they
+are held against. The tanh-GELU switch is a process global; the deploy
+phases set it and restore it in a ``finally``, so the fp32 paths keep
+exact GELU. Any failure raises; nothing is caught. Without a CUDA device
+the script exits non-zero before it prints a result.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -78,10 +91,10 @@ import time
 import numpy as np
 import torch
 
-from esmstereo_tpu_torch.eval.runner import InferenceRunner
+from esmstereo_tpu_torch.eval.runner import InferenceRunner, precision
 from esmstereo_tpu_torch.models.confidence import ESMStereoConfidence
 from esmstereo_tpu_torch.models.esmstereo import ESMStereo, ESMStereoConfig
-from esmstereo_tpu_torch.ops.kernels import _build, wrappers
+from esmstereo_tpu_torch.ops.kernels import _build, reset_launches, wrappers
 from esmstereo_tpu_torch.ops.kernels import correlation, fused_agg_stem
 from esmstereo_tpu_torch.ops.kernels import fused_head, fused_hourglass
 from esmstereo_tpu_torch.ops.kernels import fused_mixer, fused_stems
@@ -111,15 +124,22 @@ S_ARGS = dict(cv_scale=16, backbone="mobilenetv2_100")
 S = ESMStereoConfig(**S_ARGS)
 S_NORM = ESMStereoConfig(**S_ARGS, cost_volume="norm_correlation")
 S_ALL = ESMStereoConfig(**S_ARGS, **EVERY)
+# the deploy numerics of bench.py (bf16 compute, tanh GELU), with and
+# without the int8 volume
+DEPLOY = ESMStereoConfig(dtype="bfloat16")
+DEPLOY_INT8 = ESMStereoConfig(dtype="bfloat16", volume_int8=True)
 # multiply-adds per /4 pixel of kernel I: to_feat, two FMBlocks (two
 # SMLayers of two 8 -> 16 -> 8 MLPs and a dw 7x7 each, expand, project), up
 MIXER_MACS = (32 * 9 * 16
               + 2 * (2 * (2 * 2 * 8 * 16 + 16 * 49) + 16 * 9 * 32 + 32 * 16)
               + 16 * 64)
-# Published H100 SXM peaks (NVIDIA data sheet): HBM3 rate and fp32 on the
-# CUDA cores (no tensor cores: every kernel of this slice is fp32 FMA).
+# Published H100 SXM peaks (NVIDIA data sheet): HBM3 rate, fp32 on the
+# CUDA cores, and bf16 on the tensor cores (dense), the rate of the deploy
+# forms' bf16 operands (int8 times bf16 weights counts as bf16): the least
+# time for their work, though these first forms run fp32 FMA.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 
 
 def smi_line() -> str:
@@ -144,10 +164,11 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float,
+          flops_per_s: float = FP32_FLOPS_PER_S) -> tuple[float, str]:
     """Least time on the card in ms, and which of the two sets it."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -182,6 +203,48 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor,
     require(err <= rtol * scale,
             f"{name}: kernel disagrees with its plain version")
     return err
+
+
+def bf16_ulp(x: float) -> float:
+    """One bf16 ulp at ``x`` (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(x)) - 7)
+
+
+def compare_ulps(name: str, got: torch.Tensor, want: torch.Tensor,
+                 ulps: float = 1.0) -> float:
+    """Max abs error of a deploy form against its plain version; fails
+    unless it is within ``ulps`` bf16 ulps of max(1, max|plain|): both run
+    fp32 sums in other orders, which can move a bf16 rounding by one
+    ulp."""
+    require(got.shape == want.shape and got.dtype == want.dtype,
+            f"{name}: {tuple(got.shape)} {got.dtype}, plain "
+            f"{tuple(want.shape)} {want.dtype}")
+    g, w = got.float(), want.float()
+    require(torch.isfinite(g).all(), f"{name}: non-finite kernel output")
+    err = float((g - w).abs().max())
+    peak = float(w.abs().max())
+    tol = ulps * bf16_ulp(max(1.0, peak))
+    print(f"  {name}: max abs err {err:.3e} (tolerance {ulps:g} bf16 ulp of "
+          f"max(1, max|plain|) = {tol:.3e}; max|plain| {peak:.3e}); "
+          f"{apart(got, want):.3e} of the outputs differ")
+    require(err <= tol, f"{name}: kernel disagrees with its plain version")
+    return err
+
+
+def apart(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The share of the elements where ``a`` and ``b`` differ."""
+    return float((a.float() != b.float()).float().mean())
+
+
+@contextlib.contextmanager
+def tanh_gelu():
+    """The deploy numerics' tanh GELU (a process global), restored after."""
+    before = blocks.GELU_APPROXIMATE
+    blocks.set_gelu_approximate(True)
+    try:
+        yield
+    finally:
+        blocks.set_gelu_approximate(before)
 
 
 def require_seen(what: str, blind: torch.Tensor, want: torch.Tensor,
@@ -662,6 +725,267 @@ def check_mixer(model, gen) -> dict:
             "bound_ms": bms, "bound_by": by, "library_ms": None}
 
 
+# --- the deploy forms (bf16 compute, tanh GELU, optional int8 volume) --------
+
+def check_fused_stage0_bf16(model, gen) -> dict:
+    """Kernel A's bf16-out form at L's shapes (both eyes, 544 x 992): the
+    kernel's bf16 output against the fp32 plain version cast to bf16,
+    within 1 bf16 ulp of max(1, max|plain|)."""
+    img = torch.randn((2, 3, *PADDED), generator=gen).cuda()
+    consts = fused_backbone.prepare_consts(model.feature)
+    bf16 = torch.bfloat16
+
+    def kernel():
+        return fused_head.fused_stage0(img, consts, bf16)
+
+    def plain():
+        return fused_head.stage0_plain(img, consts).to(bf16)
+
+    got = kernel()
+    err = compare_ulps(f"fused_stage0 bf16 out {tuple(img.shape)}", got,
+                       plain())
+    b, _, h, w = img.shape
+    macs = b * (h // 2) * (w // 2) * (consts["stem_w"].numel() + sum(
+        blk["dw_w"].numel() + blk["pw_w"].numel()
+        for blk in consts["blocks"]))
+    bms, by = bound(nbytes(img, consts["packed"], got), 2 * macs)
+    return {"name": "fused_stage0", "form": "efficientnet_b2 bf16 out",
+            "model": "L-deploy", "path": "L-deploy", "form_key": "bf16",
+            "route": "cuda", "input": list(img.shape),
+            "source": "esmstereo_tpu_torch/csrc/fused_head.cu",
+            "replaces": "esmstereo_tpu/ops/pallas/fused_head.py:198",
+            "max_abs_err": err, "ms": cuda_ms(kernel),
+            "plain_ms": cuda_ms(plain), "bound_ms": bms, "bound_by": by,
+            "library_ms": None}
+
+
+def check_correlation_bf16(model, gen) -> tuple[dict, torch.Tensor]:
+    """Kernel B's bf16 form at L's shapes: (1, 64, 136, 248) bf16
+    descriptors, 48 bins, 32 groups. The kernel must equal its plain
+    version on every entry (the same arithmetic: exact products rounded to
+    bf16, fp32 sums, one rounding), and the plain version without the
+    products' rounding must differ from it: the comparison sees that
+    rounding. Returns the row and the bf16 volume."""
+    shape = desc_shape(model)
+    ref = torch.randn(shape, generator=gen).cuda().to(torch.bfloat16)
+    tgt = torch.randn(shape, generator=gen).cuda().to(torch.bfloat16)
+    d = model.num_bins
+
+    def kernel():
+        return correlation.correlation_volume(ref, tgt, d, 32)
+
+    def plain():
+        return correlation.correlation_volume_plain(ref, tgt, d, 32)
+
+    got, want = kernel(), plain()
+    require(got.dtype == torch.bfloat16 and got.shape == want.shape,
+            f"correlation_volume bf16: {got.dtype} {tuple(got.shape)}")
+    bits = int((got.view(torch.int16) != want.view(torch.int16)).sum())
+    print(f"  correlation_volume gwc bf16 {tuple(got.shape)}: "
+          f"{apart(got, want):.3e} of the entries differ from the plain "
+          f"version in value, {bits} in bits (tolerance: none)")
+    require(torch.equal(got, want),
+            "correlation_volume bf16: kernel disagrees with its plain version")
+    blind = correlation.correlation_volume_plain(
+        ref.float(), tgt.float(), d, 32).to(torch.bfloat16)
+    moved = apart(blind, want)
+    print(f"    without the products' rounding {moved:.3%} of the entries "
+          f"move (must be some)")
+    require(moved > 0.0, "the comparison cannot see the products' rounding")
+    bms, by = bound(nbytes(ref, tgt, got),
+                    volume_flops(got.numel(), 32, ref, False),
+                    BF16_FLOPS_PER_S)
+    row = {"name": "correlation_volume", "form": "gwc bf16",
+           "model": "L-deploy", "path": "L-deploy", "form_key": "bf16",
+           "route": "cuda",
+           "source": "esmstereo_tpu_torch/csrc/correlation.cu",
+           "replaces": "esmstereo_tpu/ops/pallas/correlation.py:132",
+           "input": list(shape), "output": list(got.shape),
+           "max_abs_err": float((got.float() - want.float()).abs().max()),
+           "ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain),
+           "bound_ms": bms, "bound_by": by, "library_ms": None}
+    return row, got
+
+
+def stem_agg_unrounded(vol: torch.Tensor, stem, agg, approx: bool,
+                       scale=None) -> torch.Tensor:
+    """group_stem + agg as interpret mode computes them: the raw fp32
+    weights (conv1's times ``scale``), BN after each fp32 sum, and no
+    rounding but the output's, to bf16."""
+    f = torch.nn.functional
+    view = (1, -1, 1, 1, 1)
+    y = vol.float()
+    for i, blk in enumerate((stem, agg)):
+        s_, t_ = fused_agg_stem.bn_scale_shift(blk.bn)
+        w = blk.conv.weight * (scale if i == 0 and scale is not None else 1.0)
+        y = gelu(f.conv3d(y, w, padding=1) * s_.view(view) + t_.view(view),
+                 approx)
+    return y.to(torch.bfloat16)
+
+
+def check_stem_agg_deploy(model, volume: torch.Tensor, form: str) -> dict:
+    """Kernel C's deploy form ``form`` (``"bf16"``, or ``"int8"`` on the
+    quantised volume) at L's shapes, tanh GELU, writing bf16, within 1 bf16
+    ulp of max(1, max|plain|). The bf16 form's operand rounding must be
+    seen: the plain version with fp32 operands (interpret mode's) differs
+    from the plain one on at least 10 times the share of outputs the
+    kernel does. The int8 quantisation must move the plain version by more
+    than that tolerance. The yardstick is cuDNN's bf16 ``conv3d`` x 2 (BN
+    folded, no GELU) on the bf16 volume."""
+    approx = True
+    stem, agg = model.volume_stem, model.agg
+    consts = fused_agg_stem.prepare_consts(stem, agg, low_precision=True)
+    bf16 = torch.bfloat16
+    if form == "int8":
+        vin, scale = fused_agg_stem.quantize_volume(volume)
+        c = fused_agg_stem.with_input_scale(consts, stem.conv.weight, scale)
+        out = bf16
+    else:
+        vin, scale, c, out = volume, None, consts, None
+
+    def kernel():
+        return fused_agg_stem.stem_agg(vin, c, approx, out_dtype=out)
+
+    def plain():
+        return fused_agg_stem.stem_agg_plain(vin, c, approx, out_dtype=out)
+
+    got, want = kernel(), plain()
+    name = f"stem_agg {form} {tuple(vin.shape)}"
+    err = compare_ulps(name, got, want)
+    tol = bf16_ulp(max(1.0, float(want.float().abs().max())))
+    if form == "int8":
+        moved = float((want.float() - fused_agg_stem.stem_agg_plain(
+            volume, consts, approx).float()).abs().max())
+        print(f"    the int8 quantisation moves the plain version {moved:.3e}"
+              f" (more than the tolerance {tol:.3e})")
+        require(moved > tol, "the comparison cannot see the quantisation")
+    else:
+        blind = apart(stem_agg_unrounded(vin, stem, agg, approx), want)
+        near = apart(got, want)
+        print(f"    with fp32 operands {blind:.3%} of the outputs differ "
+              f"(at least 10 times the kernel's {near:.3%})")
+        require(blind > 0.0 and blind >= 10.0 * near,
+                "the comparison cannot see the operand rounding")
+    ci, co = vin.shape[1], got.shape[1]
+    vox = got.numel() // co
+    bms, by = bound(nbytes(vin, *c.values(), got),
+                    2 * vox * 27 * (ci * co + co * co), BF16_FLOPS_PER_S)
+    folded = fused_agg_stem.prepare_consts(stem, agg)
+    lib = {k: v.to(bf16) for k, v in folded.items()}
+    vbf = volume.to(bf16)
+
+    def library():
+        f = torch.nn.functional
+        y = f.conv3d(vbf, lib["w1"], lib["t1"], padding=1)
+        return f.conv3d(y, lib["w2"], lib["t2"], padding=1)
+
+    row = {"name": "stem_agg", "form": f"gwc {form}", "model": "L-deploy",
+           "path": "L-deploy" if form == "bf16" else "L-deploy-int8",
+           "form_key": form, "route": "cuda", "input": list(vin.shape),
+           "source": "esmstereo_tpu_torch/csrc/fused_hourglass.cu",
+           "replaces": "esmstereo_tpu/ops/pallas/fused_agg_stem.py:162",
+           "max_abs_err": err, "ms": cuda_ms(kernel),
+           "plain_ms": cuda_ms(plain), "bound_ms": bms, "bound_by": by,
+           "library_ms": cuda_ms(library)}
+    if form == "int8":
+        row["quantize_ms"] = cuda_ms(
+            lambda: fused_agg_stem.quantize_volume(volume))
+    return row
+
+
+def check_ragged_deploy(model, gen) -> None:
+    """The deploy forms at small shapes with ragged tiles on every axis and
+    batch 2: A's bf16 output, B's bf16 form at 48 and at 13 bins (an odd
+    count: ``max_disp`` floors to any), C's bf16 form in both GELU forms
+    and its int8 form writing bf16 and fp32."""
+    dev = torch.device("cuda")
+    img = torch.randn((1, 3, 2 * 37, 2 * 45), generator=gen).to(dev)
+    consts = fused_backbone.prepare_consts(model.feature)
+    compare_ulps("fused_stage0 bf16 out (1, 3, 74, 90)",
+                 fused_head.fused_stage0(img, consts, torch.bfloat16),
+                 fused_head.stage0_plain(img, consts).to(torch.bfloat16))
+    ref = torch.randn((2, 64, 5, 70), generator=gen).to(dev).bfloat16()
+    tgt = torch.randn((2, 64, 5, 70), generator=gen).to(dev).bfloat16()
+    for d in (48, 13):
+        got = correlation.correlation_volume(ref, tgt, d, 32)
+        want = correlation.correlation_volume_plain(ref, tgt, d, 32)
+        print(f"  correlation_volume gwc bf16 (2, 64, 5, 70), D={d}: "
+              f"{apart(got, want):.3e} of the entries differ (tolerance: "
+              f"none)")
+        require(torch.equal(got, want), f"correlation_volume bf16 D={d}")
+    vol = torch.randn((2, 32, 13, 7, 37), generator=gen).to(dev)
+    low = fused_agg_stem.prepare_consts(model.group_stem, model.agg,
+                                        low_precision=True)
+    for approx in (False, True):
+        v = vol.bfloat16()
+        compare_ulps(f"stem_agg bf16 (2, 32, 13, 7, 37), tanh GELU {approx}",
+                     fused_agg_stem.stem_agg(v, low, approx),
+                     fused_agg_stem.stem_agg_plain(v, low, approx))
+    q, scale = fused_agg_stem.quantize_volume(vol)
+    c8 = fused_agg_stem.with_input_scale(low, model.group_stem.conv.weight,
+                                         scale)
+    for out in (torch.bfloat16, torch.float32):
+        compare_ulps(f"stem_agg int8 (2, 32, 13, 7, 37) -> {out}",
+                     fused_agg_stem.stem_agg(q, c8, True, out_dtype=out),
+                     fused_agg_stem.stem_agg_plain(q, c8, True,
+                                                   out_dtype=out))
+
+
+def check_deploy_against_cpu(gen, config: ESMStereoConfig) -> None:
+    """A deploy path (``config``, bf16, tanh GELU) on the card against the
+    same path on the CPU (plain versions) on a 128x256 pair, beside the
+    CPU path's own distance from the CPU in fp32 with exact GELU (the
+    deploy numerics' own error), at the reference's init-rule weights:
+    cuDNN's and the CPU's bf16 convs round at other places, so the card is
+    held to no further from the CPU in bf16 than the deploy numerics are
+    from fp32, in max and in mean, on the cost and on the disparity; and,
+    on the disparity, to tests/test_bf16.py:116-119's bounds (< 5% of
+    pixels off by more than 1 px, a mean under 0.05 px over the others),
+    or to the deploy numerics' own figures where those are larger on this
+    draw, as tests/test_torch_deploy.py holds the CPU against JAX."""
+    ref = ESMStereo(device="cpu", seed=SEED + 2)
+    cpu = ESMStereo(config, device="cpu", seed=SEED + 2)
+    gpu = ESMStereo(config, device="cuda", seed=SEED + 2)
+    cpu.load_state_dict(ref.state_dict())
+    gpu.load_state_dict(ref.state_dict())
+    left = torch.randn((1, 128, 256, 3), generator=gen)
+    right = torch.randn((1, 128, 256, 3), generator=gen)
+    with torch.inference_mode():
+        r_disp, r_aux = ref(left, right, capture_internals=True)
+        with tanh_gelu():
+            c_disp, c_aux = cpu(left, right, capture_internals=True)
+            g_disp, g_aux = gpu(left.cuda(), right.cuda(),
+                                capture_internals=True)
+    maps = {"cost": (g_aux["cost"].cpu(), c_aux["cost"], r_aux["cost"]),
+            "disparity": (g_disp[0].cpu(), c_disp[0], r_disp[0])}
+    for key, (g, c, r) in maps.items():
+        require(g.dtype == torch.float32 and g.shape == c.shape
+                and torch.isfinite(g).all(),
+                f"{key} on the card: {g.dtype} {tuple(g.shape)} or "
+                "non-finite")
+        card, own = (g - c).abs(), (c - r).abs()
+        print(f"  {key}: card against CPU bf16 max {float(card.max()):.3e} "
+              f"mean {float(card.mean()):.3e}; CPU bf16 against CPU fp32 "
+              f"max {float(own.max()):.3e} mean {float(own.mean()):.3e}")
+        require(card.max() <= own.max() and card.mean() <= own.mean(),
+                f"{key}: the card is further from the CPU than the deploy "
+                "numerics are from fp32")
+    g, c, r = maps["disparity"]
+
+    def flips(a, b):
+        diff = (a - b).abs()
+        off = diff > 1.0
+        return float(off.float().mean()), float(diff[~off].mean())
+
+    (fl, sub), (own_fl, own_sub) = flips(g, c), flips(c, r)
+    print(f"  disparity: {fl:.3%} of pixels off by more than 1 px, "
+          f"{sub:.4f} px mean over the others (bounds: {max(0.05, own_fl):.3%}"
+          f", {max(0.05, own_sub):.4f} px; the deploy numerics' own "
+          f"{own_fl:.3%}, {own_sub:.4f} px)")
+    require(fl < max(0.05, own_fl) and sub < max(0.05, own_sub),
+            "disparity: the card is outside the deploy bounds")
+
+
 def check_ragged(model, m_norm, s_gwc, gen) -> None:
     """Each kernel against its plain version at small shapes that leave
     ragged tiles on every axis the main path leaves whole (kernel A's rows,
@@ -853,7 +1177,7 @@ def float64_plain():
             fused_mixer, fused_stems)
     saved = {m: m.on_cuda for m in mods}
 
-    def plain_only(what, *tensors):
+    def plain_only(what, *tensors, dtypes=None):
         require(all(t.device.type == "cpu" and t.dtype == torch.float64
                     for t in tensors), f"{what}: the float64 reference "
                 "takes float64 CPU tensors only")
@@ -1028,6 +1352,15 @@ def main() -> int:
                   check_correlation_volume(conf.stereo, gen, "norm", "C",
                                            KITTI_PADDED)[0]]
         rows += [dict(r, model="C") for r in c_rows]
+        # L-deploy (bf16, tanh GELU): A writing bf16, B's bf16 form, C's
+        # bf16 form on B's volume and its int8 form on that volume
+        # quantised
+        rows.append(check_fused_stage0_bf16(model, gen))
+        row_b, volume = check_correlation_bf16(model, gen)
+        with tanh_gelu():
+            rows += [row_b, check_stem_agg_deploy(model, volume, "bf16"),
+                     check_stem_agg_deploy(model, volume, "int8")]
+        del volume
         for r in rows:
             lib = r["library_ms"]
             lib = "none" if lib is None else f"{lib:.4f} ms"
@@ -1045,6 +1378,7 @@ def main() -> int:
                       f"{r['ms']:.4f} ms against {r['b_plus_c_ms']:.4f} ms")
         print("  ragged shapes:")
         check_ragged(model, m_norm, s_gwc, gen)
+        check_ragged_deploy(model, gen)
 
     # the served paths' configurations (C's is S-norm's), each switch alone
     # at cv4, and L with the norm-correlation volume
@@ -1068,6 +1402,10 @@ def main() -> int:
         print(f"[4] {name} at fan-in-scaled weights: the card and the CPU "
               f"in fp32 against the CPU in float64, 128x256")
         check_conditioning(name, config)
+    for name, config in (("L-deploy", DEPLOY), ("L-deploy-int8", DEPLOY_INT8)):
+        print(f"[4] {name} (bf16, tanh GELU) on the card against the CPU, "
+              f"beside the CPU's own distance from fp32, 128x256")
+        check_deploy_against_cpu(gen, config)
 
     nets = {"default": model, "M": m_gwc, "M-norm": m_norm, "S": s_gwc,
             "S-norm": s_norm}
@@ -1076,21 +1414,28 @@ def main() -> int:
         nets[name] = ESMStereo(paths[name], device="cuda", seed=SEED)
         nets[name].load_state_dict(source.state_dict())
     nets["C"] = conf
+    for name, config in (("L-deploy", DEPLOY), ("L-deploy-int8", DEPLOY_INT8)):
+        nets[name] = ESMStereo(config, device="cuda", seed=SEED)
+        nets[name].load_state_dict(model.state_dict())
     kernels = wrappers()
-    launches = {}
+    launches, forms = {}, {}
     for name, net in nets.items():
         frame = KITTI_FRAME if name == "C" else FRAME
         padded = [(n // 32 + 1) * 32 for n in frame]
-        print(f"[5] {name} path: {REQUESTS} requests through "
-              f"InferenceRunner, {frame[0]}x{frame[1]} padded to "
-              f"{padded[0]}x{padded[1]}")
-        for fn in kernels.values():
-            fn.launches = 0
-        serve(net, np.random.default_rng(SEED), frame)
-        torch.cuda.synchronize()
+        deploy = name.startswith("L-deploy")
+        with tanh_gelu() if deploy else contextlib.nullcontext():
+            print(f"[5] {name} path: {REQUESTS} requests through "
+                  f"InferenceRunner, {frame[0]}x{frame[1]} padded to "
+                  f"{padded[0]}x{padded[1]}, {precision(net)}")
+            reset_launches()
+            serve(net, np.random.default_rng(SEED), frame)
+            torch.cuda.synchronize()
         launches[name] = {k: fn.launches for k, fn in kernels.items()}
+        forms[name] = {k: dict(getattr(fn, "form_launches", {}))
+                       for k, fn in kernels.items()}
         print(f"  launches per request on the {name} path: "
-              f"{ {k: n / REQUESTS for k, n in launches[name].items()} }")
+              f"{ {k: n / REQUESTS for k, n in launches[name].items()} }; "
+              f"by form: { {k: v for k, v in forms[name].items() if v} }")
     # wrapper calls per request: G runs at 3 levels, H at 2; every other
     # kernel of the port must stay at 0 on that path (I on every cv8 and
     # cv16 path, E on every cv16 path, C where corr_stem and agg are plain)
@@ -1105,16 +1450,39 @@ def main() -> int:
             "S": default_want, "S-norm": s_norm_want,
             "S-all": {**default_want, "stems": 1, "down_pair": 3,
                       "up_pair": 2},
-            "C": s_norm_want}
+            "C": s_norm_want, "L-deploy": default_want,
+            "L-deploy-int8": default_want}
     for path, per_request in want.items():
         for k, n in launches[path].items():
             require(n == per_request.get(k, 0) * REQUESTS,
                     f"{k} launched {n} times in {REQUESTS} requests on the "
                     f"{path} path (want {per_request.get(k, 0)} a request)")
+    # the forms each path launched: the deploy forms on the deploy paths
+    # only, and nothing but fp32 elsewhere
+    deploy_forms = {"L-deploy": {"fused_stage0": "bf16",
+                                 "correlation_volume": "bf16",
+                                 "stem_agg": "bf16"},
+                    "L-deploy-int8": {"fused_stage0": "bf16",
+                                      "correlation_volume": "bf16",
+                                      "stem_agg": "int8"}}
+    for path, by_kernel in forms.items():
+        for k, by_form in by_kernel.items():
+            if not hasattr(kernels[k], "form_launches"):
+                continue
+            n = launches[path][k]
+            form = deploy_forms.get(path, {}).get(k, "fp32")
+            require(by_form == ({form: n} if n else {}),
+                    f"{k} on the {path} path launched the forms {by_form} "
+                    f"(want {form} only)")
     for r in rows:
-        # gwc_norm is on no path, so no run counts its launches
-        r["launches"] = (launches[r["path"]][r["name"]] if r["path"]
-                         else None)
+        # gwc_norm is on no path, so no run counts its launches; a deploy
+        # form's row counts that form's launches on its path
+        if not r["path"]:
+            r["launches"] = None
+        elif "form_key" in r:
+            r["launches"] = forms[r["path"]][r["name"]][r.pop("form_key")]
+        else:
+            r["launches"] = launches[r["path"]][r["name"]]
 
     print(json.dumps({"kernels": rows}))
     print(smi)

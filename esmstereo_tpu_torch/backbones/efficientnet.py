@@ -162,7 +162,11 @@ class InvertedResidual(nn.Module):
 
 class FeaturePyramid(nn.Module):
     """Five-level pyramid ``[x2, x4, x8, x16, x32]`` (taps after stages
-    0, 1, 2, 4 and 5, as the reference's ``Feature`` module slices them)."""
+    0, 1, 2, 4 and 5, as the reference's ``Feature`` module slices them).
+    ``compute_dtype`` (``nn.blocks.set_compute_dtype``) is the dtype the
+    fused head writes; the blocks' convs carry their own."""
+
+    compute_dtype = None
 
     def __init__(self, arch: str = "efficientnet_b2", in_chs: int = 3,
                  device=None):

@@ -5,7 +5,9 @@ takes this path whenever it is in eval mode. The wrapper
 ``ops.kernels.fused_head.fused_stage0`` then launches the CUDA kernel on a
 CUDA tensor (any even height and width) and runs its plain version on a
 CPU tensor. The folded weights are computed once per set of weights, not
-per frame. Stages 1-5 stay plain modules.
+per frame. Stages 1-5 stay plain modules. Under a bf16 compute dtype the
+head stays fp32 inside and writes bf16, as the JAX model's does
+(``esmstereo_tpu/backbones/fused.py:170-175``).
 """
 
 from __future__ import annotations
@@ -43,7 +45,9 @@ def prepare_consts(pyramid) -> dict:
 
 
 def fused_head(pyramid, x: torch.Tensor) -> torch.Tensor:
+    """Kernel A on the image, writing the pyramid's compute dtype (the
+    image's when it has none)."""
     stage0 = [getattr(pyramid, n) for n in pyramid.block_names[0]]
     consts = folded_once(pyramid, prepare_consts, pyramid.conv_stem,
                          pyramid.bn1, *stage0)
-    return fused_stage0(x, consts)
+    return fused_stage0(x, consts, pyramid.compute_dtype)

@@ -1,6 +1,7 @@
 // Kernels B and D: the correlation cost volume, fp32, in its three forms:
 // group-wise (gwc, G = 32), group-wise on L2-normalised groups (gwc_norm,
-// G = 32) and channel-normalised (norm-correlation, G = 1).
+// G = 32) and channel-normalised (norm-correlation, G = 1); and the gwc form
+// on bf16 descriptors, B's deploy form.
 //
 // Replaces esmstereo_tpu/ops/pallas/correlation.py::correlation_volume_folded
 // (kernel B, pallas_call at :218) and ::correlation_volume (kernel D, :298).
@@ -29,7 +30,20 @@
 // for the power-of-two group sizes the model uses). The normalisation is one
 // thread per (map, b, g, pixel): the sum of squares in channel order, sqrtf,
 // and a true division, each load of a warp 32 neighbouring pixels.
+//
+// The bf16 form (T = __nv_bfloat16) computes what B's bf16 branch computes
+// (esmstereo_tpu/ops/pallas/correlation.py:114-122): each product of two
+// bf16 values is exact in fp32 and is rounded to bf16 (round to nearest
+// even), the group's rounded products are summed in fp32 and scaled by
+// 1/(C/G), and the result is rounded to bf16. Scaling by a power of two is
+// exact, so this equals the Pallas kernel's bf16 dot against the 1/(C/G)
+// group matrix with fp32 accumulation, bit for bit. The descriptors are
+// widened to fp32 as they are staged; the volume's stores halve. On the L
+// deploy path it reads 8.6 MB and writes 103.6 MB: bytes bound it.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -37,10 +51,24 @@ constexpr int kTileW = 64;
 constexpr int kSplitD = 4;
 constexpr float kEps = 1e-5f;
 
-template <int C, int G>
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+    return __bfloat162float(v);
+}
+template <typename T>
+__device__ __forceinline__ T from_float(float v);
+template <>
+__device__ __forceinline__ float from_float<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
+    return __float2bfloat16_rn(v);
+}
+
+template <int C, int G, typename T>
 __global__ void __launch_bounds__(kTileW * kSplitD)
-corr_volume_kernel(const float* __restrict__ ref, const float* __restrict__ tgt,
-                   float* __restrict__ out, int H, int W, int D) {
+corr_volume_kernel(const T* __restrict__ ref, const T* __restrict__ tgt,
+                   T* __restrict__ out, int H, int W, int D) {
+    constexpr bool kBf16 = !std::is_same<T, float>::value;
     constexpr int kCpg = C / G;
     extern __shared__ float tsh[];  // [C][kTileW + D - 1]
     const int span = kTileW + D - 1;
@@ -48,36 +76,42 @@ corr_volume_kernel(const float* __restrict__ ref, const float* __restrict__ tgt,
     const int h = blockIdx.y;
     const int b = blockIdx.z;
     const size_t plane = (size_t)H * W;
-    const float* tb = tgt + (size_t)b * C * plane + (size_t)h * W;
-    const float* rb = ref + (size_t)b * C * plane + (size_t)h * W;
+    const T* tb = tgt + (size_t)b * C * plane + (size_t)h * W;
+    const T* rb = ref + (size_t)b * C * plane + (size_t)h * W;
 
     const int tid = threadIdx.y * kTileW + threadIdx.x;
     for (int i = tid; i < C * span; i += kTileW * kSplitD) {
         const int c = i / span;
         const int ws = w0 - (D - 1) + (i - c * span);
-        tsh[i] = (ws >= 0 && ws < W) ? tb[(size_t)c * plane + ws] : 0.0f;
+        tsh[i] = (ws >= 0 && ws < W) ? to_float(tb[(size_t)c * plane + ws])
+                                     : 0.0f;
     }
     const int w = w0 + threadIdx.x;
     float r[C];
 #pragma unroll
-    for (int c = 0; c < C; ++c) r[c] = (w < W) ? rb[(size_t)c * plane + w] : 0.0f;
+    for (int c = 0; c < C; ++c)
+        r[c] = (w < W) ? to_float(rb[(size_t)c * plane + w]) : 0.0f;
     __syncthreads();
     if (w >= W) return;
 
-    float* ob = out + (size_t)b * G * D * plane + (size_t)h * W + w;
+    T* ob = out + (size_t)b * G * D * plane + (size_t)h * W + w;
     const float inv = 1.0f / kCpg;
     for (int d = threadIdx.y; d < D; d += kSplitD) {
         const int j = threadIdx.x + (D - 1) - d;  // column w - d in the window
-        float* od = ob + (size_t)d * plane;
+        T* od = ob + (size_t)d * plane;
 #pragma unroll
         for (int g = 0; g < G; ++g) {
             float s = 0.0f;
 #pragma unroll
             for (int k = 0; k < kCpg; ++k) {
                 const int c = g * kCpg + k;
-                s = fmaf(r[c], tsh[c * span + j], s);
+                if (kBf16)
+                    s = __fadd_rn(s, __bfloat162float(__float2bfloat16_rn(
+                                         __fmul_rn(r[c], tsh[c * span + j]))));
+                else
+                    s = fmaf(r[c], tsh[c * span + j], s);
             }
-            od[(size_t)g * D * plane] = s * inv;
+            od[(size_t)g * D * plane] = from_float<T>(__fmul_rn(s, inv));
         }
     }
 }
@@ -103,17 +137,18 @@ l2_normalize_groups_kernel(const float* __restrict__ x0,
         y[base + (size_t)k * HW] = x[base + (size_t)k * HW] / den;
 }
 
-template <int C, int G>
-int launch_volume(const float* ref, const float* tgt, float* out, int B, int H,
+template <int C, int G, typename T>
+int launch_volume(const void* ref, const void* tgt, void* out, int B, int H,
                   int W, int D, int smem, cudaStream_t stream) {
     const cudaError_t err = cudaFuncSetAttribute(
-        corr_volume_kernel<C, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        corr_volume_kernel<C, G, T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     const dim3 block(kTileW, kSplitD);
     const dim3 grid((W + kTileW - 1) / kTileW, H, B);
-    corr_volume_kernel<C, G><<<grid, block, smem, stream>>>(ref, tgt, out, H,
-                                                            W, D);
+    corr_volume_kernel<C, G, T><<<grid, block, smem, stream>>>(
+        static_cast<const T*>(ref), static_cast<const T*>(tgt),
+        static_cast<T*>(out), H, W, D);
     return (int)cudaGetLastError();
 }
 
@@ -136,16 +171,23 @@ extern "C" int l2_normalize_groups(const float* x0, const float* x1, float* y0,
     return (int)cudaGetLastError();
 }
 
-// ref, tgt: (B, C, H, W) fp32 contiguous (normalised beforehand for the
-// gwc_norm and norm-correlation forms); out: (B, G, D, H, W) fp32 contiguous.
-// Returns a cudaError_t; 1 (cudaErrorInvalidValue) for an unsupported (C, G).
-extern "C" int correlation_volume(const float* ref, const float* tgt,
-                                  float* out, int B, int C, int G, int H,
-                                  int W, int D, cudaStream_t stream) {
+// ref, tgt: (B, C, H, W) contiguous, fp32 (normalised beforehand for the
+// gwc_norm and norm-correlation forms) or, with bf16 set, bf16; out:
+// (B, G, D, H, W) contiguous in the same type. Returns a cudaError_t; 1
+// (cudaErrorInvalidValue) for an unsupported (C, G, type).
+extern "C" int correlation_volume(const void* ref, const void* tgt, void* out,
+                                  int B, int C, int G, int H, int W, int D,
+                                  int bf16, cudaStream_t stream) {
     const int smem = correlation_volume_smem_bytes(C, D);
+    if (C == 64 && G == 32 && bf16)
+        return launch_volume<64, 32, __nv_bfloat16>(ref, tgt, out, B, H, W, D,
+                                                    smem, stream);
+    if (bf16) return (int)cudaErrorInvalidValue;
     if (C == 64 && G == 32)
-        return launch_volume<64, 32>(ref, tgt, out, B, H, W, D, smem, stream);
+        return launch_volume<64, 32, float>(ref, tgt, out, B, H, W, D, smem,
+                                            stream);
     if (C == 64 && G == 1)
-        return launch_volume<64, 1>(ref, tgt, out, B, H, W, D, smem, stream);
+        return launch_volume<64, 1, float>(ref, tgt, out, B, H, W, D, smem,
+                                           stream);
     return (int)cudaErrorInvalidValue;
 }

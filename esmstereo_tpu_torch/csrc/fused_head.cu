@@ -1,5 +1,6 @@
 // Kernel A: backbone stem + stage 0, eval mode, fp32, in the two layouts
-// of the JAX kernel (efficientnet_b2 and mobilenetv2_100).
+// of the JAX kernel (efficientnet_b2 and mobilenetv2_100), writing fp32 or
+// bf16.
 //
 // Replaces esmstereo_tpu/ops/pallas/fused_head.py::fused_stage0_apply
 // (pallas_call at :393). From an NCHW image (B, 3, Hi, Wi) it computes, on the
@@ -45,6 +46,13 @@
 // only the 16-channel output leaves the block. At 2 x 544 x 992 it moves the
 // same bytes as the efficientnet form (0.009 ms) for 1664 multiply-adds a
 // pixel (0.013 ms at 67 TFLOP/s): operations bound it, narrowly.
+//
+// The bf16 form (the deploy numerics): everything inside stays fp32, as the
+// JAX kernel's is, and the last pass rounds each output to bf16 as it
+// stores it (round to nearest even): the JAX model casts the kernel's fp32
+// output to the compute dtype (esmstereo_tpu/backbones/fused.py:174-175).
+// No extra cast launch follows.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "activations.cuh"
@@ -104,6 +112,15 @@ __device__ void load_params(const float* __restrict__ prm, float* p, int n, int 
 template <Act A>
 __device__ __forceinline__ float act(float x) {
     return A == kSilu ? silu(x) : relu6(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T store_as(float v);
+template <>
+__device__ __forceinline__ float store_as<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 store_as<__nv_bfloat16>(float v) {
+    return __float2bfloat16_rn(v);
 }
 
 // Image rows/cols feeding x0 rows [gy0, gy0+ny) and cols [gx0, gx0+nx):
@@ -310,9 +327,10 @@ stage0_pass2(const float* __restrict__ img, const float* __restrict__ prm,
     block_channel_sums<C1>(a, red, partial1 + ((size_t)b * tiles + tile) * C1, tid);
 }
 
+template <typename Tout>
 __global__ void __launch_bounds__(kThreads)
 stage0_pass3(const float* __restrict__ y0buf, const float* __restrict__ prm,
-             const float* __restrict__ gates1, float* __restrict__ out, int H, int W) {
+             const float* __restrict__ gates1, Tout* __restrict__ out, int H, int W) {
     extern __shared__ float sm[];
     float* p = sm;
     float* y0 = p + kParams;
@@ -341,21 +359,22 @@ stage0_pass3(const float* __restrict__ y0buf, const float* __restrict__ prm,
     const float* g1 = gates1 + (size_t)b * C1;
 #pragma unroll
     for (int c = 0; c < C1; ++c) a[c] *= g1[c];
-    float* ob = out + (size_t)b * C2 * plane + (size_t)gy * W + gx;
+    Tout* ob = out + (size_t)b * C2 * plane + (size_t)gy * W + gx;
 #pragma unroll 4
     for (int o = 0; o < C2; ++o) {
         float s = p[OFF_PW1_B + o];
 #pragma unroll
         for (int c = 0; c < C1; ++c) s = fmaf(p[OFF_PW1_W + o * C1 + c], a[c], s);
-        ob[o * plane] = s + y0[o * ny * nx + ly * nx + lx];
+        ob[o * plane] = store_as<Tout>(s + y0[o * ny * nx + ly * nx + lx]);
     }
 }
 
 // mobilenetv2_100's form, in one pass: out = pw(relu6(dw(x0))) on a 32 x 4
 // tile, x0 = relu6(stem) recomputed on the tile and its 1-pixel halo.
+template <typename Tout>
 __global__ void __launch_bounds__(kThreads)
 stage0_single(const float* __restrict__ img, const float* __restrict__ prm,
-              float* __restrict__ out, int Hi, int Wi) {
+              Tout* __restrict__ out, int Hi, int Wi) {
     extern __shared__ float sm[];
     float* p = sm;
     float* patch = p + kParamsSingle;
@@ -378,13 +397,13 @@ stage0_single(const float* __restrict__ img, const float* __restrict__ prm,
     dw_act<C0, kRelu6>(x0, ny, nx, threadIdx.y + 1, threadIdx.x + 1, p + M_OFF_DW_W,
                        p + M_OFF_DW_B, a);
     const size_t plane = (size_t)H * W;
-    float* ob = out + (size_t)b * C1 * plane + (size_t)gy * W + gx;
+    Tout* ob = out + (size_t)b * C1 * plane + (size_t)gy * W + gx;
 #pragma unroll 4
     for (int o = 0; o < C1; ++o) {
         float s = p[M_OFF_PW_B + o];
 #pragma unroll
         for (int c = 0; c < C0; ++c) s = fmaf(p[M_OFF_PW_W + o * C0 + c], a[c], s);
-        ob[o * plane] = s;
+        ob[o * plane] = store_as<Tout>(s);
     }
 }
 
@@ -407,22 +426,22 @@ extern "C" long long stage0_workspace_floats(int form, int B, int Hi, int Wi) {
     return B * tiles * (C0 + C1) + (long long)B * (C0 + C1) + (long long)B * C1 * H * W;
 }
 
-// img: (B, 3, Hi, Wi); params: stage0_params_size(form) floats in the
-// form's packed order above; out: (B, 16, Hi/2, Wi/2); ws:
-// stage0_workspace_floats(form, ...). Hi and Wi must be even. All fp32,
-// contiguous. Returns a cudaError_t (cudaErrorInvalidValue for another form).
-extern "C" int fused_stage0(int form, const float* img, const float* params, float* out,
-                            float* ws, int B, int Hi, int Wi, cudaStream_t stream) {
+namespace {
+
+template <typename Tout>
+int launch_stage0(int form, const float* img, const float* params, Tout* out, float* ws,
+                  int B, int Hi, int Wi, cudaStream_t stream) {
     const int H = Hi / 2, W = Wi / 2;
     const int tx = tiles_x(W), ty = tiles_y(H), tiles = tx * ty;
     const dim3 grid(tx, ty, B), block(kTw, kTh);
     cudaError_t err;
     if (form == kMobileNetV2) {
-        err = cudaFuncSetAttribute(stage0_single, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        err = cudaFuncSetAttribute(stage0_single<Tout>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    kSmemSingle * (int)sizeof(float));
         if (err != cudaSuccess) return (int)err;
-        stage0_single<<<grid, block, kSmemSingle * sizeof(float), stream>>>(img, params, out,
-                                                                            Hi, Wi);
+        stage0_single<Tout><<<grid, block, kSmemSingle * sizeof(float), stream>>>(
+            img, params, out, Hi, Wi);
         return (int)cudaGetLastError();
     }
     if (form != kEfficientNetB2) return (int)cudaErrorInvalidValue;
@@ -439,7 +458,7 @@ extern "C" int fused_stage0(int form, const float* img, const float* params, flo
     err = cudaFuncSetAttribute(stage0_pass2, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                kSmem2 * (int)sizeof(float));
     if (err != cudaSuccess) return (int)err;
-    err = cudaFuncSetAttribute(stage0_pass3, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(stage0_pass3<Tout>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                kSmem3 * (int)sizeof(float));
     if (err != cudaSuccess) return (int)err;
 
@@ -454,6 +473,23 @@ extern "C" int fused_stage0(int form, const float* img, const float* params, flo
     se_gate<C1, R1><<<B, 32, 0, stream>>>(partial1, params, OFF_SE1_W1, OFF_SE1_B1, OFF_SE1_W2,
                                          OFF_SE1_B2, tiles, inv_count, gates1);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    stage0_pass3<<<grid, block, kSmem3 * sizeof(float), stream>>>(y0, params, gates1, out, H, W);
+    stage0_pass3<Tout><<<grid, block, kSmem3 * sizeof(float), stream>>>(y0, params, gates1,
+                                                                        out, H, W);
     return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// img: (B, 3, Hi, Wi); params: stage0_params_size(form) floats in the
+// form's packed order above; out: (B, 16, Hi/2, Wi/2), fp32 or, with
+// out_bf16 set, bf16; ws: stage0_workspace_floats(form, ...). Hi and Wi
+// must be even. All contiguous; everything but out fp32. Returns a
+// cudaError_t (cudaErrorInvalidValue for another form).
+extern "C" int fused_stage0(int form, const float* img, const float* params, void* out,
+                            float* ws, int B, int Hi, int Wi, int out_bf16,
+                            cudaStream_t stream) {
+    return out_bf16
+        ? launch_stage0(form, img, params, static_cast<__nv_bfloat16*>(out), ws, B, Hi, Wi,
+                        stream)
+        : launch_stage0(form, img, params, static_cast<float*>(out), ws, B, Hi, Wi, stream);
 }

@@ -40,7 +40,23 @@
 // transposed conv is written in gather form (each output sums the 2 x 2 x 2
 // input taps that reach it), so it needs no atomics and repeats bit for
 // bit. No tensor cores: fp32 parity first.
+//
+// Kernel C's deploy forms (conv3d_k3_bn_gelu_bf16) are instances of the same
+// stride-1 conv that compute what the TPU kernel computes with bf16 operands
+// (esmstereo_tpu/ops/pallas/fused_agg_stem.py:141-155,189-192): the input is
+// bf16 (the volume, or conv1's bf16 output) or int8 (the quantised volume,
+// exact in bf16), the weights are bf16 (raw, BN not folded: conv1's times
+// the int8 volume's dequantisation scale), each product of two bf16 values
+// is exact in fp32 and the sums are fp32, and the epilogue applies the BN
+// scale and shift in fp32 (sum * scale, then + shift, each rounded, as the
+// plain version's two ops) before GELU and the store in bf16 or fp32. The
+// values are widened to fp32 as the tile is staged, so the inner loop is the
+// fp32 one; only the bytes of the volume, the intermediate and the output
+// shrink. A tensor-core form is later work.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "activations.cuh"
 
@@ -66,36 +82,60 @@ __device__ __forceinline__ bool inside(int d, int h, int w, int D, int H,
     return d >= 0 && d < D && h >= 0 && h < H && w >= 0 && w < W;
 }
 
-// Writes a thread's kDc x kCot sums, plus the folded BN shift, through GELU;
-// kMasked skips the channels past CO.
-template <bool kMasked>
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+    return __bfloat162float(v);
+}
+__device__ __forceinline__ float widen(int8_t v) { return (float)v; }
+
+template <typename T>
+__device__ __forceinline__ T narrow(float v);
+template <>
+__device__ __forceinline__ float narrow<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
+    return __float2bfloat16_rn(v);
+}
+
+// Writes a thread's kDc x kCot sums through the BN (the folded shift, or
+// with kScaled the scale then the shift) and GELU; kMasked skips the
+// channels past CO.
+template <bool kMasked, typename Tout = float, bool kScaled = false>
 __device__ __forceinline__ void store_tile(
-        const float (&acc)[kDc][kCot], const float* __restrict__ shift,
-        float* __restrict__ y, int b, int CO, int co0, int d0, int h, int w,
-        int D, int H, int W, int approximate) {
+        const float (&acc)[kDc][kCot], const float* __restrict__ scale,
+        const float* __restrict__ shift, Tout* __restrict__ y, int b, int CO,
+        int co0, int d0, int h, int w, int D, int H, int W, int approximate) {
     if (h >= H || w >= W) return;
     const bool approx = approximate != 0;
     const size_t plane = (size_t)H * W;
     const size_t vol = (size_t)D * plane;
-    float* yb = y + ((size_t)b * CO + co0) * vol + (size_t)h * W + w;
+    Tout* yb = y + ((size_t)b * CO + co0) * vol + (size_t)h * W + w;
 #pragma unroll
     for (int dd = 0; dd < kDc; ++dd) {
         const int d = d0 + dd;
         if (d >= D) break;
 #pragma unroll
         for (int o = 0; o < kCot; ++o)
-            if (!kMasked || co0 + o < CO)
+            if (!kMasked || co0 + o < CO) {
+                const float v = kScaled
+                    ? __fadd_rn(__fmul_rn(acc[dd][o], scale[co0 + o]),
+                                shift[co0 + o])
+                    : acc[dd][o] + shift[co0 + o];
                 yb[(size_t)o * vol + (size_t)d * plane] =
-                    gelu(acc[dd][o] + shift[co0 + o], approx);
+                    narrow<Tout>(gelu(v, approx));
+            }
     }
 }
 
 // conv3d k3, stride S, padding 1: x (B, CI, D, H, W) -> y (B, CO, Do, Ho, Wo).
-// wgt: (CO, CI, 3, 3, 3) with the BN scale folded in; shift: (CO,).
-template <int S, bool kMasked>
+// wgt: (CO, CI, 3, 3, 3) with the BN scale folded in and shift (CO,), or
+// with kScaled the raw weight and the BN's scale and shift (CO,) each.
+template <int S, bool kMasked, typename Tin = float, typename Tw = float,
+          typename Tout = float, bool kScaled = false>
 __global__ void __launch_bounds__(kThreads)
-conv3d_k3_kernel(const float* __restrict__ x, const float* __restrict__ wgt,
-                 const float* __restrict__ shift, float* __restrict__ y,
+conv3d_k3_kernel(const Tin* __restrict__ x, const Tw* __restrict__ wgt,
+                 const float* __restrict__ scale,
+                 const float* __restrict__ shift, Tout* __restrict__ y,
                  int CI, int CO, int D, int H, int W, int Do, int Ho, int Wo,
                  int approximate) {
     using SL = Slab3<S>;
@@ -122,24 +162,24 @@ conv3d_k3_kernel(const float* __restrict__ x, const float* __restrict__ wgt,
 
     const size_t plane = (size_t)H * W;
     const size_t vol = (size_t)D * plane;
-    const float* xb = x + (size_t)b * CI * vol;
+    const Tin* xb = x + (size_t)b * CI * vol;
 
     for (int ci = 0; ci < CI; ++ci) {
         __syncthreads();  // the previous channel's slab fully consumed
-        const float* xc = xb + (size_t)ci * vol;
+        const Tin* xc = xb + (size_t)ci * vol;
         for (int i = tid; i < SL::d * SL::h * SL::w; i += kThreads) {
             const int sw = i % SL::w;
             const int sh = (i / SL::w) % SL::h;
             const int sd = i / (SL::w * SL::h);
             const int gd = di0 + sd, gh = hi0 + sh, gw = wi0 + sw;
             xsh[i] = inside(gd, gh, gw, D, H, W)
-                         ? xc[(size_t)gd * plane + (size_t)gh * W + gw]
+                         ? widen(xc[(size_t)gd * plane + (size_t)gh * W + gw])
                          : 0.0f;
         }
         for (int i = tid; i < 27 * kCot; i += kThreads) {
             const int k = i % 27, o = i / 27;
             wsh[k * kCot + o] = !kMasked || co0 + o < CO
-                ? wgt[((size_t)(co0 + o) * CI + ci) * 27 + k] : 0.0f;
+                ? widen(wgt[((size_t)(co0 + o) * CI + ci) * 27 + k]) : 0.0f;
         }
         __syncthreads();
 #pragma unroll
@@ -167,8 +207,9 @@ conv3d_k3_kernel(const float* __restrict__ x, const float* __restrict__ wgt,
             }
         }
     }
-    store_tile<kMasked>(acc, shift, y, b, CO, co0, do0, ho0 + ty, wo0 + tx, Do,
-                        Ho, Wo, approximate);
+    store_tile<kMasked, Tout, kScaled>(acc, scale, shift, y, b, CO, co0, do0,
+                                       ho0 + ty, wo0 + tx, Do, Ho, Wo,
+                                       approximate);
 }
 
 // ConvTranspose3d k4 s2 p1 in gather form. On one axis, output q sums the
@@ -267,8 +308,8 @@ deconv3d_k4s2_kernel(const float* __restrict__ x,
             }
         }
     }
-    store_tile<kMasked>(acc, shift, y, b, CO, co0, do0, ho0 + ty, wo0 + tx, D2,
-                        H2, W2, approximate);
+    store_tile<kMasked>(acc, nullptr, shift, y, b, CO, co0, do0, ho0 + ty,
+                        wo0 + tx, D2, H2, W2, approximate);
 }
 
 // 1x1x1 conv over the channel concat [up | skip], each (B, CO, N) with N
@@ -343,9 +384,58 @@ extern "C" int conv3d_k3_bn_gelu(const float* x, const float* wgt,
     auto kernel = stride == 1
         ? (CO % kCot ? conv3d_k3_kernel<1, true> : conv3d_k3_kernel<1, false>)
         : (CO % kCot ? conv3d_k3_kernel<2, true> : conv3d_k3_kernel<2, false>);
-    kernel<<<grid, block, 0, stream>>>(x, wgt, shift, y, CI, CO, D, H, W, Do,
-                                       Ho, Wo, approximate);
+    kernel<<<grid, block, 0, stream>>>(x, wgt, nullptr, shift, y, CI, CO, D,
+                                       H, W, Do, Ho, Wo, approximate);
     return (int)cudaGetLastError();
+}
+
+namespace {
+
+template <typename Tin, typename Tout>
+int launch_conv3d_bf16(const void* x, const void* wgt, const float* scale,
+                       const float* shift, void* y, int B, int CI, int CO,
+                       int D, int H, int W, int approximate,
+                       cudaStream_t stream) {
+    const dim3 grid(((W + kTw - 1) / kTw) * ((H + kTh - 1) / kTh),
+                    ((D + kDc - 1) / kDc) * channel_tiles(CO), B);
+    const dim3 block(kTw, kTh);
+    conv3d_k3_kernel<1, false, Tin, __nv_bfloat16, Tout, true>
+        <<<grid, block, 0, stream>>>(
+            static_cast<const Tin*>(x), static_cast<const __nv_bfloat16*>(wgt),
+            scale, shift, static_cast<Tout*>(y), CI, CO, D, H, W, D, H, W,
+            approximate);
+    return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Kernel C's deploy forms: conv3d k3 s1 p1. x: (B, CI, D, H, W) bf16
+// (in_type 0) or int8 (in_type 1); wgt: (CO, CI, 3, 3, 3) bf16, raw; scale,
+// shift: (CO,) fp32, the eval BN; y: (B, CO, D, H, W) bf16 (out_type 0) or
+// fp32 (out_type 1). CO must be a multiple of 8.
+extern "C" int conv3d_k3_bn_gelu_bf16(const void* x, const void* wgt,
+                                      const float* scale, const float* shift,
+                                      void* y, int B, int CI, int CO, int D,
+                                      int H, int W, int in_type, int out_type,
+                                      int approximate, cudaStream_t stream) {
+    if (CO < 1 || CI < 1 || CO % kCot) return (int)cudaErrorInvalidValue;
+    using bf16 = __nv_bfloat16;
+    if (in_type == 0 && out_type == 0)
+        return launch_conv3d_bf16<bf16, bf16>(x, wgt, scale, shift, y, B, CI,
+                                              CO, D, H, W, approximate, stream);
+    if (in_type == 0 && out_type == 1)
+        return launch_conv3d_bf16<bf16, float>(x, wgt, scale, shift, y, B, CI,
+                                               CO, D, H, W, approximate,
+                                               stream);
+    if (in_type == 1 && out_type == 0)
+        return launch_conv3d_bf16<int8_t, bf16>(x, wgt, scale, shift, y, B,
+                                                CI, CO, D, H, W, approximate,
+                                                stream);
+    if (in_type == 1 && out_type == 1)
+        return launch_conv3d_bf16<int8_t, float>(x, wgt, scale, shift, y, B,
+                                                 CI, CO, D, H, W, approximate,
+                                                 stream);
+    return (int)cudaErrorInvalidValue;
 }
 
 // x: (B, CI, Ds, Hs, Ws); wgt: (CI, CO, 4, 4, 4); shift: (CO,);

@@ -6,6 +6,7 @@ confidence model.
         [--cv-scale {4,8,16}] [--cost-volume {gwc,norm_correlation}]
         [--confidence] [--fuse-volume-agg] [--fuse-hourglass]
         [--fuse-hourglass-up] [--fuse-stems] [--fuse-mixer]
+        [--dtype {float32,bfloat16}] [--fast-gelu] [--volume-int8]
 
 Builds the model (L at ``--cv-scale 4``, the default; M at 8; S at 16,
 which implies mobilenetv2_100; ``--confidence`` builds the confidence
@@ -15,8 +16,14 @@ saw and the port's wrapper calls), runs ``--frames``
 forward passes on device-resident inputs under ``torch.profiler``, and
 prints the device time per frame by kernel name (sorted, with shares), the
 device busy share of the window, and the frame time from CUDA events
-without the profiler. TF32 is off, as in ``chip_smoke.py``. Needs a CUDA
-device; the kernels build on first use.
+without the profiler. TF32 is off, as in ``chip_smoke.py`` and
+``InferenceRunner``; the script prints the precision it ran at. Needs a
+CUDA device; the kernels build on first use.
+
+The deploy numerics of ``bench.py`` (L only): ``--dtype bfloat16
+--fast-gelu`` (bf16 compute, tanh GELU), and ``--volume-int8`` for the
+int8 volume. ``--fast-gelu`` sets the package's GELU switch, a process
+global, for the run.
 
 The switches select the configuration's opt-in kernel paths, as
 ``bench.py``'s ``BENCH_FUSE_VOLUME_AGG`` and ``BENCH_FUSE_HOURGLASS`` do for
@@ -43,9 +50,11 @@ import subprocess
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from esmstereo_tpu_torch.eval.runner import fp32_precision, precision
 from esmstereo_tpu_torch.models.confidence import ESMStereoConfidence
 from esmstereo_tpu_torch.models.esmstereo import ESMStereo, ESMStereoConfig
-from esmstereo_tpu_torch.ops.kernels import wrappers
+from esmstereo_tpu_torch.nn import blocks
+from esmstereo_tpu_torch.ops.kernels import reset_launches, wrappers
 
 PADDED = (544, 992)     # a SceneFlow 540x960 frame padded to the next /32
 KITTI_PADDED = (384, 1248)   # a KITTI 375x1242 frame padded to the next /32
@@ -84,6 +93,15 @@ def main() -> None:
                     help="stem_2 + stem_4 as kernel F")
     ap.add_argument("--fuse-mixer", action="store_true",
                     help="the upsampler's ShuffleMixer section as kernel I")
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"),
+                    default="float32",
+                    help="compute dtype; bfloat16 is the deploy numerics "
+                         "(L with the gwc volume and no --fuse-* switch)")
+    ap.add_argument("--fast-gelu", action="store_true",
+                    help="tanh GELU (the package's global switch)")
+    ap.add_argument("--volume-int8", action="store_true",
+                    help="the volume stored as int8 between kernels B "
+                         "and C")
     args = ap.parse_args()
     cv_scale = 16 if args.confidence else args.cv_scale
     config = ESMStereoConfig(cv_scale=cv_scale,
@@ -94,11 +112,20 @@ def main() -> None:
                              fuse_hourglass=args.fuse_hourglass,
                              fuse_hourglass_up=args.fuse_hourglass_up,
                              fuse_stems=args.fuse_stems,
-                             fuse_mixer=args.fuse_mixer)
+                             fuse_mixer=args.fuse_mixer, dtype=args.dtype,
+                             volume_int8=args.volume_int8)
     if not torch.cuda.is_available():
         raise SystemExit("profile: no CUDA device")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    gelu_before = blocks.GELU_APPROXIMATE
+    blocks.set_gelu_approximate(args.fast_gelu)
+    try:
+        with fp32_precision():
+            run(args, config)
+    finally:
+        blocks.set_gelu_approximate(gelu_before)
+
+
+def run(args, config: ESMStereoConfig) -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True,
                          capture_output=True, text=True).stdout.strip())
@@ -106,6 +133,7 @@ def main() -> None:
     print(f"config: {config}, confidence model: {args.confidence}")
     cls = ESMStereoConfidence if args.confidence else ESMStereo
     model = cls(config, device="cuda", seed=0)
+    print(f"precision: {precision(model)}")
     gen = torch.Generator().manual_seed(0)
     shape = (1, *(KITTI_PADDED if args.confidence else PADDED), 3)
     print(f"input: {shape}")
@@ -114,11 +142,10 @@ def main() -> None:
     kernels = wrappers()
     with torch.inference_mode():
         frame_ms(model, left, right, 3)                    # build + warm up
-        for fn in kernels.values():
-            fn.launches = 0
+        reset_launches()
         frame_ms(model, left, right, 1)
-        launched = {k: fn.launches for k, fn in kernels.items()
-                    if fn.launches}
+        launched = {k: getattr(fn, "form_launches", None) or fn.launches
+                    for k, fn in kernels.items() if fn.launches}
         wall = frame_ms(model, left, right, args.frames)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:

@@ -22,6 +22,14 @@ config's ``fuse_*`` switches, the volume built inside group_stem (cv4,
 cv8), the hourglass levels, the stem_2 + stem_4 towers and the cv4
 upsampler's ShuffleMixer section. On CPU tensors their plain PyTorch
 versions run.
+
+The deploy numerics (``dtype="bfloat16"``, L only): the modules compute in
+bf16 with fp32 parameters and BN statistics (``nn.blocks``); kernel A
+writes bf16, B builds the bf16 volume and C runs its bf16 form (or, with
+``volume_int8``, its int8 form on the quantised volume). The cost is cast
+to fp32 before regression, and the disparity stream stays fp32 from
+there (``esmstereo_tpu/models/esmstereo.py:769-774``): the upsampler's
+features are bf16, its 1-channel disparity sums fp32.
 """
 
 from __future__ import annotations
@@ -54,7 +62,20 @@ class ESMStereoConfig:
     efficientnet_b2, and 16 (S) with mobilenetv2_100, each with
     ``cost_volume`` ``"gwc"`` or ``"norm_correlation"``. cv8 or cv16 with
     another backbone raises ``ValueError``, as the JAX config does;
-    mobilenetv2_100 at cv4 and bfloat16 raise ``NotImplementedError``.
+    mobilenetv2_100 at cv4 raises ``NotImplementedError``. ``dtype``
+    ``"bfloat16"`` (the deploy numerics of ``bench.py``) is ported for L
+    with the gwc volume and no ``fuse_*`` switch; every other bf16
+    combination raises ``NotImplementedError`` naming its ``ROADMAP.md``
+    item. ``max_disp`` is floored to a multiple of ``cv_scale``
+    (``num_bins = max_disp // cv_scale``), as in JAX.
+
+    ``volume_int8`` (``esmstereo_tpu/models/esmstereo.py:143``) stores the
+    volume as int8 between kernels B and C, with one symmetric scale per
+    batch folded into group_stem's weights, in fp32 or bf16. As in JAX it
+    changes nothing under ``fuse_volume_agg`` (no volume is stored), nor at
+    cv16 with the norm-correlation volume (corr_stem and agg are plain
+    there), and the int8 form of kernel C runs bf16 operands in either
+    dtype, as the TPU kernel does; it writes the model's dtype.
 
     The five ``fuse_*`` switches are the JAX config's opt-in kernel paths
     (``esmstereo_tpu/models/esmstereo.py:95,129,150-151,163``), off by
@@ -84,6 +105,7 @@ class ESMStereoConfig:
     fuse_hourglass_up: bool = False
     fuse_stems: bool = False
     fuse_mixer: bool = False
+    volume_int8: bool = False
 
     def __post_init__(self):
         if self.cost_volume not in ("gwc", "norm_correlation"):
@@ -100,15 +122,36 @@ class ESMStereoConfig:
                              "its 96-channel /16 features)")
         backbone = "mobilenetv2_100" if self.cv_scale == 16 else \
             "efficientnet_b2"
-        rest = (self.backbone, self.num_groups, self.reduction, self.dtype)
-        if rest != (backbone, 32, 8, "float32"):
+        rest = (self.backbone, self.num_groups, self.reduction)
+        if rest != (backbone, 32, 8):
             raise NotImplementedError(
                 "the port runs L and M (cv_scale 4 or 8 with efficientnet_b2) "
                 "and S (cv_scale 16 with mobilenetv2_100), 32 groups, "
-                f"reduction 8, float32; got cv_scale {self.cv_scale}, {rest}")
-        if self.max_disp % self.cv_scale:
-            raise ValueError(f"max_disp {self.max_disp} is not a multiple "
-                             f"of cv_scale {self.cv_scale}")
+                f"reduction 8; got cv_scale {self.cv_scale}, {rest}")
+        if self.dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"dtype {self.dtype!r}")
+        if self.dtype == "bfloat16":
+            switches = [f.name for f in dataclasses.fields(self)
+                        if f.name.startswith("fuse_")
+                        and getattr(self, f.name)]
+            if self.cv_scale != 4:
+                raise NotImplementedError(
+                    "bfloat16 is ported for L (cv_scale 4) only; M, S and "
+                    "the confidence model in bf16 are queued in ROADMAP.md "
+                    "§1 item 3")
+            if self.cost_volume != "gwc":
+                raise NotImplementedError(
+                    "bfloat16 takes the gwc volume; the norm-correlation "
+                    "volume in bf16 is queued in ROADMAP.md §1 item 3")
+            if switches:
+                raise NotImplementedError(
+                    f"bfloat16 with {switches}: the bf16 forms of kernels "
+                    "E, F, G, H and I are queued in ROADMAP.md §2 item 1")
+
+    @property
+    def torch_dtype(self) -> torch.dtype | None:
+        """The compute dtype, ``None`` for fp32 (no casts)."""
+        return torch.bfloat16 if self.dtype == "bfloat16" else None
 
 
 def _crop_like(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
@@ -397,7 +440,12 @@ class Upsample16(nn.Module):
 
 
 def _stem_agg_consts(model) -> dict:
-    return fused_agg_stem.prepare_consts(model.volume_stem, model.agg)
+    """Kernel C's weights: fp32 with BN folded, or the deploy forms' (bf16
+    weights, fp32 BN scale and shift) for a bf16 model or an int8
+    volume."""
+    low = model.config.dtype == "bfloat16" or model.volume_int8
+    return fused_agg_stem.prepare_consts(model.volume_stem, model.agg,
+                                         low_precision=low)
 
 
 def _stems_consts(model) -> dict:
@@ -473,6 +521,7 @@ class ESMStereo(nn.Module):
                                              fuse_mixer=config.fuse_mixer)
         if dev.type != "meta":
             init_model_(self, torch.Generator().manual_seed(seed))
+        blocks.set_compute_dtype(self, config.torch_dtype)
         self.eval()
 
     @property
@@ -485,6 +534,31 @@ class ESMStereo(nn.Module):
         if self.config.cost_volume == "norm_correlation":
             return 1
         return self.config.num_groups
+
+    @property
+    def volume_int8(self) -> bool:
+        """Whether group_stem + agg take the int8 volume: ``volume_int8``
+        where a volume is stored before kernel C (not under
+        ``fuse_volume_agg`` at cv4 and cv8, nor at cv16 with the
+        norm-correlation volume, whose corr_stem and agg are plain)."""
+        cfg = self.config
+        if cfg.cv_scale == 16:
+            return cfg.volume_int8 and cfg.cost_volume == "gwc"
+        return cfg.volume_int8 and not cfg.fuse_volume_agg
+
+    def stem_agg(self, volume: torch.Tensor, approx: bool) -> torch.Tensor:
+        """group_stem (corr_stem) + agg on a stored volume: kernel C, in the
+        model's dtype, or in its int8 form on the quantised volume."""
+        consts = folded_once(self, _stem_agg_consts, self.volume_stem,
+                             self.agg)
+        if not self.volume_int8:
+            return fused_agg_stem.stem_agg(volume, consts, approx)
+        q, scale = fused_agg_stem.quantize_volume(volume)
+        consts = fused_agg_stem.with_input_scale(
+            consts, self.volume_stem.conv.weight, scale)
+        return fused_agg_stem.stem_agg(
+            q, consts, approx, out_dtype=self.config.torch_dtype or
+            torch.float32)
 
     @property
     def volume_stem(self) -> ConvBlock:
@@ -528,21 +602,22 @@ class ESMStereo(nn.Module):
         groups = self.volume_groups
         if v == 16:
             volume = self._cv16_volume(match_l, match_r, fl[3], approx)
-        else:
+        elif cfg.fuse_volume_agg:
+            # kernel E: the volume never reaches device memory
             consts = folded_once(self, _stem_agg_consts, self.volume_stem,
                                  self.agg)
-            if cfg.fuse_volume_agg:
-                # kernel E: the volume never reaches device memory
-                volume = fused_agg_stem.volume_stem_agg(
-                    match_l, match_r, consts, self.num_bins, groups, approx,
-                    normalize=norm)
-            else:
-                volume = correlation.correlation_volume(
-                    match_l, match_r, self.num_bins, groups, normalize=norm)
-                volume = fused_agg_stem.stem_agg(volume, consts, approx)
-        cost = self.aggregation_out(volume)[:, 0]          # (B, D, H/v, W/v)
+            volume = fused_agg_stem.volume_stem_agg(
+                match_l, match_r, consts, self.num_bins, groups, approx,
+                normalize=norm)
+        else:
+            volume = correlation.correlation_volume(
+                match_l, match_r, self.num_bins, groups, normalize=norm)
+            volume = self.stem_agg(volume, approx)
+        # (B, D, H/v, W/v); regression and the disparity stream are fp32
+        # whatever the compute dtype (JAX esmstereo.py:769-774)
+        cost = self.aggregation_out(volume)[:, 0]
+        cost = cost.to(torch.promote_types(cost.dtype, torch.float32))
 
-        # regression and the disparity stream stay fp32 (the slice is fp32)
         if v == 4:
             init_pred = regression_topk(cost, 2)
             outs = self.upsample_module(fl[1], fl[0], stems[0][:bsz],
@@ -581,6 +656,4 @@ class ESMStereo(nn.Module):
             return self.agg(self.corr_stem(volume) * att)
         volume = correlation.correlation_volume(
             match_l, match_r, self.num_bins, self.config.num_groups)
-        consts = folded_once(self, _stem_agg_consts, self.volume_stem,
-                             self.agg)
-        return fused_agg_stem.stem_agg(volume * att, consts, approx)
+        return self.stem_agg(volume * att, approx)

@@ -4,6 +4,20 @@ Counterpart of ``esmstereo_tpu/nn/blocks.py``: conv/deconv + BatchNorm +
 GELU units, the upsample-and-fuse ``Conv2x`` and the strided ``StemBlock``.
 Parameter names follow the JAX package's tree (``conv``, ``bn``,
 ``conv_down``, ...) so that ``models.convert_jax`` maps weights by path.
+
+Compute dtype (``set_compute_dtype``), after flax's ``dtype=bfloat16``
+with fp32 ``param_dtype``: parameters and BN statistics stay fp32; each
+``TorchConv`` / ``TorchConvTranspose`` casts its input, weight and bias to
+the compute dtype, cuDNN accumulates in fp32 and returns that dtype, and
+the bias is added after, in that dtype, as ``flax.linen.Conv`` adds it
+(two roundings, not one).
+BatchNorm follows flax 0.12.3's ``linen/normalization.py::_normalize``:
+``y = x - mean`` promotes the bf16 input to the fp32 statistics, then
+``y *= rsqrt(var + eps) * scale`` and ``y += bias`` run in fp32, and only
+the result is cast to the compute dtype. torch's eval BatchNorm on a bf16
+input with fp32 parameters computes the same in fp32 and returns bf16, so
+the module needs no cast of its own. Activations run on the tensor they
+get (torch evaluates them in fp32 and rounds once).
 """
 
 from __future__ import annotations
@@ -25,6 +39,17 @@ GELU_APPROXIMATE = False
 def set_gelu_approximate(enabled: bool) -> None:
     global GELU_APPROXIMATE
     GELU_APPROXIMATE = bool(enabled)
+
+
+def set_compute_dtype(model: nn.Module, dtype: torch.dtype | None) -> None:
+    """Give every module of ``model`` that has a ``compute_dtype`` (convs,
+    the channel LayerNorm, the feature pyramid) the compute dtype ``dtype``;
+    ``None`` is fp32 with no casts at all. Every ``folded_once`` memo is
+    dropped, since folds may depend on the dtype."""
+    for m in model.modules():
+        m.__dict__.pop("_folded", None)
+        if hasattr(m, "compute_dtype"):
+            m.compute_dtype = dtype
 
 
 def apply_act(x: torch.Tensor, act: str | None) -> torch.Tensor:
@@ -51,12 +76,30 @@ def _tuple(v, n: int) -> tuple[int, ...]:
     return (v,) * n
 
 
+def _cast_params(conv: nn.Module):
+    dt = conv.compute_dtype
+    return (conv.weight.to(dt),
+            None if conv.bias is None else conv.bias.to(dt))
+
+
+def _cast(conv: nn.Module, x: torch.Tensor):
+    """``(x, weight, bias)`` of a conv in its compute dtype: the input cast,
+    the parameters' casts memoised (``folded_once``), so a frame casts no
+    weight."""
+    if conv.compute_dtype is None:
+        return x, conv.weight, conv.bias
+    w, b = folded_once(conv, _cast_params, conv)
+    return x.to(conv.compute_dtype), w, b
+
+
 class TorchConv(nn.Module):
     """Convolution with symmetric padding and the JAX package's init rules.
 
     ``init_mode``: ``'torch'`` (torch Conv default) or ``'msra'`` (the
     reference's Normal(0, sqrt(2/n_out))). Weight ``(out, in/groups, *k)``.
     """
+
+    compute_dtype = None
 
     def __init__(self, in_ch: int, features: int, kernel_size, stride=1,
                  padding=0, dilation=1, groups: int = 1,
@@ -89,8 +132,13 @@ class TorchConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         conv = F.conv2d if self.dims == 2 else F.conv3d
-        return conv(x, self.weight, self.bias, self.stride, self.padding,
-                    self.dilation, self.groups)
+        x, w, b = _cast(self, x)
+        if self.compute_dtype is None:
+            return conv(x, w, b, self.stride, self.padding, self.dilation,
+                        self.groups)
+        y = conv(x, w, None, self.stride, self.padding, self.dilation,
+                 self.groups)
+        return y if b is None else y + b.view(-1, *(1,) * self.dims)
 
 
 class TorchConvTranspose(nn.Module):
@@ -102,6 +150,8 @@ class TorchConvTranspose(nn.Module):
     the same function from the unflipped kernel, so the bridge transposes
     the axes and flips nothing.
     """
+
+    compute_dtype = None
 
     def __init__(self, in_ch: int, features: int, kernel_size, stride=2,
                  padding=1, use_bias: bool = False, dims: int = 2,
@@ -126,7 +176,11 @@ class TorchConvTranspose(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         deconv = F.conv_transpose2d if self.dims == 2 else F.conv_transpose3d
-        return deconv(x, self.weight, self.bias, self.stride, self.padding)
+        x, w, b = _cast(self, x)
+        if self.compute_dtype is None:
+            return deconv(x, w, b, self.stride, self.padding)
+        y = deconv(x, w, None, self.stride, self.padding)
+        return y if b is None else y + b.view(-1, *(1,) * self.dims)
 
 
 def batch_norm(features: int, dims: int = 2, device=None) -> nn.Module:

@@ -20,16 +20,20 @@ from esmstereo_tpu_torch.ops.sampling import pixel_shuffle
 
 class ChannelLayerNorm(nn.Module):
     """LayerNorm over the channel axis (dim 1): biased variance, eps 1e-5,
-    weight only."""
+    weight only. Statistics and the normalisation run in fp32 and the
+    result returns to the input's dtype, as the JAX module does under a
+    bf16 compute dtype (``esmstereo_tpu/nn/shufflemixer.py:57-72``)."""
 
     def __init__(self, dim: int, device=None):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(dim, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mu = x.mean(dim=1, keepdim=True)
-        var = x.var(dim=1, keepdim=True, unbiased=False)
-        return (x - mu) / torch.sqrt(var + 1e-5) * self.weight.view(1, -1, 1, 1)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mu = xf.mean(dim=1, keepdim=True)
+        var = xf.var(dim=1, keepdim=True, unbiased=False)
+        y = (xf - mu) / torch.sqrt(var + 1e-5) * self.weight.view(1, -1, 1, 1)
+        return y.to(x.dtype)
 
 
 def channel_shuffle(x: torch.Tensor, groups: int) -> torch.Tensor:

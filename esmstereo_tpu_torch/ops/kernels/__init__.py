@@ -5,12 +5,14 @@ its plain PyTorch version, with the forms each wrapper takes:
   * ``fused_head.fused_stage0``         kernel A, backbone stem + stage 0, in
     two layouts (``fused_head.FORMS``): efficientnet_b2's (two blocks with
     SqueezeExcite, SiLU; three passes) and mobilenetv2_100's (one block, no
-    SE, ReLU6; one pass)
+    SE, ReLU6; one pass); fp32 inside, fp32 or bf16 out
   * ``correlation.correlation_volume``  kernels B and D, the correlation
     volume (gwc, gwc_norm, norm-correlation) from 64-channel descriptors,
-    any number of bins
+    any number of bins; fp32, and gwc also on bf16 descriptors with the
+    products rounded to bf16 (the deploy form)
   * ``fused_agg_stem.stem_agg``         kernel C, group_stem (corr_stem) + agg
-    3-D convs, G = 32 or 1 volume channels, any depth
+    3-D convs, G = 32 or 1 volume channels, any depth; fp32, and on a bf16
+    or int8 volume with bf16 operands (the deploy forms)
   * ``fused_agg_stem.volume_stem_agg``  kernel E, B + C with the volume built
     inside group_stem (``fuse_volume_agg``; cv4 and cv8 only)
   * ``fused_hourglass.down_pair``       kernel G, one hourglass down level
@@ -26,8 +28,10 @@ its plain PyTorch version, with the forms each wrapper takes:
 
 A wrapper runs the plain version when its tensors lie on the CPU and
 launches its kernel when they lie on a CUDA device, raising on anything the
-kernel does not take; it never falls back. ``wrapper.launches`` counts the
-calls that launched the kernel.
+kernel does not take (a dtype outside the wrapper's list among them); it
+never falls back. ``wrapper.launches`` counts the calls that launched the
+kernel, and ``wrapper.form_launches`` the same by form (``"fp32"``,
+``"bf16"``, ``"int8"``) for the wrappers with deploy forms.
 
 Kernels launch on the current stream and allocate nothing; the wrappers
 allocate outputs and scratch with ``torch.empty``. Scratch that goes out of
@@ -56,15 +60,17 @@ def wrappers() -> dict:
             "mixer": fused_mixer.mixer}
 
 
-def on_cuda(what: str, *tensors: torch.Tensor) -> bool:
-    """True for CUDA tensors, False for CPU tensors; raises on fp32
-    violations, mixed devices or another device type."""
+def on_cuda(what: str, *tensors: torch.Tensor,
+            dtypes: tuple = (torch.float32,)) -> bool:
+    """True for CUDA tensors, False for CPU tensors; raises on a dtype
+    outside the wrapper's ``dtypes``, mixed devices or another device
+    type."""
     devs = {t.device for t in tensors}
     if len(devs) != 1:
         raise ValueError(f"{what}: tensors on several devices {devs}")
     for t in tensors:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{what}: fp32 only in this slice, got {t.dtype}")
+        if t.dtype not in dtypes:
+            raise TypeError(f"{what}: takes {dtypes}, got {t.dtype}")
     dev = devs.pop()
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{what}: unsupported device {dev}")
@@ -73,6 +79,20 @@ def on_cuda(what: str, *tensors: torch.Tensor) -> bool:
             if not t.is_contiguous():
                 raise ValueError(f"{what}: CUDA kernel needs contiguous inputs")
     return dev.type == "cuda"
+
+
+def count_launch(wrapper, form: str) -> None:
+    """One launch of ``wrapper``'s kernel in ``form``."""
+    wrapper.launches += 1
+    wrapper.form_launches[form] = wrapper.form_launches.get(form, 0) + 1
+
+
+def reset_launches() -> None:
+    """Set every wrapper's launch counts to 0."""
+    for fn in wrappers().values():
+        fn.launches = 0
+        if hasattr(fn, "form_launches"):
+            fn.form_launches = {}
 
 
 def stream_handle(t: torch.Tensor) -> int:

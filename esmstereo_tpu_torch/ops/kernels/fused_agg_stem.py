@@ -7,14 +7,25 @@ C replaces ``esmstereo_tpu/ops/pallas/fused_agg_stem.py::folded_stem_agg_apply``
 and E ``::folded_volume_stem_agg_apply``, in the unfolded
 ``(B, C, D, H, W)`` layout. As ``prepare_consts`` there (``:42-48,88``)
 the eval BatchNorm folds into a per-channel scale and offset; here the
-scale goes into the conv weights, and E takes C's consts. The kernels run
-fp32 end to end and are held against the JAX interpret-mode numbers, not
-the TPU's bf16 matrix-unit operands.
+scale goes into the conv weights, and E takes C's consts. The fp32 forms
+run fp32 end to end and are held against the JAX interpret-mode numbers,
+not the TPU's bf16 matrix-unit operands.
+
+C's deploy forms take a bf16 or an int8 volume (``prepare_consts(...,
+low_precision=True)``) and round where the TPU kernel rounds
+(``fused_agg_stem.py:84-86,141-155,189-192`` there): conv1's raw weights
+(times the int8 volume's dequantisation scale, ``with_input_scale``) and
+conv2's in bf16, conv1's GELU output to bf16 before conv2, the products
+summed in fp32, and the BN scale and shift applied in fp32 after the sum,
+not folded into the rounded weights. They write bf16 (or fp32 from an int8
+volume, ``out_dtype``). On the CPU nothing reproduces the TPU's operand
+rounding (interpret mode runs fp32 operands), so the plain forms are held
+against interpret mode at a stated number of bf16 ulps.
 
 On CUDA, C's wrapper launches the direct-conv kernel twice (G -> 8, then
 8 -> 8; G = 32 for gwc, 1 for norm-correlation), with the 8-channel
-intermediate in device memory. E's launches the volume + group_stem
-kernel, then C's 8 -> 8 conv; it reads the two descriptor maps and never
+intermediate in device memory (bf16 in the deploy forms). E's launches
+the volume + group_stem kernel, then C's 8 -> 8 conv; it reads the two descriptor maps and never
 allocates the volume. Its normalised form first writes the two
 L2-normalised maps into scratch with kernel B's ``l2_normalize_groups``.
 """
@@ -28,45 +39,137 @@ import torch
 import torch.nn.functional as F
 
 from esmstereo_tpu_torch.nn.blocks import fold_bn
-from esmstereo_tpu_torch.ops.kernels import _build, on_cuda, stream_handle
+from esmstereo_tpu_torch.ops.kernels import (_build, count_launch, on_cuda,
+                                             stream_handle)
 from esmstereo_tpu_torch.ops.kernels.activations import gelu
 from esmstereo_tpu_torch.ops.kernels import correlation
-from esmstereo_tpu_torch.ops.kernels.fused_hourglass import conv3d_bn_gelu
+from esmstereo_tpu_torch.ops.kernels.fused_hourglass import (
+    conv3d_bn_gelu, conv3d_bn_gelu_bf16)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-def prepare_consts(stem_block, agg_block) -> dict:
-    """Folded weights of two ``ConvBlock(dims=3)`` modules (conv + bn)."""
-    w1, t1 = fold_bn(stem_block.conv.weight, stem_block.bn)
-    w2, t2 = fold_bn(agg_block.conv.weight, agg_block.bn)
-    return {"w1": w1, "t1": t1, "w2": w2, "t2": t2}
+def bn_scale_shift(bn) -> tuple[torch.Tensor, torch.Tensor]:
+    """An eval BatchNorm as ``y = x * scale + shift``, in JAX's order
+    (``esmstereo_tpu/ops/pallas/fused_agg_stem.py:42-48``)."""
+    inv = bn.weight * torch.rsqrt(bn.running_var + bn.eps)
+    return inv, bn.bias - bn.running_mean * inv
 
 
-def stem_agg_plain(vol: torch.Tensor, consts: dict,
-                   approximate: bool) -> torch.Tensor:
-    """Plain PyTorch version: conv3d (BN folded) + GELU, twice."""
-    y = gelu(F.conv3d(vol, consts["w1"], consts["t1"], padding=1), approximate)
-    return gelu(F.conv3d(y, consts["w2"], consts["t2"], padding=1), approximate)
+def prepare_consts(stem_block, agg_block, low_precision: bool = False
+                   ) -> dict:
+    """Weights of two ``ConvBlock(dims=3)`` modules (conv + bn): fp32 with
+    the BN scale folded in and the shift (``w1, t1, w2, t2``); or, for the
+    deploy forms, the raw weights in bf16 and each BN's fp32 scale and
+    shift (``w1, s1, t1, w2, s2, t2``)."""
+    if not low_precision:
+        w1, t1 = fold_bn(stem_block.conv.weight, stem_block.bn)
+        w2, t2 = fold_bn(agg_block.conv.weight, agg_block.bn)
+        return {"w1": w1, "t1": t1, "w2": w2, "t2": t2}
+    s1, t1 = bn_scale_shift(stem_block.bn)
+    s2, t2 = bn_scale_shift(agg_block.bn)
+    return {"w1": stem_block.conv.weight.to(torch.bfloat16), "s1": s1,
+            "t1": t1, "w2": agg_block.conv.weight.to(torch.bfloat16),
+            "s2": s2, "t2": t2}
 
 
-def stem_agg(vol: torch.Tensor, consts: dict,
-             approximate: bool) -> torch.Tensor:
+def with_input_scale(consts: dict, w1: torch.Tensor,
+                     scale: torch.Tensor) -> dict:
+    """Deploy-form ``consts`` for an int8 volume of dequantisation
+    ``scale`` (a 0-d fp32 tensor): conv1's raw fp32 weight ``w1`` times the
+    scale, then rounded to bf16, as ``prepare_consts(input_scale=...)`` and
+    the TPU kernel's operand cast do in JAX."""
+    return dict(consts, w1=(w1.float() * scale).to(torch.bfloat16))
+
+
+def quantize_volume(vol: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-batch int8 quantisation (``esmstereo_tpu/models/
+    esmstereo.py:691-705``): ``vmax = max(max|v|, 1e-12)``, ``q =
+    clip(round(v * 127 / vmax), -127, 127)`` (round half to even, as jnp
+    rounds); returns ``(q, vmax / 127)``. Plain torch ops, as in JAX."""
+    vf = vol.float()
+    vmax = torch.clamp(vf.abs().max(), min=1e-12)
+    q = torch.clamp(torch.round(vf * (127.0 / vmax)), -127.0, 127.0)
+    return q.to(torch.int8), vmax / 127.0
+
+
+def _low_precision(consts: dict) -> bool:
+    return consts["w1"].dtype == torch.bfloat16
+
+
+def stem_agg_plain(vol: torch.Tensor, consts: dict, approximate: bool,
+                   out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Plain PyTorch version: conv3d (BN folded) + GELU, twice; in the
+    deploy forms the same with the operands rounded to bf16 and BN applied
+    after each fp32 sum."""
+    if not _low_precision(consts):
+        y = gelu(F.conv3d(vol, consts["w1"], consts["t1"], padding=1),
+                 approximate)
+        return gelu(F.conv3d(y, consts["w2"], consts["t2"], padding=1),
+                    approximate)
+
+    def layer(x, i):
+        y = F.conv3d(x, consts[f"w{i}"].float(), padding=1)
+        view = (1, -1, 1, 1, 1)
+        y = y * consts[f"s{i}"].view(view) + consts[f"t{i}"].view(view)
+        return gelu(y, approximate)
+
+    y = layer(vol.float(), 1).to(torch.bfloat16).float()
+    return layer(y, 2).to(_out_dtype(vol, out_dtype))
+
+
+# the deploy forms, by the volume's dtype (any other is the fp32 form's)
+_DEPLOY_FORMS = {torch.bfloat16: "bf16", torch.int8: "int8"}
+
+
+def _out_dtype(vol: torch.Tensor, out_dtype) -> torch.dtype:
+    """The output dtype of C on ``vol``: the volume's, and for an int8
+    volume ``out_dtype`` (bf16 or fp32), which must then be given (as in
+    JAX)."""
+    if _DEPLOY_FORMS.get(vol.dtype) == "int8":
+        if out_dtype not in (torch.bfloat16, torch.float32):
+            raise TypeError(f"stem_agg: the int8 form writes bf16 or fp32, "
+                            f"not {out_dtype}")
+        return out_dtype
+    if out_dtype not in (None, vol.dtype):
+        raise TypeError(f"stem_agg: a {vol.dtype} volume gives "
+                        f"{vol.dtype}, not {out_dtype}")
+    return vol.dtype
+
+
+def stem_agg(vol: torch.Tensor, consts: dict, approximate: bool,
+             out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """(B, G, D, H, W) -> (B, 8, D, H, W), G = 32 (group_stem) or 1
     (corr_stem): the kernel on CUDA tensors, the plain version on CPU
-    tensors."""
+    tensors. An fp32 volume takes fp32 ``consts``; a bf16 or an int8 one
+    (the deploy forms) takes ``prepare_consts(..., low_precision=True)``,
+    through ``with_input_scale`` for int8, and writes bf16 or, from int8,
+    ``out_dtype``."""
     if vol.ndim != 5:
         raise ValueError(f"stem_agg: volume {tuple(vol.shape)}")
-    if not on_cuda("stem_agg", vol, *consts.values()):
-        return stem_agg_plain(vol, consts, approximate)
-    y = conv3d_bn_gelu(vol, consts["w1"], consts["t1"], 1, approximate)
-    y = conv3d_bn_gelu(y, consts["w2"], consts["t2"], 1, approximate)
-    stem_agg.launches += 1
+    form = _DEPLOY_FORMS.get(vol.dtype, "fp32")
+    if _low_precision(consts) != (form != "fp32"):
+        raise TypeError(f"stem_agg: a {vol.dtype} volume with "
+                        f"{consts['w1'].dtype} weights")
+    out = _out_dtype(vol, out_dtype)
+    if not on_cuda("stem_agg", vol, *consts.values(),
+                   dtypes=(torch.float32, torch.bfloat16, torch.int8)):
+        return stem_agg_plain(vol, consts, approximate, out_dtype)
+    if form == "fp32":
+        y = conv3d_bn_gelu(vol, consts["w1"], consts["t1"], 1, approximate)
+        y = conv3d_bn_gelu(y, consts["w2"], consts["t2"], 1, approximate)
+    else:
+        y = conv3d_bn_gelu_bf16(vol, consts["w1"], consts["s1"],
+                                consts["t1"], torch.bfloat16, approximate)
+        y = conv3d_bn_gelu_bf16(y, consts["w2"], consts["s2"], consts["t2"],
+                                out, approximate)
+    count_launch(stem_agg, form)
     return y
 
 
 stem_agg.launches = 0
+stem_agg.form_launches = {}
 
 
 # --- kernel E: the volume built inside group_stem ----------------------------

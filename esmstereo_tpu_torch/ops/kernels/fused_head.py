@@ -17,7 +17,10 @@ takes from a ``FeaturePyramid``:
 The kernel takes two forms (``FORMS``): efficientnet_b2's (32 -> 16 -> 16,
 two blocks with SE, SiLU; five launches: three passes and two SE gates)
 and mobilenetv2_100's (32 -> 16, one block without SE or residual, ReLU6;
-one launch). Anything else raises.
+one launch). Anything else raises. Either writes fp32 or bf16
+(``out_dtype``): inside it is fp32, and the bf16 form rounds the output as
+the last pass stores it, as the JAX model casts the kernel's output to its
+compute dtype (``esmstereo_tpu/backbones/fused.py:174-175``).
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from esmstereo_tpu_torch.ops.kernels import _build, on_cuda, stream_handle
+from esmstereo_tpu_torch.ops.kernels import (_build, count_launch, on_cuda,
+                                             stream_handle)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -96,7 +100,7 @@ def pack_params(consts: dict) -> torch.Tensor:
 @functools.cache
 def _lib():
     lib = _build.load("fused_head")
-    lib.fused_stage0.argtypes = [_I, _P, _P, _P, _P, _I, _I, _I, _P]
+    lib.fused_stage0.argtypes = [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P]
     lib.fused_stage0.restype = _I
     lib.stage0_params_size.argtypes = [_I]
     lib.stage0_params_size.restype = _I
@@ -105,16 +109,26 @@ def _lib():
     return lib
 
 
-def fused_stage0(img: torch.Tensor, consts: dict) -> torch.Tensor:
-    """(B, 3, H, W) -> (B, 16, H/2, W/2): the kernel on CUDA tensors, the
-    plain version on CPU tensors. H and W must be even."""
+_OUT_DTYPES = {torch.float32: "fp32", torch.bfloat16: "bf16"}
+
+
+def fused_stage0(img: torch.Tensor, consts: dict,
+                 out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """(B, 3, H, W) -> (B, 16, H/2, W/2) in ``out_dtype`` (the image's
+    dtype by default; bf16 for the deploy form): the kernel on CUDA
+    tensors (an fp32 image, fp32 or bf16 out), the plain version (then
+    cast) on CPU tensors. H and W must be even."""
     if img.ndim != 4 or img.shape[1] != 3 or img.shape[2] % 2 or \
             img.shape[3] % 2:
         raise ValueError(f"fused_stage0: image {tuple(img.shape)}")
+    out_dtype = out_dtype or img.dtype
+    if out_dtype not in (img.dtype, torch.bfloat16):
+        raise TypeError(f"fused_stage0: writes the image's dtype or bf16, "
+                        f"not {out_dtype}")
     tensors = [consts["stem_w"], consts["stem_b"], consts["packed"]] + [
         b[k] for b in consts["blocks"] for k in _block_keys(b)]
     if not on_cuda("fused_stage0", img, *tensors):
-        return stage0_plain(img, consts)
+        return stage0_plain(img, consts).to(out_dtype)
     form = FORMS[kernel_form(consts)][0]
     lib = _lib()
     params = consts["packed"]
@@ -126,13 +140,15 @@ def fused_stage0(img: torch.Tensor, consts: dict) -> torch.Tensor:
     ws = torch.empty(lib.stage0_workspace_floats(form, b, h, w),
                      device=img.device, dtype=torch.float32)
     out = torch.empty((b, 16, h // 2, w // 2), device=img.device,
-                      dtype=torch.float32)
+                      dtype=out_dtype)
+    bf16 = out_dtype == torch.bfloat16
     err = lib.fused_stage0(form, img.data_ptr(), params.data_ptr(),
-                           out.data_ptr(), ws.data_ptr(), b, h, w,
+                           out.data_ptr(), ws.data_ptr(), b, h, w, int(bf16),
                            stream_handle(img))
     _build.check(err, "fused_stage0")
-    fused_stage0.launches += 1
+    count_launch(fused_stage0, _OUT_DTYPES[out_dtype])
     return out
 
 
 fused_stage0.launches = 0
+fused_stage0.form_launches = {}

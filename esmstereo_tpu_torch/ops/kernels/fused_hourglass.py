@@ -90,9 +90,11 @@ def _fns():
     deconv.argtypes = [_P, _P, _P, _P] + [_I] * 10 + [_P]
     cat = lib.hourglass_conv1x1_cat
     cat.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
-    for fn in (conv, deconv, cat):
+    lowp = lib.conv3d_k3_bn_gelu_bf16
+    lowp.argtypes = [_P, _P, _P, _P, _P] + [_I] * 9 + [_P]
+    for fn in (conv, deconv, cat, lowp):
         fn.restype = _I
-    return conv, deconv, cat
+    return conv, deconv, cat, lowp
 
 
 def conv3d_bn_gelu(x: torch.Tensor, w: torch.Tensor, t: torch.Tensor,
@@ -110,6 +112,38 @@ def conv3d_bn_gelu(x: torch.Tensor, w: torch.Tensor, t: torch.Tensor,
                     b, ci, co, d, h, wd, stride, int(approximate),
                     stream_handle(x))
     _build.check(err, "conv3d")
+    return y
+
+
+# the dtype codes of conv3d_k3_bn_gelu_bf16's input and output
+_IN_CODES = {torch.bfloat16: 0, torch.int8: 1}
+_OUT_CODES = {torch.bfloat16: 0, torch.float32: 1}
+
+
+def conv3d_bn_gelu_bf16(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                        shift: torch.Tensor, out_dtype: torch.dtype,
+                        approximate: bool) -> torch.Tensor:
+    """One launch of the direct conv3d k3 s1 p1 in its deploy form on CUDA
+    tensors (kernel C's bf16 and int8 forms): ``x`` bf16 or int8, ``w``
+    ``(CO, CI, 3, 3, 3)`` bf16 (raw, BN not folded), fp32 sums, then
+    ``GELU(sum * scale + shift)`` in fp32, written in ``out_dtype`` (bf16
+    or fp32). CO must be a multiple of 8."""
+    b, ci, d, h, wd = x.shape
+    co = w.shape[0]
+    if (tuple(w.shape) != (co, ci, 3, 3, 3) or co % 8
+            or tuple(scale.shape) != (co,) or tuple(shift.shape) != (co,)):
+        raise ValueError(f"conv3d bf16: weight {tuple(w.shape)} for {ci} "
+                         f"inputs")
+    if w.dtype != torch.bfloat16 or x.dtype not in _IN_CODES \
+            or out_dtype not in _OUT_CODES:
+        raise TypeError(f"conv3d bf16: {x.dtype} in, {w.dtype} weights, "
+                        f"{out_dtype} out")
+    y = torch.empty((b, co, d, h, wd), device=x.device, dtype=out_dtype)
+    err = _fns()[3](x.data_ptr(), w.data_ptr(), scale.data_ptr(),
+                    shift.data_ptr(), y.data_ptr(), b, ci, co, d, h, wd,
+                    _IN_CODES[x.dtype], _OUT_CODES[out_dtype],
+                    int(approximate), stream_handle(x))
+    _build.check(err, "conv3d bf16")
     return y
 
 
@@ -152,7 +186,7 @@ def up_pair(src: torch.Tensor, skip: torch.Tensor, consts: dict,
     if co > _MAX_CAT_CO:
         raise NotImplementedError(f"up_pair kernel takes at most "
                                   f"{_MAX_CAT_CO} channels; got {co}")
-    _, deconv, cat = _fns()
+    _, deconv, cat, _ = _fns()
     approx = int(approximate)
     stream = stream_handle(src)
     up = torch.empty_like(skip)

@@ -23,8 +23,11 @@ def regression_topk(cost: torch.Tensor, k: int) -> torch.Tensor:
     bins per pixel, softmax their costs, return the expected index.
 
     The reference's only use takes the bin index itself as the disparity
-    sample (``ESMStereo.py:719-721``), so no sample volume is taken.
+    sample (``ESMStereo.py:719-721``), so no sample volume is taken. Equal
+    costs rank the lower bin first, as ``jax.lax.top_k`` ranks them
+    (``torch.topk`` promises no order): a bf16 cost holds many exact ties.
     """
-    topv, topi = torch.topk(cost, k, dim=1)
+    topv, topi = torch.sort(cost, dim=1, descending=True, stable=True)
+    topv, topi = topv[:, :k], topi[:, :k]
     prob = torch.softmax(topv, dim=1)
     return torch.sum(topi.to(cost.dtype) * prob, dim=1, keepdim=True)

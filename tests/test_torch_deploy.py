@@ -1,0 +1,381 @@
+"""PyTorch port: ESMStereo-L at the deploy numerics that ``bench.py``
+measures (bf16 compute, tanh GELU, optional int8 volume) against the JAX
+package.
+
+Kernel B's bf16 form against ``correlation_volume_folded`` in interpret
+mode, bit for bit; kernel C's bf16 and int8 forms against
+``folded_stem_agg_apply`` in interpret mode, which runs fp32 operands where
+the TPU rounds them to bf16, so at a stated number of bf16 ulps; kernel A's
+bf16 output against ``FusedHeadPyramid(dtype=bfloat16)``. Then the L-deploy
+model (``ESMStereoConfig(dtype="bfloat16")`` under tanh GELU) against the
+JAX deploy model, its int8-volume form against itself, and the guards of
+the bf16 configuration.
+
+The CUDA kernels run only on the card (``chip_smoke.py`` holds each form
+against its plain version there); on CPU tensors the wrappers run their
+plain versions, which is what these tests reach. Inputs come from
+``np.random.default_rng``; each comparison states its tolerance.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from esmstereo_tpu.backbones.fused import FusedHeadPyramid  # noqa: E402
+from esmstereo_tpu.models import ESMStereo as JaxESMStereo  # noqa: E402
+from esmstereo_tpu.models import ESMStereoConfig as JaxConfig  # noqa: E402
+from esmstereo_tpu.nn import blocks as jblocks  # noqa: E402
+from esmstereo_tpu.ops.pallas import correlation as jcorr  # noqa: E402
+from esmstereo_tpu.ops.pallas import fused_agg_stem as jfas  # noqa: E402
+from esmstereo_tpu_torch.backbones.efficientnet import FeaturePyramid  # noqa: E402
+from esmstereo_tpu_torch.models.convert_jax import (  # noqa: E402
+    convert_tree, state_dict_from_jax)
+from esmstereo_tpu_torch.models.esmstereo import (ESMStereo,  # noqa: E402
+                                                  ESMStereoConfig)
+from esmstereo_tpu_torch.nn import blocks  # noqa: E402
+from esmstereo_tpu_torch.ops.kernels import correlation  # noqa: E402
+from esmstereo_tpu_torch.ops.kernels import fused_agg_stem  # noqa: E402
+from test_torch_fused_aggregation import (_block_tree, _fold,  # noqa: E402
+                                          _jax_args, _port_block, _unfold)
+from test_torch_kernels import random_variables  # noqa: E402
+
+torch.set_num_threads(2)
+
+H, W = 64, 128
+L_PARAMS = 6_796_056          # ACCURACY.json, the L row
+DEPLOY = ESMStereoConfig(dtype="bfloat16")
+FAST_COMPILE = {"xla_llvm_disable_expensive_passes": True}
+# The JAX bf16 reference rounds where its program says (each op's bf16
+# output), as flax's dtype semantics and the port do; XLA's CPU default
+# keeps fp32 inside its fusions instead, wherever it happens to fuse.
+LITERAL_BF16 = dict(FAST_COMPILE, xla_allow_excess_precision=False)
+# kernel C's deploy forms against interpret mode, in bf16 ulps of max|JAX|:
+# measured 1.0 (bf16) and 0.93 (int8) at most over the cases below
+C_ULPS = 2.0
+
+
+def _ulp(peak: float) -> float:
+    """One bf16 ulp at ``peak`` (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(peak)) - 7)
+
+
+def _nchw_bf16(a) -> torch.Tensor:
+    """A JAX NHWC bf16 array as an NCHW torch bf16 tensor."""
+    x = np.asarray(jnp.asarray(a).astype(jnp.float32)).transpose(0, 3, 1, 2)
+    return torch.from_numpy(np.ascontiguousarray(x)).to(torch.bfloat16)
+
+
+# --- kernel B's bf16 form ---------------------------------------------------
+
+@pytest.mark.parametrize("h,w,d", [(4, 40, 48), (5, 13, 12)])
+def test_correlation_bf16_plain_bit_exact(rng, h, w, d):
+    """64-channel bf16 descriptors, 32 groups, L's 48 bins and an unaligned
+    width with 12: the plain bf16 form equals
+    ``correlation_volume_folded(..., interpret=True)`` on every entry, and
+    the same volume without the products' rounding differs (the
+    comparison sees the rounding)."""
+    ref = jnp.asarray(rng.standard_normal((1, h, w, 64)), jnp.bfloat16)
+    tgt = jnp.asarray(rng.standard_normal((1, h, w, 64)), jnp.bfloat16)
+    want = jcorr.correlation_volume_folded(ref, tgt, d, 32, interpret=True)
+    assert want.dtype == jnp.bfloat16
+    want = _unfold(np.asarray(want.astype(jnp.float32)), 32)
+    tr, tt = _nchw_bf16(ref), _nchw_bf16(tgt)
+    got = correlation.correlation_volume(tr, tt, d, 32)
+    assert got.dtype == torch.bfloat16 and got.shape == (1, 32, d, h, w)
+    np.testing.assert_array_equal(got.float().numpy(), want)
+    blind = correlation.correlation_volume(tr.float(), tt.float(), d, 32)
+    assert (blind.to(torch.bfloat16).float().numpy() != want).mean() > 0.05
+
+
+def test_correlation_bf16_guards():
+    x = torch.zeros((1, 64, 2, 8), dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError):
+        correlation.correlation_volume(x, x, 4, 1, normalize=True)
+    with pytest.raises(TypeError):
+        correlation.correlation_volume(x, x.float(), 4, 32)
+
+
+# --- kernel C's bf16 and int8 forms -----------------------------------------
+
+@functools.cache
+def _stem_agg_case():
+    """32 -> 8 -> 8 at 12 bins on 8 x 16, seeded weights, and a unit-normal
+    volume: (trees, port blocks, volume (B, C, D, H, W) fp32)."""
+    rng = np.random.default_rng(5)
+    trees = [_block_tree(rng, 3, 32, 8), _block_tree(rng, 3, 8, 8)]
+    blocks_ = (_port_block(trees[0], 32, 8, 3, 1, 1),
+               _port_block(trees[1], 8, 8, 3, 1, 1))
+    vol = rng.standard_normal((1, 32, 12, 8, 16)).astype(np.float32)
+    return trees, blocks_, vol
+
+
+def _jax_consts(trees, approx: bool, input_scale=None) -> dict:
+    return jfas.prepare_consts(*_jax_args(trees[0]), *_jax_args(trees[1]),
+                               depth=12, gelu_approximate=approx,
+                               input_scale=input_scale)
+
+
+def _within_ulps(got: np.ndarray, want: np.ndarray, ulps: float) -> None:
+    err = float(np.abs(got - want).max())
+    assert err <= ulps * _ulp(float(np.abs(want).max())), err
+
+
+@pytest.mark.parametrize("approx", [False, True])
+def test_stem_agg_bf16_plain_matches_pallas(approx):
+    """A bf16 volume through group_stem + agg: the plain bf16 form (operands
+    rounded to bf16 as on the TPU) within ``C_ULPS`` bf16 ulps of max|JAX|
+    of ``folded_stem_agg_apply(..., interpret=True)`` (fp32 operands), in
+    both GELU forms; the output is bf16."""
+    trees, (stem, agg), vol = _stem_agg_case()
+    vb = jnp.asarray(_fold(vol), jnp.bfloat16)
+    want = jfas.folded_stem_agg_apply(vb, _jax_consts(trees, approx),
+                                      interpret=True)
+    assert want.dtype == jnp.bfloat16
+    want = _unfold(np.asarray(want.astype(jnp.float32)), 8)
+    tv = torch.from_numpy(np.ascontiguousarray(
+        _unfold(np.asarray(vb.astype(jnp.float32)), 32))).to(torch.bfloat16)
+    with torch.no_grad():
+        consts = fused_agg_stem.prepare_consts(stem, agg, low_precision=True)
+    got = fused_agg_stem.stem_agg(tv, consts, approx)
+    assert got.dtype == torch.bfloat16
+    _within_ulps(got.float().numpy(), want, C_ULPS)
+
+
+@pytest.mark.parametrize("out", [torch.float32, torch.bfloat16])
+def test_stem_agg_int8_plain_matches_pallas(out):
+    """The int8 volume: ``quantize_volume`` equals the JAX model's
+    quantisation (``esmstereo_tpu/models/esmstereo.py:691-705``) exactly,
+    scale included; the plain int8 form, written in fp32 or bf16, is within
+    ``C_ULPS`` bf16 ulps of max|JAX| of ``folded_stem_agg_apply(q, ...,
+    input_scale=vmax/127, interpret=True)``, and within
+    tests/test_fused_agg_stem.py::test_int8_volume_accuracy's bounds of the
+    unquantised fp32 path."""
+    trees, (stem, agg), vol = _stem_agg_case()
+    vf = jnp.asarray(_fold(vol))
+    vmax = jnp.maximum(jnp.max(jnp.abs(vf)), 1e-12)
+    q = jnp.clip(jnp.round(vf * (127.0 / vmax)), -127.0, 127.0).astype(
+        jnp.int8)
+    want = _unfold(np.asarray(jfas.folded_stem_agg_apply(
+        q, _jax_consts(trees, False, vmax / 127.0), out_dtype=jnp.float32,
+        interpret=True)), 8)
+    exact = _unfold(np.asarray(jfas.folded_stem_agg_apply(
+        vf, _jax_consts(trees, False), interpret=True)), 8)
+
+    tq, scale = fused_agg_stem.quantize_volume(torch.from_numpy(vol))
+    assert tq.dtype == torch.int8
+    np.testing.assert_array_equal(tq.numpy(), _unfold(np.asarray(q), 32))
+    assert float(scale) == float(vmax / 127.0)
+    with torch.no_grad():
+        consts = fused_agg_stem.with_input_scale(
+            fused_agg_stem.prepare_consts(stem, agg, low_precision=True),
+            stem.conv.weight, scale)
+    got = fused_agg_stem.stem_agg(tq, consts, False, out_dtype=out)
+    assert got.dtype == out
+    got = got.float().numpy()
+    _within_ulps(got, want, C_ULPS)
+    err = np.abs(got - exact)
+    scale_ = float(np.abs(exact).mean())
+    assert err.max() < 0.15 * scale_ + 0.05, (err.max(), scale_)
+    assert err.mean() < 0.02 * scale_ + 0.01, (err.mean(), scale_)
+
+
+def test_stem_agg_forms_guards():
+    """A volume and weights of different forms, and an int8 volume without
+    an output dtype, raise."""
+    _, (stem, agg), _ = _stem_agg_case()
+    with torch.no_grad():
+        fp32 = fused_agg_stem.prepare_consts(stem, agg)
+        low = fused_agg_stem.prepare_consts(stem, agg, low_precision=True)
+    v = torch.zeros((1, 32, 4, 2, 8))
+    with pytest.raises(TypeError):
+        fused_agg_stem.stem_agg(v.to(torch.bfloat16), fp32, False)
+    with pytest.raises(TypeError):
+        fused_agg_stem.stem_agg(v, low, False)
+    with pytest.raises(TypeError):
+        fused_agg_stem.stem_agg(v.to(torch.int8), low, False)
+
+
+# --- kernel A's bf16 output --------------------------------------------------
+
+def test_fused_head_bf16_out_matches_jax(rng):
+    """efficientnet_b2's pyramid at 32 x 64, seeded variables, against
+    ``FusedHeadPyramid(dtype=bfloat16)`` (its fp32 head cast to bf16):
+    every level is bf16, and the head's output (kernel A's) is within 1 bf16
+    ulp of max(1, max|JAX|): the fp32 head of each side differs by ~1e-7,
+    which can move a rounding by one ulp."""
+    img = rng.standard_normal((2, 32, 64, 3)).astype(np.float32)
+    jp = FusedHeadPyramid(arch="efficientnet_b2", dtype=jnp.bfloat16)
+    v = random_variables(jax.eval_shape(
+        lambda x: jp.init(jax.random.key(0), x, train=False), img), rng)
+    want = jax.jit(lambda v, x: jp.apply(v, x, train=False),
+                   compiler_options=FAST_COMPILE)(v, jnp.asarray(img))
+    pyr = FeaturePyramid("efficientnet_b2", device="cpu").eval()
+    pyr.load_state_dict(convert_tree(v))
+    blocks.set_compute_dtype(pyr, torch.bfloat16)
+    x = torch.from_numpy(np.ascontiguousarray(img.transpose(0, 3, 1, 2)))
+    with torch.no_grad():
+        feats = pyr(x)
+    assert len(feats) == len(want) == 5
+    for g, w in zip(feats, want):
+        assert g.dtype == torch.bfloat16 and w.dtype == jnp.bfloat16
+        assert g.shape == np.asarray(w).transpose(0, 3, 1, 2).shape
+    w0 = np.asarray(want[0].astype(jnp.float32)).transpose(0, 3, 1, 2)
+    err = float(np.abs(feats[0].float().numpy() - w0).max())
+    assert err <= _ulp(max(1.0, float(np.abs(w0).max()))), err
+
+
+# --- the L-deploy model ----------------------------------------------------
+
+def jax_variables_from_port(model: torch.nn.Module, shapes) -> dict:
+    """The JAX variables of ``shapes`` holding ``model``'s weights: the
+    bridge run backwards. Each JAX leaf element carries its own index
+    through ``state_dict_from_jax`` (exact in fp32 below 2**24), which
+    says where each of the port's values goes."""
+    leaves, treedef = jax.tree_util.tree_flatten(shapes)
+    sizes = [int(np.prod(leaf.shape)) for leaf in leaves]
+    offs = np.cumsum([0] + sizes)
+    assert offs[-1] < 2 ** 24
+    ids = treedef.unflatten([np.arange(o, o + n, dtype=np.float32).reshape(
+        leaf.shape) for o, n, leaf in zip(offs, sizes, leaves)])
+    flat = np.full(offs[-1], np.nan, np.float32)
+    sd = model.state_dict()
+    for key, where in state_dict_from_jax(ids).items():
+        flat[where.numpy().astype(np.int64).ravel()] = \
+            sd[key].float().numpy().ravel()
+    assert not np.isnan(flat).any()
+    return treedef.unflatten([flat[o:o + n].reshape(leaf.shape)
+                              for o, n, leaf in zip(offs, sizes, leaves)])
+
+
+@pytest.fixture(scope="module")
+def deploy():
+    """One 64x128 pair through: the JAX L in fp32 with exact GELU (the
+    reference numerics) and the JAX L-deploy (bf16, tanh GELU), in one JAX
+    program; the port's L-deploy and L-deploy-int8. The weights follow the
+    reference's init rules (those of tests/test_bf16.py's deploy test),
+    drawn by the port from seed 0 and carried to JAX by the bridge run
+    backwards. Returns ``{name: {"cost", "disparity"}}`` as numpy fp32."""
+    rng = np.random.default_rng(0)
+    left = rng.standard_normal((1, H, W, 3)).astype(np.float32)
+    right = rng.standard_normal((1, H, W, 3)).astype(np.float32)
+    port = ESMStereo(device="cpu", seed=0)
+    j32, j16 = JaxESMStereo(JaxConfig()), JaxESMStereo(
+        JaxConfig(dtype=jnp.bfloat16))
+    variables = jax_variables_from_port(port, jax.eval_shape(
+        j32.init, jax.random.key(0), left, right))
+
+    def run(v, l, r):
+        exact = j32.apply(v, l, r, capture_internals=True)
+        jblocks.set_gelu_approximate(True)
+        try:
+            return exact, j16.apply(v, l, r, capture_internals=True)
+        finally:
+            jblocks.set_gelu_approximate(False)
+
+    runs = jax.jit(run, compiler_options=LITERAL_BF16)(variables, left, right)
+    out = {name: {"cost": np.asarray(aux["cost"], np.float32),
+                  "disparity": np.asarray(disp[0], np.float32)}
+           for name, (disp, aux) in zip(("jax_fp32", "jax_bf16"), runs)}
+    sd = state_dict_from_jax(jax.tree.map(np.asarray, variables), DEPLOY)
+    blocks.set_gelu_approximate(True)
+    try:
+        for name, cfg in (("bf16", DEPLOY),
+                          ("int8", ESMStereoConfig(dtype="bfloat16",
+                                                   volume_int8=True))):
+            model = ESMStereo(cfg, device="cpu")
+            model.load_state_dict(sd)
+            with torch.inference_mode():
+                disp, aux = model(torch.from_numpy(left),
+                                  torch.from_numpy(right),
+                                  capture_internals=True)
+            assert disp[0].dtype == aux["cost"].dtype == torch.float32
+            out[name] = {"cost": aux["cost"].numpy(),
+                         "disparity": disp[0].numpy()}
+    finally:
+        blocks.set_gelu_approximate(False)
+    return out
+
+
+def _flips(a: np.ndarray, b: np.ndarray) -> tuple[float, float]:
+    """tests/test_bf16.py:116-119's measures: the share of pixels off by
+    more than 1 px, and the mean difference over the others."""
+    diff = np.abs(a - b)
+    flips = diff > 1.0
+    return float(flips.mean()), float(diff[~flips].mean())
+
+
+def test_l_deploy_cost_matches_jax_bf16(deploy):
+    """The cost (continuous, before regression): the port's L-deploy is no
+    further from the JAX L-deploy, in max and in mean, than the JAX
+    L-deploy is from the JAX fp32 model (the deploy numerics' own error)."""
+    port, j16, j32 = (deploy[k]["cost"] for k in ("bf16", "jax_bf16",
+                                                   "jax_fp32"))
+    assert port.shape == j16.shape == (1, 48, H // 4, W // 4)
+    assert np.isfinite(port).all()
+    ours, own = np.abs(port - j16), np.abs(j16 - j32)
+    assert ours.max() <= own.max(), (ours.max(), own.max())
+    assert ours.mean() <= own.mean(), (ours.mean(), own.mean())
+
+
+def test_l_deploy_disparity_matches_jax_bf16(deploy):
+    """The disparity: no further from the JAX L-deploy, in max and in mean,
+    than the JAX L-deploy is from the JAX fp32 model; and within
+    tests/test_bf16.py's bounds (< 5% of pixels off by more than 1 px, a
+    mean under 0.05 px over the others), or, where the JAX L-deploy itself
+    misses a bound against fp32 on this draw (cv4's top-2 regression flips
+    bins on the near-flat cost of init-rule weights), within the JAX
+    L-deploy's own figure."""
+    port, j16, j32 = (deploy[k]["disparity"] for k in ("bf16", "jax_bf16",
+                                                        "jax_fp32"))
+    assert port.shape == (1, H, W) and np.isfinite(port).all()
+    ours, own = np.abs(port - j16), np.abs(j16 - j32)
+    assert ours.max() <= own.max(), (ours.max(), own.max())
+    assert ours.mean() <= own.mean(), (ours.mean(), own.mean())
+    (flips, sub), (own_flips, own_sub) = _flips(port, j16), _flips(j16, j32)
+    assert flips < max(0.05, own_flips), (flips, own_flips)
+    assert sub < max(0.05, own_sub), (sub, own_sub)
+
+
+def test_l_deploy_int8_near_l_deploy(deploy):
+    """L-deploy-int8 against the port's own L-deploy: the 95th percentile
+    of the disparity difference under 1 px (the bound of
+    tests/test_fused_agg_stem.py::test_int8_volume_full_model), or, where
+    the bf16 numerics themselves move it further on this draw (the JAX
+    L-deploy against fp32), under that; and the int8 volume moves the
+    cost."""
+    q, b = deploy["int8"], deploy["bf16"]
+    own = np.quantile(np.abs(deploy["jax_bf16"]["disparity"]
+                             - deploy["jax_fp32"]["disparity"]), 0.95)
+    q95 = np.quantile(np.abs(q["disparity"] - b["disparity"]), 0.95)
+    assert np.isfinite(q["disparity"]).all()
+    assert q95 < max(1.0, own), (q95, own)
+    assert np.abs(q["cost"] - b["cost"]).max() > 0.0
+
+
+def test_deploy_guards():
+    """Parameters and BN statistics stay fp32 (6,796,056 parameters, the
+    bridge maps every key of the bf16 model), and the bf16 combinations
+    that are not ported raise ``NotImplementedError``."""
+    model = ESMStereo(DEPLOY, device="meta")
+    assert sum(p.numel() for p in model.parameters()) == L_PARAMS
+    assert all(t.dtype == torch.float32 for t in model.state_dict().values()
+               if t.is_floating_point())
+    assert ESMStereo(DEPLOY, device="meta").state_dict().keys() == \
+        ESMStereo(device="meta").state_dict().keys()
+    for kw in ({"cv_scale": 8}, {"cost_volume": "norm_correlation"},
+               {"cv_scale": 16, "backbone": "mobilenetv2_100"},
+               {"fuse_volume_agg": True}, {"fuse_hourglass": True},
+               {"fuse_hourglass_up": True}, {"fuse_stems": True},
+               {"fuse_mixer": True}):
+        with pytest.raises(NotImplementedError):
+            ESMStereoConfig(dtype="bfloat16", **kw)
+    with pytest.raises(ValueError):
+        ESMStereoConfig(dtype="float16")

@@ -2,8 +2,10 @@
 
 The JAX model's variables (seeded numpy values on its ``eval_shape`` tree)
 cross to the port through ``models.convert_jax.state_dict_from_jax``; both
-models then run one 64x128 pair in fp32 on the CPU. Also the weight
-bridge's refusals, the inference runner, and the slice's guards.
+models then run one 64x128 pair in fp32 on the CPU, also at a ``max_disp``
+that is not a multiple of ``cv_scale`` (L and M). Also the weight bridge's
+refusals, the inference runner (padding, and the TF32 flags it sets around
+a forward), and the slice's guards.
 """
 
 from __future__ import annotations
@@ -103,6 +105,125 @@ def test_bridge_raises_on_missing_and_extra_keys(jax_l):
         state_dict_from_jax(unmapped)
 
 
+def _rel(got, want) -> np.ndarray:
+    want = np.asarray(want)
+    return (np.abs(np.asarray(got) - want)
+            / max(1.0, float(np.abs(want).max())))
+
+
+def test_max_disp_not_a_multiple_of_cv_scale_matches_jax():
+    """``max_disp=190`` at cv4: both packages floor to 47 bins (the
+    hourglass's transposed convs return 48, as in JAX), and the port
+    matches the JAX model as ``test_slice_matches_jax`` holds it: cost and
+    match_left within 1e-4 relative, the disparity on at least 99% of
+    pixels."""
+    rng = np.random.default_rng(3)
+    left = rng.standard_normal((1, H, W, 3)).astype(np.float32)
+    right = rng.standard_normal((1, H, W, 3)).astype(np.float32)
+    model = JaxESMStereo(JaxConfig(max_disp=190))
+    variables = random_variables(jax.eval_shape(
+        model.init, jax.random.key(0), left, right), rng)
+    variables["params"]["aggregation_out"]["conv1_up"]["conv"]["kernel"] *= 30
+    want, want_aux = jax.jit(lambda v, l, r: model.apply(
+        v, l, r, capture_internals=True), compiler_options={
+            "xla_llvm_disable_expensive_passes": True})(variables, left,
+                                                         right)
+    config = ESMStereoConfig(max_disp=190)
+    port = ESMStereo(config, device="cpu")
+    assert port.num_bins == 47
+    port.load_state_dict(state_dict_from_jax(variables, config))
+    with torch.inference_mode():
+        got, got_aux = port(torch.from_numpy(left), torch.from_numpy(right),
+                            capture_internals=True)
+    assert got_aux["cost"].shape == want_aux["cost"].shape == (1, 48, 16, 32)
+
+    for key in ("match_left", "cost"):
+        assert _rel(got_aux[key], want_aux[key]).max() < 1e-4, key
+    assert (_rel(got[0].numpy(), want[0]) < 1e-4).mean() >= 0.99
+
+
+def test_m_max_disp_not_a_multiple_of_cv_scale():
+    """cv8 floors ``max_disp`` as JAX does. At 196 both packages build 24
+    bins and the port matches the JAX model by test_variant_matches_jax's
+    cv8 rule (cost within 1e-4 relative of max(1, max|JAX|), the disparity
+    on every pixel). At 190 both floor to 23 bins, which the hourglass's
+    transposed convs return as 24, and both refuse the cv8 regression of
+    24 bins against 23: JAX asserts
+    (``esmstereo_tpu/ops/regression.py:33``), the port raises
+    ``ValueError``."""
+    rng = np.random.default_rng(8)
+    left = rng.standard_normal((1, H, W, 3)).astype(np.float32)
+    right = rng.standard_normal((1, H, W, 3)).astype(np.float32)
+    model = JaxESMStereo(JaxConfig(cv_scale=8, max_disp=196))
+    variables = random_variables(jax.eval_shape(
+        model.init, jax.random.key(0), left, right), rng)
+    want, want_aux = jax.jit(lambda v, l, r: model.apply(
+        v, l, r, capture_internals=True), compiler_options={
+            "xla_llvm_disable_expensive_passes": True})(variables, left,
+                                                         right)
+    config = ESMStereoConfig(cv_scale=8, max_disp=196)
+    port = ESMStereo(config, device="cpu")
+    assert port.num_bins == 24
+    port.load_state_dict(state_dict_from_jax(variables, config))
+    with torch.inference_mode():
+        got, got_aux = port(torch.from_numpy(left), torch.from_numpy(right),
+                            capture_internals=True)
+    assert got_aux["cost"].shape == want_aux["cost"].shape == (1, 24, 8, 16)
+    assert _rel(got_aux["cost"], want_aux["cost"]).max() < 1e-4
+    assert _rel(got[0].numpy(), want[0]).max() < 1e-4
+
+    m190 = JaxESMStereo(JaxConfig(cv_scale=8, max_disp=190))
+    with pytest.raises(AssertionError):
+        jax.eval_shape(lambda v: m190.apply(v, left, right), variables)
+    config = ESMStereoConfig(cv_scale=8, max_disp=190)
+    port = ESMStereo(config, device="cpu")
+    assert port.num_bins == 23
+    port.load_state_dict(state_dict_from_jax(variables, config))
+    with torch.inference_mode(), pytest.raises(ValueError):
+        port(torch.from_numpy(left), torch.from_numpy(right))
+
+
+class _FlagProbe(torch.nn.Module):
+    """A stub model that records the TF32 flags its forward sees."""
+
+    def __init__(self):
+        super().__init__()
+        self.w = torch.nn.Parameter(torch.zeros(()))
+        self.seen = []
+
+    def forward(self, left, right):
+        self.seen.append((torch.backends.cudnn.allow_tf32,
+                          torch.backends.cuda.matmul.allow_tf32))
+        return [left[..., 0] + self.w]
+
+
+@pytest.mark.parametrize("flags", [(True, True), (True, False),
+                                   (False, True)])
+def test_runner_runs_with_tf32_off_and_restores(flags):
+    """Inside ``InferenceRunner``'s forward TF32 is off for cuDNN and for
+    matmuls, whatever the caller set; afterwards the caller's flags are
+    back, also when the forward raises."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = cudnn.allow_tf32, matmul.allow_tf32
+    img = np.zeros((30, 40, 3), np.uint8)
+    try:
+        cudnn.allow_tf32, matmul.allow_tf32 = flags
+        probe = _FlagProbe()
+        disp, _ = InferenceRunner(probe)(img, img)
+        assert disp.shape == (30, 40)
+        assert probe.seen == [(False, False)]
+        assert (cudnn.allow_tf32, matmul.allow_tf32) == flags
+
+        def boom(left, right):
+            raise RuntimeError("forward failed")
+        probe.forward = boom
+        with pytest.raises(RuntimeError):
+            InferenceRunner(probe)(img, img)
+        assert (cudnn.allow_tf32, matmul.allow_tf32) == flags
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved
+
+
 def test_runner_pads_and_crops_as_jax():
     rng = np.random.default_rng(1)
     left = rng.integers(0, 256, (60, 100, 3), dtype=np.uint8)
@@ -123,8 +244,9 @@ def test_runner_pads_and_crops_as_jax():
 
 
 def test_slice_guards(monkeypatch):
-    # mobilenetv2 at cv4 and bf16 are not ported
-    for kw in ({"backbone": "mobilenetv2_100"}, {"dtype": "bfloat16"},
+    # mobilenetv2 at cv4 and bf16 outside L are not ported (L in bf16 is:
+    # tests/test_torch_deploy.py)
+    for kw in ({"backbone": "mobilenetv2_100"},
                {"cv_scale": 8, "dtype": "bfloat16"},
                {"cv_scale": 16, "backbone": "mobilenetv2_100",
                 "dtype": "bfloat16"}):
