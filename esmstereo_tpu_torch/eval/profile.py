@@ -20,10 +20,12 @@ without the profiler. TF32 is off, as in ``chip_smoke.py`` and
 ``InferenceRunner``; the script prints the precision it ran at. Needs a
 CUDA device; the kernels build on first use.
 
-The deploy numerics of ``bench.py`` (L only): ``--dtype bfloat16
---fast-gelu`` (bf16 compute, tanh GELU), and ``--volume-int8`` for the
-int8 volume. ``--fast-gelu`` sets the package's GELU switch, a process
-global, for the run.
+The deploy numerics of ``bench.py``: ``--dtype bfloat16 --fast-gelu``
+(bf16 compute, tanh GELU), and ``--volume-int8`` for the int8 volume, at
+every ``--cv-scale`` and ``--cost-volume`` and with ``--confidence``, but
+with no ``--fuse-*`` switch (``ESMStereoConfig`` refuses bf16 with one).
+``--fast-gelu`` sets the package's GELU switch, a process global, for the
+run.
 
 The switches select the configuration's opt-in kernel paths, as
 ``bench.py``'s ``BENCH_FUSE_VOLUME_AGG`` and ``BENCH_FUSE_HOURGLASS`` do for
@@ -96,7 +98,7 @@ def main() -> None:
     ap.add_argument("--dtype", choices=("float32", "bfloat16"),
                     default="float32",
                     help="compute dtype; bfloat16 is the deploy numerics "
-                         "(L with the gwc volume and no --fuse-* switch)")
+                         "(any variant and volume, no --fuse-* switch)")
     ap.add_argument("--fast-gelu", action="store_true",
                     help="tanh GELU (the package's global switch)")
     ap.add_argument("--volume-int8", action="store_true",

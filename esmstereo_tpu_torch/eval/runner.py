@@ -10,7 +10,8 @@ and matmuls (``fp32_precision``), so an fp32 model is the fp32 model the
 tests hold against JAX whatever the process's flags, and a bf16 model's
 fp32 steps (the regression and the disparity stream) are fp32 too. The
 caller's flags are restored after each call. Inputs stay fp32 (each model
-casts them where the JAX model does); the maps come back fp32.
+casts them where the JAX model does); the maps come back fp32 (a bf16
+model's confidence map, bf16 on the device, is widened after its copy).
 """
 
 from __future__ import annotations
@@ -81,7 +82,7 @@ class InferenceRunner:
             rt = torch.from_numpy(right).to(self.device)
             out = self.model(lt, rt)
             # ESMStereo returns [disparity]; the confidence model a pair
-            maps = [m.cpu().numpy() for m in out]
+            maps = [m.cpu().float().numpy() for m in out]
         dt = time.perf_counter() - t0
         hi, wi = left.shape[1:3]
         maps = [m[0, hi - h:, wi - w:] for m in maps]

@@ -18,6 +18,14 @@ Reference quirks kept, as in JAX:
 
 ``PhConfUpsample``, the JAX default, is a phase re-layout of
 ``ConfUpsample``; the port computes ``ConfUpsample``.
+
+At the deploy numerics (a ``dtype="bfloat16"`` config) the head computes in
+bf16 as its ESMStereo-S does (``nn.blocks.set_compute_dtype``), after
+``esmstereo_tpu/models/confidence.py:60-357`` with ``dtype=bfloat16``: the
+cost's top-7 softmax runs on the fp32 cost, the enlarged grid is fp32 (the
+bf16 scale promotes, as in jnp), the grid sample weighs the bf16 features
+in fp32 and rounds to bf16, and the confidence map is the sigmoid of bf16
+logits, bf16.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ from torch import nn
 
 from esmstereo_tpu_torch.device import resolve_device
 from esmstereo_tpu_torch.models.esmstereo import ESMStereo, ESMStereoConfig
+from esmstereo_tpu_torch.nn import blocks
 from esmstereo_tpu_torch.nn.blocks import (ConvBlock, TorchConv,
                                            TorchConvTranspose, batch_norm)
 from esmstereo_tpu_torch.nn.init import init_model_
@@ -38,9 +47,12 @@ from esmstereo_tpu_torch.ops.sampling import (context_upsample,
 def build_enlarged_grid(scale: torch.Tensor) -> torch.Tensor:
     """The 3x enlarged sampling grid of a per-pixel ``scale`` (B, h, w):
     normalised coordinates (B, 3h, 3w, 2), x-offset ``dx * 2/(w-1) *
-    scale`` and y-offset ``dy * scale`` (the reference's asymmetry)."""
+    scale`` and y-offset ``dy * scale`` (the reference's asymmetry); at
+    least fp32, as jnp promotes a bf16 scale against its fp32 grid."""
     b, h, w = scale.shape
-    dev, dt = scale.device, scale.dtype
+    dev = scale.device
+    dt = torch.promote_types(scale.dtype, torch.float32)
+    scale = scale.to(dt)
     base_x = torch.linspace(-1.0, 1.0, w, device=dev, dtype=dt)
     base_y = torch.linspace(-1.0, 1.0, h, device=dev, dtype=dt)
     taps = torch.tensor([-1.0, 0.0, 1.0], device=dev, dtype=dt)
@@ -200,9 +212,10 @@ class ESMStereoConfidence(nn.Module):
 
     ``forward(left, right)`` takes NHWC images ``(B, H, W, 3)`` (H and W
     multiples of 32) and returns ``(disparity (B, H, W), confidence (B, H,
-    W))``. The config must be cv16 with mobilenetv2_100 (either volume; the
-    JAX class default is gwc, the published C row norm-correlation).
-    Weights are drawn from ``seed``; ``models.convert_jax`` loads JAX ones.
+    W))``, the disparity fp32 and the confidence in the compute dtype. The
+    config must be cv16 with mobilenetv2_100 (either volume; the JAX class
+    default is gwc, the published C row norm-correlation). Weights are
+    drawn from ``seed``; ``models.convert_jax`` loads JAX ones.
     """
 
     def __init__(self, config: ESMStereoConfig = CONFIDENCE_CONFIG,
@@ -219,6 +232,7 @@ class ESMStereoConfidence(nn.Module):
         if dev.type != "meta":
             init_model_(self.confidence_net,
                         torch.Generator().manual_seed(seed + 1))
+        blocks.set_compute_dtype(self.confidence_net, config.torch_dtype)
         self.eval()
 
     def forward(self, left: torch.Tensor, right: torch.Tensor,

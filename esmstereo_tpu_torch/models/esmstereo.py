@@ -23,13 +23,17 @@ cv8), the hourglass levels, the stem_2 + stem_4 towers and the cv4
 upsampler's ShuffleMixer section. On CPU tensors their plain PyTorch
 versions run.
 
-The deploy numerics (``dtype="bfloat16"``, L only): the modules compute in
-bf16 with fp32 parameters and BN statistics (``nn.blocks``); kernel A
-writes bf16, B builds the bf16 volume and C runs its bf16 form (or, with
-``volume_int8``, its int8 form on the quantised volume). The cost is cast
-to fp32 before regression, and the disparity stream stays fp32 from
-there (``esmstereo_tpu/models/esmstereo.py:769-774``): the upsampler's
-features are bf16, its 1-channel disparity sums fp32.
+The deploy numerics (``dtype="bfloat16"``, every variant and volume
+without a ``fuse_*`` switch): the modules compute in bf16 with fp32
+parameters and BN statistics (``nn.blocks``); kernel A writes bf16 (in
+either backbone's form), B builds the bf16 volume in its rounding (gwc or
+normalised), the cv16 attention multiply runs in bf16, and C runs its bf16
+form (or, with ``volume_int8``, its int8 form on the quantised volume;
+at cv16 with the norm-correlation volume corr_stem and agg stay plain bf16
+modules). The cost is cast to fp32 before regression, and the disparity
+stream stays fp32 from there
+(``esmstereo_tpu/models/esmstereo.py:769-774``): the upsamplers' features
+are bf16, their 1-channel disparity sums fp32.
 """
 
 from __future__ import annotations
@@ -63,11 +67,11 @@ class ESMStereoConfig:
     ``cost_volume`` ``"gwc"`` or ``"norm_correlation"``. cv8 or cv16 with
     another backbone raises ``ValueError``, as the JAX config does;
     mobilenetv2_100 at cv4 raises ``NotImplementedError``. ``dtype``
-    ``"bfloat16"`` (the deploy numerics of ``bench.py``) is ported for L
-    with the gwc volume and no ``fuse_*`` switch; every other bf16
-    combination raises ``NotImplementedError`` naming its ``ROADMAP.md``
-    item. ``max_disp`` is floored to a multiple of ``cv_scale``
-    (``num_bins = max_disp // cv_scale``), as in JAX.
+    ``"bfloat16"`` (the deploy numerics of ``bench.py``) is ported for L,
+    M and S with either volume and no ``fuse_*`` switch; bf16 with a switch
+    raises ``NotImplementedError`` naming its ``ROADMAP.md`` item.
+    ``max_disp`` is floored to a multiple of ``cv_scale`` (``num_bins =
+    max_disp // cv_scale``), as in JAX.
 
     ``volume_int8`` (``esmstereo_tpu/models/esmstereo.py:143``) stores the
     volume as int8 between kernels B and C, with one symmetric scale per
@@ -134,15 +138,6 @@ class ESMStereoConfig:
             switches = [f.name for f in dataclasses.fields(self)
                         if f.name.startswith("fuse_")
                         and getattr(self, f.name)]
-            if self.cv_scale != 4:
-                raise NotImplementedError(
-                    "bfloat16 is ported for L (cv_scale 4) only; M, S and "
-                    "the confidence model in bf16 are queued in ROADMAP.md "
-                    "§1 item 3")
-            if self.cost_volume != "gwc":
-                raise NotImplementedError(
-                    "bfloat16 takes the gwc volume; the norm-correlation "
-                    "volume in bf16 is queued in ROADMAP.md §1 item 3")
             if switches:
                 raise NotImplementedError(
                     f"bfloat16 with {switches}: the bf16 forms of kernels "
@@ -644,11 +639,13 @@ class ESMStereo(nn.Module):
 
     def _cv16_volume(self, match_l, match_r, f16, approx):
         """cv16's volume through group_stem/corr_stem and agg, with the
-        semantic attention map of the /16 features multiplied in: on the
-        32-group gwc volume before group_stem (kernel B, the multiply, then
-        kernel C), or on corr_stem's 8 channels before agg (kernel B's
-        normalised G = 1 form, then plain ConvBlocks: JAX runs no kernel
-        between them either, esmstereo.py:643,731-739)."""
+        semantic attention map of the /16 features multiplied in (in the
+        compute dtype, as JAX's ``_mul_att_folded``): on the 32-group gwc
+        volume before group_stem (kernel B, the multiply, then kernel C,
+        which quantises the product with ``volume_int8``), or on
+        corr_stem's 8 channels before agg (kernel B's normalised G = 1
+        form, then plain ConvBlocks: JAX runs no kernel between them
+        either, esmstereo.py:643,731-739)."""
         att = self.semantic_1(self.semantic_0(f16))[:, :, None]
         if self.config.cost_volume == "norm_correlation":
             volume = correlation.correlation_volume(

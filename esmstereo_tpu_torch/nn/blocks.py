@@ -17,7 +17,10 @@ BatchNorm follows flax 0.12.3's ``linen/normalization.py::_normalize``:
 the result is cast to the compute dtype. torch's eval BatchNorm on a bf16
 input with fp32 parameters computes the same in fp32 and returns bf16, so
 the module needs no cast of its own. Activations run on the tensor they
-get (torch evaluates them in fp32 and rounds once).
+get (torch evaluates them in fp32 and rounds once, as XLA's fusions may
+with their default excess precision; ``jax.nn``'s formulas compiled
+without it round after each op, which
+tests/test_torch_deploy_variants.py measures against this).
 """
 
 from __future__ import annotations

@@ -8,8 +8,9 @@ its plain PyTorch version, with the forms each wrapper takes:
     SE, ReLU6; one pass); fp32 inside, fp32 or bf16 out
   * ``correlation.correlation_volume``  kernels B and D, the correlation
     volume (gwc, gwc_norm, norm-correlation) from 64-channel descriptors,
-    any number of bins; fp32, and gwc also on bf16 descriptors with the
-    products rounded to bf16 (the deploy form)
+    any number of bins; fp32, and each form on bf16 descriptors in B's
+    rounding (products rounded to bf16, the model's deploy forms) or in
+    D's (one rounding at the store)
   * ``fused_agg_stem.stem_agg``         kernel C, group_stem (corr_stem) + agg
     3-D convs, G = 32 or 1 volume channels, any depth; fp32, and on a bf16
     or int8 volume with bf16 operands (the deploy forms)

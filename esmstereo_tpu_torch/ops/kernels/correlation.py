@@ -9,12 +9,21 @@ moved, B's depth-folded one unfolded. As D, one function gives three forms:
   * ``num_groups=32, normalize=True``:  gwc on L2-normalised groups;
   * ``num_groups=1,  normalize=True``:  norm-correlation.
 
-In fp32 the products and group means are fp32. On bf16 descriptors (the
-gwc deploy form, ``G = 32``) each product is formed exactly in fp32 and
-rounded to bf16, the group's rounded products are summed in fp32 and
-scaled by 1/(C/G), and the volume is written in bf16: the arithmetic of
-B's bf16 branch (``esmstereo_tpu/ops/pallas/correlation.py:114-122``),
-whose bf16 dot against the 1/(C/G) group matrix accumulates in fp32.
+In fp32 the products and group means are fp32. On bf16 descriptors the
+volume is bf16, in the rounding of one of the two Pallas kernels
+(``round_products``). Both upcast the descriptors to fp32 and, in the
+normalised forms, normalise in fp32
+(``esmstereo_tpu/ops/pallas/correlation.py:150-164,262-273``). Then:
+
+  * B (``round_products=True``, the model's; ``:114-122``) rounds each
+    fp32 product to bf16, sums the group's rounded products in fp32 (its
+    bf16 dot against the 1/(C/G) group matrix accumulates in fp32),
+    scales by 1/(C/G) and writes bf16;
+  * D (``round_products=False``; ``:45-65``) sums the unrounded fp32
+    products, as its fp32 HIGHEST dot does, and rounds only at the store.
+
+``volume_form`` names the form of a call; the wrapper counts launches by
+it, and the plain version dispatches by it.
 """
 
 from __future__ import annotations
@@ -26,7 +35,8 @@ import torch
 
 from esmstereo_tpu_torch.ops.cost_volume import (build_gwc_volume,
                                                  build_gwc_volume_norm,
-                                                 build_norm_correlation_volume)
+                                                 build_norm_correlation_volume,
+                                                 l2_normalize_groups)
 from esmstereo_tpu_torch.ops.kernels import (_build, count_launch, on_cuda,
                                              stream_handle)
 
@@ -34,33 +44,61 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # (C, G) instances of the CUDA kernel
 KERNEL_FORMS = ((64, 32), (64, 1))
+# the CUDA entry point's form numbers (csrc/correlation.cu)
+_FORM_CODES = {"fp32": 0, "bf16": 1, "bf16_norm": 2, "bf16_d": 3,
+               "bf16_d_norm": 4}
 
 
-def gwc_volume_bf16_plain(ref: torch.Tensor, tgt: torch.Tensor,
-                          max_disp: int, num_groups: int) -> torch.Tensor:
-    """Plain version of the bf16 form: (B, C, H, W) bf16 x 2 -> (B, G, D,
-    H, W) bf16, each product rounded to bf16 before the group mean."""
+def volume_form(dtype: torch.dtype, normalize: bool,
+                round_products: bool = True) -> str:
+    """The form of a volume on ``dtype`` descriptors: ``"fp32"``; or in
+    bf16 ``"bf16"`` / ``"bf16_norm"`` (B's rounding, gwc or normalised)
+    and ``"bf16_d"`` / ``"bf16_d_norm"`` (D's). ``round_products`` picks
+    B's (True) or D's (False) rounding and says nothing in fp32."""
+    if dtype == torch.float32:
+        return "fp32"
+    if dtype != torch.bfloat16:
+        raise TypeError(f"correlation_volume: takes fp32 or bf16, got {dtype}")
+    return ("bf16" if round_products else "bf16_d") + (
+        "_norm" if normalize else "")
+
+
+def bf16_volume_plain(ref: torch.Tensor, tgt: torch.Tensor, max_disp: int,
+                      num_groups: int, normalize: bool,
+                      round_products: bool) -> torch.Tensor:
+    """Plain version of the bf16 forms: (B, C, H, W) bf16 x 2 -> (B, G, D,
+    H, W) bf16. The descriptors in fp32 (normalised there), the fp32
+    products rounded to bf16 first with ``round_products`` (B) or not (D),
+    the group's sum in fp32 times 1/(C/G), one rounding to bf16."""
     b, c, h, w = ref.shape
     cpg = c // num_groups
-    r = ref.float()
-    padded = torch.nn.functional.pad(tgt.float(), (max_disp - 1, 0))
+    r, t = ref.float(), tgt.float()
+    if normalize:
+        r, t = (l2_normalize_groups(r, num_groups),
+                l2_normalize_groups(t, num_groups))
+    padded = torch.nn.functional.pad(t, (max_disp - 1, 0))
     off = max_disp - 1
     planes = []
     for d in range(max_disp):
-        prod = (r * padded[..., off - d:off - d + w]).to(torch.bfloat16)
-        s = prod.float().view(b, num_groups, cpg, h, w).sum(dim=2)
+        prod = r * padded[..., off - d:off - d + w]
+        if round_products:
+            prod = prod.to(torch.bfloat16).float()
+        s = prod.view(b, num_groups, cpg, h, w).sum(dim=2)
         planes.append((s * (1.0 / cpg)).to(torch.bfloat16))
     return torch.stack(planes, dim=2)
 
 
 def correlation_volume_plain(ref: torch.Tensor, tgt: torch.Tensor,
                              max_disp: int, num_groups: int,
-                             normalize: bool = False) -> torch.Tensor:
-    """Plain PyTorch version: the ``ops.cost_volume`` builder of the form,
-    or ``gwc_volume_bf16_plain`` on bf16 descriptors."""
+                             normalize: bool = False,
+                             round_products: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of each form (``volume_form``): on bf16
+    descriptors ``bf16_volume_plain`` in B's or D's rounding, normalised or
+    not; otherwise the ``ops.cost_volume`` builder of the form, in the
+    descriptors' dtype."""
     if ref.dtype == torch.bfloat16:
-        check_bf16_form("correlation_volume", num_groups, normalize)
-        return gwc_volume_bf16_plain(ref, tgt, max_disp, num_groups)
+        return bf16_volume_plain(ref, tgt, max_disp, num_groups, normalize,
+                                 round_products)
     if not normalize:
         return build_gwc_volume(ref, tgt, max_disp, num_groups)
     if num_groups == 1:
@@ -74,19 +112,10 @@ def _fns():
     vol = lib.correlation_volume
     vol.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
     norm = lib.l2_normalize_groups
-    norm.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+    norm.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
     for fn in (vol, norm):
         fn.restype = _I
     return vol, norm
-
-
-def check_bf16_form(what: str, num_groups: int, normalize: bool) -> None:
-    """The bf16 form is the gwc volume (32 groups, not normalised); the
-    normalised bf16 forms are not ported (``ROADMAP.md``)."""
-    if normalize or num_groups != 32:
-        raise NotImplementedError(
-            f"{what}: bf16 takes the gwc volume (32 groups); got "
-            f"{num_groups} groups, normalize={normalize}")
 
 
 def check_kernel_form(what: str, c: int, num_groups: int) -> None:
@@ -98,25 +127,29 @@ def check_kernel_form(what: str, c: int, num_groups: int) -> None:
 
 def l2_normalize_pair(ref: torch.Tensor, tgt: torch.Tensor, num_groups: int
                       ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Both CUDA maps scaled to ``x / (||x_g|| + 1e-5)`` per pixel and
-    group, into new tensors, in one launch of ``l2_normalize_groups``: the
-    first step of kernels B, D and E on their normalised forms."""
+    """Both CUDA maps (fp32 or bf16) scaled to ``x / (||x_g|| + 1e-5)`` per
+    pixel and group, in fp32, into new tensors, in one launch of
+    ``l2_normalize_groups``: the first step of kernels B, D and E on their
+    normalised forms. The bf16 forms keep the normalised maps in fp32, as
+    the Pallas kernels do."""
     b, c, h, w = ref.shape
-    out_r, out_t = torch.empty_like(ref), torch.empty_like(tgt)
+    out_r = torch.empty(ref.shape, device=ref.device, dtype=torch.float32)
+    out_t = torch.empty_like(out_r)
     err = _fns()[1](ref.data_ptr(), tgt.data_ptr(), out_r.data_ptr(),
                     out_t.data_ptr(), b, c, num_groups, h, w,
-                    stream_handle(ref))
+                    int(ref.dtype == torch.bfloat16), stream_handle(ref))
     _build.check(err, "l2_normalize_groups")
     return out_r, out_t
 
 
 def correlation_volume(ref: torch.Tensor, tgt: torch.Tensor, max_disp: int,
-                       num_groups: int, normalize: bool = False
-                       ) -> torch.Tensor:
+                       num_groups: int, normalize: bool = False,
+                       round_products: bool = True) -> torch.Tensor:
     """(B, C, H, W) x 2 -> (B, G, D, H, W) in the descriptors' dtype: the
     kernel on CUDA tensors, the plain version on CPU tensors. The kernel
-    takes C=64 with G=32 (gwc, gwc_norm) or G=1 (norm-correlation) in fp32,
-    and the gwc form (G=32) in bf16."""
+    takes C=64 with G=32 (gwc, gwc_norm) or G=1 (norm-correlation), in fp32
+    or bf16; in bf16 ``round_products`` picks B's rounding (True, the
+    model's) or D's (False)."""
     if ref.shape != tgt.shape or ref.ndim != 4:
         raise ValueError(f"correlation_volume: shapes {tuple(ref.shape)} "
                          f"{tuple(tgt.shape)}")
@@ -129,19 +162,18 @@ def correlation_volume(ref: torch.Tensor, tgt: torch.Tensor, max_disp: int,
     if not on_cuda("correlation_volume", ref, tgt,
                    dtypes=(torch.float32, torch.bfloat16)):
         return correlation_volume_plain(ref, tgt, max_disp, num_groups,
-                                        normalize)
+                                        normalize, round_products)
     check_kernel_form("correlation_volume", c, num_groups)
-    bf16 = ref.dtype == torch.bfloat16
-    if bf16:
-        check_bf16_form("correlation_volume", num_groups, normalize)
-    if normalize:
-        ref, tgt = l2_normalize_pair(ref, tgt, num_groups)
+    form = volume_form(ref.dtype, normalize, round_products)
     out = torch.empty((b, num_groups, max_disp, h, w), device=ref.device,
                       dtype=ref.dtype)
+    if normalize:
+        ref, tgt = l2_normalize_pair(ref, tgt, num_groups)
     err = _fns()[0](ref.data_ptr(), tgt.data_ptr(), out.data_ptr(), b, c,
-                    num_groups, h, w, max_disp, int(bf16), stream_handle(ref))
+                    num_groups, h, w, max_disp, _FORM_CODES[form],
+                    stream_handle(ref))
     _build.check(err, "correlation_volume")
-    count_launch(correlation_volume, "bf16" if bf16 else "fp32")
+    count_launch(correlation_volume, form)
     return out
 
 

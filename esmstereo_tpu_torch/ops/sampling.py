@@ -60,6 +60,9 @@ def grid_sample_bilinear(x: torch.Tensor, grid: torch.Tensor,
     """Bilinear sampling of ``x`` (B, C, H, W) at the normalised coordinates
     of ``grid`` (B, Ho, Wo, 2), ``grid[..., 0]`` the width coordinate and
     ``grid[..., 1]`` the height one, both in [-1, 1]; taps outside the map
-    read zero. -> (B, C, Ho, Wo)."""
-    return F.grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
-                         align_corners=align_corners)
+    read zero. -> (B, C, Ho, Wo) in ``x``'s dtype. A bf16 ``x`` on an fp32
+    grid is weighed in fp32 and rounded once, as the jnp function does."""
+    dt = torch.promote_types(x.dtype, grid.dtype)
+    y = F.grid_sample(x.to(dt), grid.to(dt), mode="bilinear",
+                      padding_mode="zeros", align_corners=align_corners)
+    return y.to(x.dtype)

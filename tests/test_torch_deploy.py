@@ -96,9 +96,12 @@ def test_correlation_bf16_plain_bit_exact(rng, h, w, d):
 
 
 def test_correlation_bf16_guards():
+    """The normalised forms take bf16 descriptors too (a bf16 volume; the
+    forms are held in tests/test_torch_deploy_variants.py); mixed dtypes
+    raise."""
     x = torch.zeros((1, 64, 2, 8), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError):
-        correlation.correlation_volume(x, x, 4, 1, normalize=True)
+    vol = correlation.correlation_volume(x, x, 4, 1, normalize=True)
+    assert vol.dtype == torch.bfloat16 and vol.shape == (1, 1, 4, 2, 8)
     with pytest.raises(TypeError):
         correlation.correlation_volume(x, x.float(), 4, 32)
 
@@ -237,8 +240,9 @@ def test_fused_head_bf16_out_matches_jax(rng):
 def jax_variables_from_port(model: torch.nn.Module, shapes) -> dict:
     """The JAX variables of ``shapes`` holding ``model``'s weights: the
     bridge run backwards. Each JAX leaf element carries its own index
-    through ``state_dict_from_jax`` (exact in fp32 below 2**24), which
-    says where each of the port's values goes."""
+    through ``state_dict_from_jax`` (checked against ``model``'s config;
+    exact in fp32 below 2**24), which says where each of the port's values
+    goes."""
     leaves, treedef = jax.tree_util.tree_flatten(shapes)
     sizes = [int(np.prod(leaf.shape)) for leaf in leaves]
     offs = np.cumsum([0] + sizes)
@@ -247,7 +251,7 @@ def jax_variables_from_port(model: torch.nn.Module, shapes) -> dict:
         leaf.shape) for o, n, leaf in zip(offs, sizes, leaves)])
     flat = np.full(offs[-1], np.nan, np.float32)
     sd = model.state_dict()
-    for key, where in state_dict_from_jax(ids).items():
+    for key, where in state_dict_from_jax(ids, model.config).items():
         flat[where.numpy().astype(np.int64).ravel()] = \
             sd[key].float().numpy().ravel()
     assert not np.isnan(flat).any()
@@ -362,8 +366,9 @@ def test_l_deploy_int8_near_l_deploy(deploy):
 
 def test_deploy_guards():
     """Parameters and BN statistics stay fp32 (6,796,056 parameters, the
-    bridge maps every key of the bf16 model), and the bf16 combinations
-    that are not ported raise ``NotImplementedError``."""
+    bridge maps every key of the bf16 model); bf16 at M, S and with the
+    norm-correlation volume is ported, and bf16 with a ``fuse_*`` switch
+    raises ``NotImplementedError``."""
     model = ESMStereo(DEPLOY, device="meta")
     assert sum(p.numel() for p in model.parameters()) == L_PARAMS
     assert all(t.dtype == torch.float32 for t in model.state_dict().values()
@@ -371,8 +376,9 @@ def test_deploy_guards():
     assert ESMStereo(DEPLOY, device="meta").state_dict().keys() == \
         ESMStereo(device="meta").state_dict().keys()
     for kw in ({"cv_scale": 8}, {"cost_volume": "norm_correlation"},
-               {"cv_scale": 16, "backbone": "mobilenetv2_100"},
-               {"fuse_volume_agg": True}, {"fuse_hourglass": True},
+               {"cv_scale": 16, "backbone": "mobilenetv2_100"}):
+        ESMStereoConfig(dtype="bfloat16", **kw)
+    for kw in ({"fuse_volume_agg": True}, {"fuse_hourglass": True},
                {"fuse_hourglass_up": True}, {"fuse_stems": True},
                {"fuse_mixer": True}):
         with pytest.raises(NotImplementedError):

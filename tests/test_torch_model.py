@@ -244,12 +244,13 @@ def test_runner_pads_and_crops_as_jax():
 
 
 def test_slice_guards(monkeypatch):
-    # mobilenetv2 at cv4 and bf16 outside L are not ported (L in bf16 is:
-    # tests/test_torch_deploy.py)
+    # mobilenetv2 at cv4 and bf16 with a fuse_* switch are not ported (bf16
+    # without one is: tests/test_torch_deploy.py and
+    # tests/test_torch_deploy_variants.py)
     for kw in ({"backbone": "mobilenetv2_100"},
-               {"cv_scale": 8, "dtype": "bfloat16"},
+               {"cv_scale": 8, "dtype": "bfloat16", "fuse_hourglass": True},
                {"cv_scale": 16, "backbone": "mobilenetv2_100",
-                "dtype": "bfloat16"}):
+                "dtype": "bfloat16", "fuse_stems": True}):
         with pytest.raises(NotImplementedError):
             ESMStereoConfig(**kw)
     # the JAX config's variant/backbone constraints
