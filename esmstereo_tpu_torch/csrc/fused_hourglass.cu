@@ -53,6 +53,16 @@
 // values are widened to fp32 as the tile is staged, so the inner loop is the
 // fp32 one; only the bytes of the volume, the intermediate and the output
 // shrink. A tensor-core form is later work.
+//
+// G's and H's deploy forms (bf16 in, bf16 out) are the same kernels with the
+// rounding of esmstereo_tpu/attic/fused_hourglass.py's bf16 operands
+// (:160,264,289-293 for G, :472,585,616-622,656 for H): raw bf16 weights,
+// fp32 sums, the BN scale then the shift in fp32 after each sum, GELU, and
+// every intermediate stored in bf16, which is the rounding the TPU kernel
+// applies when that intermediate becomes the next matmul's operand. G runs
+// the stride-2 and stride-1 instances of conv3d_k3_bn_gelu_bf16; H runs
+// hourglass_deconv_bf16, hourglass_conv1x1_cat_bf16 and the stride-1 conv.
+// Widths that are not a multiple of 8 (S's 12) take the masked instances.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -226,11 +236,14 @@ constexpr int kUd = kDc / 2 + 2;
 // x (B, CI, Ds, Hs, Ws) -> y (B, CO, D2, H2, W2), the transposed conv's
 // (2 Ds, 2 Hs, 2 Ws) output cropped to its leading D2 x H2 x W2 corner.
 // wgt: (CI, CO, 4, 4, 4) with the BN scale folded in; shift: (CO,).
-template <bool kMasked>
+// The deploy form (Tin, Tw, Tout bf16, kScaled): the raw weight, the BN's
+// scale and shift (CO,) each.
+template <bool kMasked, typename Tin = float, typename Tw = float,
+          typename Tout = float, bool kScaled = false>
 __global__ void __launch_bounds__(kThreads)
-deconv3d_k4s2_kernel(const float* __restrict__ x,
-                     const float* __restrict__ wgt,
-                     const float* __restrict__ shift, float* __restrict__ y,
+deconv3d_k4s2_kernel(const Tin* __restrict__ x, const Tw* __restrict__ wgt,
+                     const float* __restrict__ scale,
+                     const float* __restrict__ shift, Tout* __restrict__ y,
                      int CI, int CO, int Ds, int Hs, int Ws, int D2, int H2,
                      int W2, int approximate) {
     __shared__ float xsh[kUd * kUh * kUw];
@@ -256,24 +269,24 @@ deconv3d_k4s2_kernel(const float* __restrict__ x,
 
     const size_t plane = (size_t)Hs * Ws;
     const size_t vol = (size_t)Ds * plane;
-    const float* xb = x + (size_t)b * CI * vol;
+    const Tin* xb = x + (size_t)b * CI * vol;
 
     for (int ci = 0; ci < CI; ++ci) {
         __syncthreads();
-        const float* xc = xb + (size_t)ci * vol;
+        const Tin* xc = xb + (size_t)ci * vol;
         for (int i = tid; i < kUd * kUh * kUw; i += kThreads) {
             const int sw = i % kUw;
             const int sh = (i / kUw) % kUh;
             const int sd = i / (kUw * kUh);
             const int gd = di0 + sd, gh = hi0 + sh, gw = wi0 + sw;
             xsh[i] = inside(gd, gh, gw, Ds, Hs, Ws)
-                         ? xc[(size_t)gd * plane + (size_t)gh * Ws + gw]
-                         : 0.0f;
+                ? widen(xc[(size_t)gd * plane + (size_t)gh * Ws + gw])
+                : 0.0f;
         }
         for (int i = tid; i < 64 * kCot; i += kThreads) {
             const int k = i % 64, o = i / 64;
             wsh[k * kCot + o] = !kMasked || co0 + o < CO
-                ? wgt[((size_t)ci * CO + co0 + o) * 64 + k] : 0.0f;
+                ? widen(wgt[((size_t)ci * CO + co0 + o) * 64 + k]) : 0.0f;
         }
         __syncthreads();
 #pragma unroll
@@ -308,20 +321,24 @@ deconv3d_k4s2_kernel(const float* __restrict__ x,
             }
         }
     }
-    store_tile<kMasked>(acc, nullptr, shift, y, b, CO, co0, do0, ho0 + ty,
-                        wo0 + tx, D2, H2, W2, approximate);
+    store_tile<kMasked, Tout, kScaled>(acc, scale, shift, y, b, CO, co0, do0,
+                                       ho0 + ty, wo0 + tx, D2, H2, W2,
+                                       approximate);
 }
 
 // 1x1x1 conv over the channel concat [up | skip], each (B, CO, N) with N
 // voxels: y = GELU(wgt[:, :CO] up + wgt[:, CO:] skip + shift). wgt: (CO, 2 CO)
 // with the BN scale folded in. One thread per voxel and kCot outputs; the
 // loads of a warp are 32 neighbouring voxels of one channel.
-template <bool kMasked>
+// The deploy form (T, Tw bf16, kScaled): the raw weight, the BN's scale and
+// shift.
+template <bool kMasked, typename T = float, typename Tw = float,
+          bool kScaled = false>
 __global__ void __launch_bounds__(256)
-conv1x1_cat_kernel(const float* __restrict__ up,
-                   const float* __restrict__ skip,
-                   const float* __restrict__ wgt,
-                   const float* __restrict__ shift, float* __restrict__ y,
+conv1x1_cat_kernel(const T* __restrict__ up, const T* __restrict__ skip,
+                   const Tw* __restrict__ wgt,
+                   const float* __restrict__ scale,
+                   const float* __restrict__ shift, T* __restrict__ y,
                    int CO, int N, int approximate) {
     __shared__ float wsh[kMaxCat * kCot];   // [input channel][o]
     const int co0 = blockIdx.y * kCot;
@@ -330,7 +347,7 @@ conv1x1_cat_kernel(const float* __restrict__ up,
     for (int i = threadIdx.x; i < cin * kCot; i += blockDim.x) {
         const int c = i % cin, o = i / cin;
         wsh[c * kCot + o] = !kMasked || co0 + o < CO
-            ? wgt[(size_t)(co0 + o) * cin + c] : 0.0f;
+            ? widen(wgt[(size_t)(co0 + o) * cin + c]) : 0.0f;
     }
     __syncthreads();
     const int v = blockIdx.x * blockDim.x + threadIdx.x;
@@ -339,25 +356,29 @@ conv1x1_cat_kernel(const float* __restrict__ up,
     float acc[kCot];
 #pragma unroll
     for (int o = 0; o < kCot; ++o) acc[o] = 0.0f;
-    const float* halves[2] = {up + (size_t)b * CO * N + v,
-                              skip + (size_t)b * CO * N + v};
+    const T* halves[2] = {up + (size_t)b * CO * N + v,
+                          skip + (size_t)b * CO * N + v};
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-        const float* src = halves[half];
+        const T* src = halves[half];
         const float* wh = wsh + half * CO * kCot;
         for (int c = 0; c < CO; ++c) {
-            const float a = src[(size_t)c * N];
+            const float a = widen(src[(size_t)c * N]);
 #pragma unroll
             for (int o = 0; o < kCot; ++o)
                 acc[o] = fmaf(a, wh[c * kCot + o], acc[o]);
         }
     }
     const bool approx = approximate != 0;
-    float* yb = y + ((size_t)b * CO + co0) * N + v;
+    T* yb = y + ((size_t)b * CO + co0) * N + v;
 #pragma unroll
     for (int o = 0; o < kCot; ++o)
-        if (!kMasked || co0 + o < CO)
-            yb[(size_t)o * N] = gelu(acc[o] + shift[co0 + o], approx);
+        if (!kMasked || co0 + o < CO) {
+            const float s = kScaled
+                ? __fadd_rn(__fmul_rn(acc[o], scale[co0 + o]), shift[co0 + o])
+                : acc[o] + shift[co0 + o];
+            yb[(size_t)o * N] = narrow<T>(gelu(s, approx));
+        }
 }
 
 }  // namespace
@@ -391,50 +412,69 @@ extern "C" int conv3d_k3_bn_gelu(const float* x, const float* wgt,
 
 namespace {
 
-template <typename Tin, typename Tout>
+template <int S, bool kMasked, typename Tin, typename Tout>
 int launch_conv3d_bf16(const void* x, const void* wgt, const float* scale,
                        const float* shift, void* y, int B, int CI, int CO,
                        int D, int H, int W, int approximate,
                        cudaStream_t stream) {
-    const dim3 grid(((W + kTw - 1) / kTw) * ((H + kTh - 1) / kTh),
-                    ((D + kDc - 1) / kDc) * channel_tiles(CO), B);
+    const int Do = (D - 1) / S + 1, Ho = (H - 1) / S + 1, Wo = (W - 1) / S + 1;
+    const dim3 grid(((Wo + kTw - 1) / kTw) * ((Ho + kTh - 1) / kTh),
+                    ((Do + kDc - 1) / kDc) * channel_tiles(CO), B);
     const dim3 block(kTw, kTh);
-    conv3d_k3_kernel<1, false, Tin, __nv_bfloat16, Tout, true>
+    conv3d_k3_kernel<S, kMasked, Tin, __nv_bfloat16, Tout, true>
         <<<grid, block, 0, stream>>>(
             static_cast<const Tin*>(x), static_cast<const __nv_bfloat16*>(wgt),
-            scale, shift, static_cast<Tout*>(y), CI, CO, D, H, W, D, H, W,
+            scale, shift, static_cast<Tout*>(y), CI, CO, D, H, W, Do, Ho, Wo,
             approximate);
     return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Kernel C's deploy forms: conv3d k3 s1 p1. x: (B, CI, D, H, W) bf16
+// The deploy forms of the direct conv3d k3 p1. x: (B, CI, D, H, W) bf16
 // (in_type 0) or int8 (in_type 1); wgt: (CO, CI, 3, 3, 3) bf16, raw; scale,
-// shift: (CO,) fp32, the eval BN; y: (B, CO, D, H, W) bf16 (out_type 0) or
-// fp32 (out_type 1). CO must be a multiple of 8.
+// shift: (CO,) fp32, the eval BN; y: (B, CO, Do, Ho, Wo) bf16 (out_type 0)
+// or fp32 (out_type 1). Instances: bf16 -> bf16 at stride 1 or 2 and any
+// CO (kernels C, E's agg, G and H); bf16 -> fp32 and int8 -> either at
+// stride 1 with CO a multiple of 8 (kernel C's other forms).
 extern "C" int conv3d_k3_bn_gelu_bf16(const void* x, const void* wgt,
                                       const float* scale, const float* shift,
                                       void* y, int B, int CI, int CO, int D,
-                                      int H, int W, int in_type, int out_type,
-                                      int approximate, cudaStream_t stream) {
-    if (CO < 1 || CI < 1 || CO % kCot) return (int)cudaErrorInvalidValue;
+                                      int H, int W, int stride, int in_type,
+                                      int out_type, int approximate,
+                                      cudaStream_t stream) {
+    if (CO < 1 || CI < 1) return (int)cudaErrorInvalidValue;
     using bf16 = __nv_bfloat16;
-    if (in_type == 0 && out_type == 0)
-        return launch_conv3d_bf16<bf16, bf16>(x, wgt, scale, shift, y, B, CI,
-                                              CO, D, H, W, approximate, stream);
+    const bool masked = CO % kCot != 0;
+    if (in_type == 0 && out_type == 0) {
+        if (stride == 1)
+            return masked
+                ? launch_conv3d_bf16<1, true, bf16, bf16>(
+                      x, wgt, scale, shift, y, B, CI, CO, D, H, W,
+                      approximate, stream)
+                : launch_conv3d_bf16<1, false, bf16, bf16>(
+                      x, wgt, scale, shift, y, B, CI, CO, D, H, W,
+                      approximate, stream);
+        if (stride == 2)
+            return masked
+                ? launch_conv3d_bf16<2, true, bf16, bf16>(
+                      x, wgt, scale, shift, y, B, CI, CO, D, H, W,
+                      approximate, stream)
+                : launch_conv3d_bf16<2, false, bf16, bf16>(
+                      x, wgt, scale, shift, y, B, CI, CO, D, H, W,
+                      approximate, stream);
+        return (int)cudaErrorInvalidValue;
+    }
+    if (stride != 1 || masked) return (int)cudaErrorInvalidValue;
     if (in_type == 0 && out_type == 1)
-        return launch_conv3d_bf16<bf16, float>(x, wgt, scale, shift, y, B, CI,
-                                               CO, D, H, W, approximate,
-                                               stream);
+        return launch_conv3d_bf16<1, false, bf16, float>(
+            x, wgt, scale, shift, y, B, CI, CO, D, H, W, approximate, stream);
     if (in_type == 1 && out_type == 0)
-        return launch_conv3d_bf16<int8_t, bf16>(x, wgt, scale, shift, y, B,
-                                                CI, CO, D, H, W, approximate,
-                                                stream);
+        return launch_conv3d_bf16<1, false, int8_t, bf16>(
+            x, wgt, scale, shift, y, B, CI, CO, D, H, W, approximate, stream);
     if (in_type == 1 && out_type == 1)
-        return launch_conv3d_bf16<int8_t, float>(x, wgt, scale, shift, y, B,
-                                                 CI, CO, D, H, W, approximate,
-                                                 stream);
+        return launch_conv3d_bf16<1, false, int8_t, float>(
+            x, wgt, scale, shift, y, B, CI, CO, D, H, W, approximate, stream);
     return (int)cudaErrorInvalidValue;
 }
 
@@ -451,8 +491,30 @@ extern "C" int hourglass_deconv(const float* x, const float* wgt,
     const dim3 block(kTw, kTh);
     auto kernel = CO % kCot ? deconv3d_k4s2_kernel<true>
                             : deconv3d_k4s2_kernel<false>;
-    kernel<<<grid, block, 0, stream>>>(x, wgt, shift, y, CI, CO, Ds, Hs, Ws,
-                                       D2, H2, W2, approximate);
+    kernel<<<grid, block, 0, stream>>>(x, wgt, nullptr, shift, y, CI, CO, Ds,
+                                       Hs, Ws, D2, H2, W2, approximate);
+    return (int)cudaGetLastError();
+}
+
+// H's deploy form of the transposed conv: x bf16, wgt (CI, CO, 4, 4, 4) bf16
+// raw, scale and shift (CO,) fp32, y bf16; shapes as hourglass_deconv.
+extern "C" int hourglass_deconv_bf16(const void* x, const void* wgt,
+                                     const float* scale, const float* shift,
+                                     void* y, int B, int CI, int CO, int Ds,
+                                     int Hs, int Ws, int D2, int H2, int W2,
+                                     int approximate, cudaStream_t stream) {
+    if (CO < 1 || CI < 1 || D2 > 2 * Ds || H2 > 2 * Hs || W2 > 2 * Ws)
+        return (int)cudaErrorInvalidValue;
+    using bf16 = __nv_bfloat16;
+    const dim3 grid(((W2 + kTw - 1) / kTw) * ((H2 + kTh - 1) / kTh),
+                    ((D2 + kDc - 1) / kDc) * channel_tiles(CO), B);
+    const dim3 block(kTw, kTh);
+    auto kernel = CO % kCot ? deconv3d_k4s2_kernel<true, bf16, bf16, bf16, true>
+                            : deconv3d_k4s2_kernel<false, bf16, bf16, bf16, true>;
+    kernel<<<grid, block, 0, stream>>>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(wgt), scale,
+        shift, static_cast<bf16*>(y), CI, CO, Ds, Hs, Ws, D2, H2, W2,
+        approximate);
     return (int)cudaGetLastError();
 }
 
@@ -466,7 +528,27 @@ extern "C" int hourglass_conv1x1_cat(const float* up, const float* skip,
     const dim3 grid((N + 255) / 256, channel_tiles(CO), B);
     auto kernel = CO % kCot ? conv1x1_cat_kernel<true>
                             : conv1x1_cat_kernel<false>;
-    kernel<<<grid, 256, 0, stream>>>(up, skip, wgt, shift, y, CO, N,
+    kernel<<<grid, 256, 0, stream>>>(up, skip, wgt, nullptr, shift, y, CO, N,
                                      approximate);
+    return (int)cudaGetLastError();
+}
+
+// H's deploy form of the 1x1x1 conv: up, skip, y bf16; wgt (CO, 2 CO) bf16
+// raw; scale and shift (CO,) fp32.
+extern "C" int hourglass_conv1x1_cat_bf16(const void* up, const void* skip,
+                                          const void* wgt, const float* scale,
+                                          const float* shift, void* y, int B,
+                                          int CO, int N, int approximate,
+                                          cudaStream_t stream) {
+    if (CO < 1 || 2 * CO > kMaxCat || N < 1)
+        return (int)cudaErrorInvalidValue;
+    using bf16 = __nv_bfloat16;
+    const dim3 grid((N + 255) / 256, channel_tiles(CO), B);
+    auto kernel = CO % kCot ? conv1x1_cat_kernel<true, bf16, bf16, true>
+                            : conv1x1_cat_kernel<false, bf16, bf16, true>;
+    kernel<<<grid, 256, 0, stream>>>(
+        static_cast<const bf16*>(up), static_cast<const bf16*>(skip),
+        static_cast<const bf16*>(wgt), scale, shift, static_cast<bf16*>(y),
+        CO, N, approximate);
     return (int)cudaGetLastError();
 }

@@ -38,6 +38,17 @@
 // The six 16-channel intermediates (2.2 MB each at the main path) live in
 // a workspace and stay in the 50 MB L2. The split-point MLP's shuffle is a
 // fixed register permutation.
+//
+// The bf16 form (kLow; the deploy numerics) rounds where the TPU kernel's
+// bf16 matmul operands round (fused_mixer.py:198-209,246-289 there): the
+// packed weights of every conv and linear layer arrive rounded to bf16 (the
+// norms and biases stay fp32), and each layer's input is rounded to bf16 as
+// it is read: the bf16 spx map, the LayerNorm output into fc1 and its
+// pass-through half, fc1's SiLU output into fc2, the dw 7x7's input, x2 into
+// expand, expand's SiLU output into project, v into up. The LayerNorm
+// statistics, the sums, the biases and the residual stream stay fp32; the
+// output is stored in bf16 (phased_upsample.py:497 there casts it so).
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "activations.cuh"
@@ -96,29 +107,45 @@ constexpr int kExpParams = kBlkSize - kBlkExpW;
 constexpr int kUpSize = kParams - kUpW;
 constexpr int kExpSmem = kExpParams + kUpSize + Slab<kC, 1>::size;
 
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+    return __bfloat162float(v);
+}
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
+    *p = __float2bfloat16_rn(v);
+}
+
+// A matmul operand: rounded to bf16 in the bf16 form, as it is in fp32.
+template <bool kLow>
+__device__ __forceinline__ float operand(float v) {
+    return kLow ? __bfloat162float(__float2bfloat16_rn(v)) : v;
+}
+
 __device__ __forceinline__ void stage(float* dst, const float* __restrict__ src,
                                       int n) {
     for (int i = threadIdx.x; i < n; i += kThreads) dst[i] = src[i];
 }
 
 // The tile's (CH, kTh + 2R, kTw + 2R) window of a (CH, H, W) map, zero
-// outside the map.
-template <int CH, int R>
+// outside the map; with kLow each value rounded to bf16.
+template <int CH, int R, bool kLow = false, typename T = float>
 __device__ __forceinline__ void stage_slab(float* slab,
-                                           const float* __restrict__ src,
+                                           const T* __restrict__ src,
                                            int H, int W, int y0, int x0) {
     using S = Slab<CH, R>;
     for (int i = threadIdx.x; i < S::size; i += kThreads) {
         const int sx = i % S::w, sy = (i / S::w) % S::h, c = i / (S::w * S::h);
         const int gy = y0 - R + sy, gx = x0 - R + sx;
         slab[i] = (gy >= 0 && gy < H && gx >= 0 && gx < W)
-                      ? src[((size_t)c * H + gy) * W + gx]
+                      ? operand<kLow>(widen(src[((size_t)c * H + gy) * W + gx]))
                       : 0.0f;
     }
 }
 
 // v += shuffle([fc2(silu(fc1(n[0:8]))), n[8:16]]) with n = ln(v); p is a
 // pre-norm MLP block of the packed layout.
+template <bool kLow>
 __device__ __forceinline__ void mlp_residual(float (&v)[kC],
                                              const float* p) {
     float mu = 0.0f;
@@ -135,14 +162,15 @@ __device__ __forceinline__ void mlp_residual(float (&v)[kC],
     const float inv = 1.0f / sqrtf(var + 1e-5f);
     float n[kC];
 #pragma unroll
-    for (int c = 0; c < kC; ++c) n[c] = (v[c] - mu) * inv * p[kMlpNorm + c];
+    for (int c = 0; c < kC; ++c)
+        n[c] = operand<kLow>((v[c] - mu) * inv * p[kMlpNorm + c]);
     float h[16];
 #pragma unroll
     for (int o = 0; o < 16; ++o) {
         float a = p[kMlpFc1B + o];
 #pragma unroll
         for (int i = 0; i < 8; ++i) a = fmaf(p[kMlpFc1W + o * 8 + i], n[i], a);
-        h[o] = silu(a);
+        h[o] = operand<kLow>(silu(a));
     }
     float cat[kC];
 #pragma unroll
@@ -184,8 +212,9 @@ struct Tile {
 
 // Launch 1. x (B, 32, H, W) -> v = to_feat(x), t = v + mlp(ln(v)) with
 // block0.sm1's pre-norm MLP.
+template <bool kLow, typename Tin>
 __global__ void __launch_bounds__(kThreads)
-mixer_head_kernel(const float* __restrict__ x, const float* __restrict__ prm,
+mixer_head_kernel(const Tin* __restrict__ x, const float* __restrict__ prm,
                   float* __restrict__ v_out, float* __restrict__ t_out, int H,
                   int W) {
     extern __shared__ float4 smem4[];
@@ -196,8 +225,8 @@ mixer_head_kernel(const float* __restrict__ x, const float* __restrict__ prm,
     const Tile t(W);
     stage(wsh, prm + kToFeat, kCin * 9 * kC);
     stage(mlp, prm + kBlock0 + kBlkSm1, kMlpSize);
-    stage_slab<kCin, 1>(slab, x + (size_t)t.b * kCin * H * W, H, W, t.y0,
-                        t.x0);
+    stage_slab<kCin, 1, kLow>(slab, x + (size_t)t.b * kCin * H * W, H, W,
+                              t.y0, t.x0);
     __syncthreads();
     float v[kC];
 #pragma unroll
@@ -224,13 +253,14 @@ mixer_head_kernel(const float* __restrict__ x, const float* __restrict__ prm,
     }
     if (t.gy >= H || t.gx >= W) return;
     store16(v_out, v, t.b, H, W, t.gy, t.gx);
-    mlp_residual(v, mlp);
+    mlp_residual<kLow>(v, mlp);
     store16(t_out, v, t.b, H, W, t.gy, t.gx);
 }
 
 // Launches 2, 3, 5, 6. One SMLayer's dw 7x7 + bias and post-norm MLP
 // residual on in (B, 16, H, W); then the next SMLayer's pre-norm MLP
 // residual (next != nullptr) or + residual (the FMBlock's input).
+template <bool kLow>
 __global__ void __launch_bounds__(kThreads)
 mixer_dw_kernel(const float* __restrict__ in, const float* __restrict__ sm,
                 const float* __restrict__ next,
@@ -244,7 +274,8 @@ mixer_dw_kernel(const float* __restrict__ in, const float* __restrict__ sm,
     const Tile t(W);
     stage(prm, sm + kSmDwW, kDwParams);
     if (next != nullptr) stage(nxt, next, kMlpSize);
-    stage_slab<kC, 3>(slab, in + (size_t)t.b * kC * H * W, H, W, t.y0, t.x0);
+    stage_slab<kC, 3, kLow>(slab, in + (size_t)t.b * kC * H * W, H, W, t.y0,
+                            t.x0);
     __syncthreads();
     if (t.gy >= H || t.gx >= W) return;
     const float* dw = prm;                            // (16, 49)
@@ -261,9 +292,9 @@ mixer_dw_kernel(const float* __restrict__ in, const float* __restrict__ sm,
                 a = fmaf(sc[kh * S::w + kw], dw[c * 49 + kh * 7 + kw], a);
         u[c] = a;
     }
-    mlp_residual(u, prm + (kSmPost - kSmDwW));
+    mlp_residual<kLow>(u, prm + (kSmPost - kSmDwW));
     if (next != nullptr) {
-        mlp_residual(u, nxt);
+        mlp_residual<kLow>(u, nxt);
     } else {
         const size_t plane = (size_t)H * W;
         const float* r = residual + (size_t)t.b * kC * plane +
@@ -278,11 +309,12 @@ mixer_dw_kernel(const float* __restrict__ in, const float* __restrict__ sm,
 // v = project(silu(expand(x2))) + x2. Then either the next block's
 // pre-norm MLP residual (next != nullptr: writes v and t), or the up
 // conv + SiLU, stored pixel-shuffled into y (B, 16, 2H, 2W).
+template <bool kLow, typename Tout>
 __global__ void __launch_bounds__(kThreads)
 mixer_expand_kernel(const float* __restrict__ in, const float* __restrict__ blk,
                     const float* __restrict__ next,
                     const float* __restrict__ up, float* __restrict__ v_out,
-                    float* __restrict__ t_out, float* __restrict__ y, int H,
+                    float* __restrict__ t_out, Tout* __restrict__ y, int H,
                     int W) {
     extern __shared__ float4 smem4[];
     float* prm = reinterpret_cast<float*>(smem4);   // expand, project
@@ -310,8 +342,9 @@ mixer_expand_kernel(const float* __restrict__ in, const float* __restrict__ blk,
         for (int kh = 0; kh < 3; ++kh) {
 #pragma unroll
             for (int kw = 0; kw < 3; ++kw) {
-                const float a =
-                    slab[(ci * S::h + t.ty + kh) * S::w + t.tx + kw];
+                // x2 stays fp32 in the slab: it is also the residual
+                const float a = operand<kLow>(
+                    slab[(ci * S::h + t.ty + kh) * S::w + t.tx + kw]);
                 const float4* w4 = reinterpret_cast<const float4*>(
                     ew + (ci * 9 + kh * 3 + kw) * 2 * kC);
 #pragma unroll
@@ -326,7 +359,7 @@ mixer_expand_kernel(const float* __restrict__ in, const float* __restrict__ blk,
         }
     }
 #pragma unroll
-    for (int o = 0; o < 2 * kC; ++o) z[o] = silu(z[o]);
+    for (int o = 0; o < 2 * kC; ++o) z[o] = operand<kLow>(silu(z[o]));
     float v[kC];
 #pragma unroll
     for (int o = 0; o < kC; ++o) {
@@ -337,22 +370,24 @@ mixer_expand_kernel(const float* __restrict__ in, const float* __restrict__ blk,
     }
     if (next != nullptr) {
         store16(v_out, v, t.b, H, W, t.gy, t.gx);
-        mlp_residual(v, tail);
+        mlp_residual<kLow>(v, tail);
         store16(t_out, v, t.b, H, W, t.gy, t.gx);
         return;
     }
+#pragma unroll
+    for (int o = 0; o < kC; ++o) v[o] = operand<kLow>(v[o]);
     const float* uw = tail;                              // (64, 16)
     const float* ub = tail + (kUpB - kUpW);
     const size_t plane = (size_t)(2 * H) * (2 * W);
-    float* yb = y + (size_t)t.b * kC * plane;
+    Tout* yb = y + (size_t)t.b * kC * plane;
 #pragma unroll
     for (int o = 0; o < 4 * kC; ++o) {
         float a = ub[o];
 #pragma unroll
         for (int i = 0; i < kC; ++i) a = fmaf(uw[o * kC + i], v[i], a);
         const int c = o / 4, i = (o / 2) % 2, j = o % 2;
-        yb[c * plane + (size_t)(2 * t.gy + i) * (2 * W) + 2 * t.gx + j] =
-            silu(a);
+        put(yb + c * plane + (size_t)(2 * t.gy + i) * (2 * W) + 2 * t.gx + j,
+            silu(a));
     }
 }
 
@@ -360,6 +395,58 @@ int smem_limit(const void* fn, int floats) {
     return (int)cudaFuncSetAttribute(
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
         floats * (int)sizeof(float));
+}
+
+// The seven launches in one form: Tin and Tout fp32 (kLow false) or bf16.
+template <bool kLow, typename Tin, typename Tout>
+int launch_mixer(const void* xv, const float* params, void* yv, float* ws,
+                 int B, int H, int W, cudaStream_t stream) {
+    auto head = mixer_head_kernel<kLow, Tin>;
+    auto dwk = mixer_dw_kernel<kLow>;
+    auto expk = mixer_expand_kernel<kLow, Tout>;
+    int err = smem_limit((const void*)head, kHeadSmem);
+    if (!err) err = smem_limit((const void*)dwk, kDwSmem);
+    if (!err) err = smem_limit((const void*)expk, kExpSmem);
+    if (err) return err;
+    const Tin* x = static_cast<const Tin*>(xv);
+    Tout* y = static_cast<Tout*>(yv);
+    const size_t n = (size_t)B * kC * H * W;
+    float* V = ws;
+    float* T = ws + n;
+    float* U = ws + 2 * n;
+    const float* b0 = params + kBlock0;
+    const float* b1 = params + kBlock1;
+    const dim3 grid(((W + kTw - 1) / kTw) * ((H + kTh - 1) / kTh), B);
+    const size_t hsm = kHeadSmem * sizeof(float);
+    const size_t dsm = kDwSmem * sizeof(float);
+    const size_t esm = kExpSmem * sizeof(float);
+#define MIXER_CHECK()                              \
+    do {                                           \
+        const int e = (int)cudaGetLastError();     \
+        if (e) return e;                           \
+    } while (0)
+    head<<<grid, kThreads, hsm, stream>>>(x, params, V, T, H, W);
+    MIXER_CHECK();
+    dwk<<<grid, kThreads, dsm, stream>>>(T, b0 + kBlkSm1, b0 + kBlkSm2,
+                                         nullptr, U, H, W);
+    MIXER_CHECK();
+    dwk<<<grid, kThreads, dsm, stream>>>(U, b0 + kBlkSm2, nullptr, V, T, H,
+                                         W);
+    MIXER_CHECK();
+    expk<<<grid, kThreads, esm, stream>>>(T, b0, b1 + kBlkSm1, nullptr, V, U,
+                                          nullptr, H, W);
+    MIXER_CHECK();
+    dwk<<<grid, kThreads, dsm, stream>>>(U, b1 + kBlkSm1, b1 + kBlkSm2,
+                                         nullptr, T, H, W);
+    MIXER_CHECK();
+    dwk<<<grid, kThreads, dsm, stream>>>(T, b1 + kBlkSm2, nullptr, V, U, H,
+                                         W);
+    MIXER_CHECK();
+    expk<<<grid, kThreads, esm, stream>>>(U, b1, nullptr, params + kUpW,
+                                          nullptr, nullptr, y, H, W);
+    MIXER_CHECK();
+#undef MIXER_CHECK
+    return 0;
 }
 
 }  // namespace
@@ -370,54 +457,18 @@ extern "C" long long mixer_workspace_floats(int B, int H, int W) {
     return 3LL * B * kC * H * W;
 }
 
-// All tensors fp32 and contiguous; returns a cudaError_t.
-// x: (B, 32, H, W); params: the packed layout (kParams floats);
-// y: (B, 16, 2H, 2W); ws: mixer_workspace_floats(B, H, W) floats.
-extern "C" int fused_mixer(const float* x, const float* params, float* y,
-                           float* ws, int B, int H, int W,
+// All tensors contiguous; returns a cudaError_t. x: (B, 32, H, W); params:
+// the packed layout (kParams floats, fp32); y: (B, 16, 2H, 2W); ws:
+// mixer_workspace_floats(B, H, W) floats. With low_precision 0, x and y are
+// fp32; with 1 (the bf16 form, its packed weights rounded to bf16) they are
+// bf16.
+extern "C" int fused_mixer(const void* x, const float* params, void* y,
+                           float* ws, int B, int H, int W, int low_precision,
                            cudaStream_t stream) {
     if (B < 1 || H < 1 || W < 1) return (int)cudaErrorInvalidValue;
-    int err = smem_limit((const void*)mixer_head_kernel, kHeadSmem);
-    if (!err) err = smem_limit((const void*)mixer_dw_kernel, kDwSmem);
-    if (!err) err = smem_limit((const void*)mixer_expand_kernel, kExpSmem);
-    if (err) return err;
-    const size_t n = (size_t)B * kC * H * W;
-    float* V = ws;
-    float* T = ws + n;
-    float* U = ws + 2 * n;
-    const float* b0 = params + kBlock0;
-    const float* b1 = params + kBlock1;
-    const dim3 grid(((W + kTw - 1) / kTw) * ((H + kTh - 1) / kTh), B);
-    const size_t head = kHeadSmem * sizeof(float);
-    const size_t dw = kDwSmem * sizeof(float);
-    const size_t expand = kExpSmem * sizeof(float);
-#define MIXER_CHECK()                              \
-    do {                                           \
-        const int e = (int)cudaGetLastError();     \
-        if (e) return e;                           \
-    } while (0)
-    mixer_head_kernel<<<grid, kThreads, head, stream>>>(x, params, V, T, H, W);
-    MIXER_CHECK();
-    mixer_dw_kernel<<<grid, kThreads, dw, stream>>>(T, b0 + kBlkSm1,
-                                                    b0 + kBlkSm2, nullptr, U,
-                                                    H, W);
-    MIXER_CHECK();
-    mixer_dw_kernel<<<grid, kThreads, dw, stream>>>(U, b0 + kBlkSm2, nullptr,
-                                                    V, T, H, W);
-    MIXER_CHECK();
-    mixer_expand_kernel<<<grid, kThreads, expand, stream>>>(
-        T, b0, b1 + kBlkSm1, nullptr, V, U, nullptr, H, W);
-    MIXER_CHECK();
-    mixer_dw_kernel<<<grid, kThreads, dw, stream>>>(U, b1 + kBlkSm1,
-                                                    b1 + kBlkSm2, nullptr, T,
-                                                    H, W);
-    MIXER_CHECK();
-    mixer_dw_kernel<<<grid, kThreads, dw, stream>>>(T, b1 + kBlkSm2, nullptr,
-                                                    V, U, H, W);
-    MIXER_CHECK();
-    mixer_expand_kernel<<<grid, kThreads, expand, stream>>>(
-        U, b1, nullptr, params + kUpW, nullptr, nullptr, y, H, W);
-    MIXER_CHECK();
-#undef MIXER_CHECK
-    return 0;
+    using bf16 = __nv_bfloat16;
+    return low_precision
+        ? launch_mixer<true, bf16, bf16>(x, params, y, ws, B, H, W, stream)
+        : launch_mixer<false, float, float>(x, params, y, ws, B, H, W,
+                                            stream);
 }

@@ -39,7 +39,18 @@
 // 65 KB (stem_2, 3 blocks an SM) or 96 KB (stem_4, 2 blocks an SM) at L's
 // widths. Every instance asserts the divisibility it relies on at compile
 // time. No tensor cores: fp32 parity first.
+//
+// The deploy form (kLow) computes what the TPU kernel computes with its bf16
+// matmul operands (fused_stems.py:74,200-280 there): the BN-folded weights
+// in bf16, every conv's input rounded to bf16 (the fp32 image as it is
+// staged, the GELU output of conv_down as it enters shared memory), fp32
+// sums, the shift added in fp32, and the outputs stored in bf16 (the model
+// casts them so, esmstereo.py:563-567 there); stem_4 reads stem_2's bf16
+// map. The loops are the fp32 ones on widened values.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "activations.cuh"
 
@@ -109,18 +120,33 @@ __device__ __forceinline__ void load_weights(const float* src, float (&wr)[K]) {
     }
 }
 
-__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src,
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+    return __bfloat162float(v);
+}
+__device__ __forceinline__ float round_bf16(float v) {
+    return __bfloat162float(__float2bfloat16_rn(v));
+}
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
+    *p = __float2bfloat16_rn(v);
+}
+
+template <typename T>
+__device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
                                       int n) {
-    for (int i = threadIdx.x; i < n; i += kThreads) dst[i] = src[i];
+    for (int i = threadIdx.x; i < n; i += kThreads) dst[i] = widen(src[i]);
 }
 
 // One StemBlock: x (B, CI, H, W) -> y (B, C, H/2, W/2); H and W even.
 // wd: (CI, 3, 3, C), td: (C,) conv_down; wc: (C, 3, 3, C), tc: (C,) conv.
-template <int CI, int C, int CC>
+// kLow: the deploy form (Tw and Tout bf16, the operands rounded to bf16).
+template <int CI, int C, int CC, typename Tin, typename Tw, typename Tout,
+          bool kLow>
 __global__ void __launch_bounds__(kThreads)
-stem_block_kernel(const float* __restrict__ x, const float* __restrict__ wd,
-                  const float* __restrict__ td, const float* __restrict__ wc,
-                  const float* __restrict__ tc, float* __restrict__ y, int H,
+stem_block_kernel(const Tin* __restrict__ x, const Tw* __restrict__ wd,
+                  const float* __restrict__ td, const Tw* __restrict__ wc,
+                  const float* __restrict__ tc, Tout* __restrict__ y, int H,
                   int W, int approximate) {
     using S = Stem<CI, C, CC>;
     constexpr int K = S::kK;
@@ -158,7 +184,7 @@ stem_block_kernel(const float* __restrict__ x, const float* __restrict__ wd,
     for (int j = 0; j < P1; ++j)
 #pragma unroll
         for (int k = 0; k < K1; ++k) acc1[j][k] = 0.0f;
-    const float* xb = x + (size_t)b * CI * H * W;
+    const Tin* xb = x + (size_t)b * CI * H * W;
     const int iy0 = 2 * oy0 - 3, ix0 = 2 * ox0 - 3;   // window origin
     for (int c0 = 0; c0 < CI; c0 += CC) {
         __syncthreads();   // the previous chunk fully consumed
@@ -166,10 +192,12 @@ stem_block_kernel(const float* __restrict__ x, const float* __restrict__ wd,
         for (int i = tid; i < CC * kSh * kSw; i += kThreads) {
             const int sx = i % kSw, sy = (i / kSw) % kSh, c = i / (kSw * kSh);
             const int gy = iy0 + sy, gx = ix0 + sx;
-            win[(c * kSh + sy) * kSrow + (sx & 1) * kHalf + (sx >> 1)] =
-                (gy >= 0 && gy < H && gx >= 0 && gx < W)
-                    ? xb[((size_t)(c0 + c) * H + gy) * W + gx]
-                    : 0.0f;
+            float v = 0.0f;
+            if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
+                v = widen(xb[((size_t)(c0 + c) * H + gy) * W + gx]);
+                if (kLow) v = round_bf16(v);
+            }
+            win[(c * kSh + sy) * kSrow + (sx & 1) * kHalf + (sx >> 1)] = v;
         }
         __syncthreads();
         if (!active) continue;
@@ -203,9 +231,14 @@ stem_block_kernel(const float* __restrict__ x, const float* __restrict__ wd,
             const bool inside = gy >= 0 && gy < Ho && gx >= 0 && gx < Wo;
             float* m = mid + g * K1 * kMid + p;
 #pragma unroll
-            for (int k = 0; k < K1; ++k)
-                m[k * kMid] = inside
-                    ? gelu(acc1[j][k] + td[g * K1 + k], approx) : 0.0f;
+            for (int k = 0; k < K1; ++k) {
+                float v = 0.0f;
+                if (inside) {
+                    v = gelu(acc1[j][k] + td[g * K1 + k], approx);
+                    if (kLow) v = round_bf16(v);
+                }
+                m[k * kMid] = v;
+            }
         }
     }
 
@@ -247,67 +280,80 @@ stem_block_kernel(const float* __restrict__ x, const float* __restrict__ wd,
     const int ox = ox0 + col;
     if (ox >= Wo) return;
     const size_t plane = (size_t)Ho * Wo;
-    float* yb = y + ((size_t)b * C + co0) * plane + ox;
+    Tout* yb = y + ((size_t)b * C + co0) * plane + ox;
 #pragma unroll
     for (int p = 0; p < kP; ++p) {
         const int oy = oy0 + r0 + p;
         if (oy >= Ho) break;
 #pragma unroll
         for (int k = 0; k < K; ++k)
-            yb[(size_t)k * plane + (size_t)oy * Wo] =
-                fmaxf(acc[p][k] + tc[co0 + k], 0.0f);
+            put(yb + (size_t)k * plane + (size_t)oy * Wo,
+                fmaxf(acc[p][k] + tc[co0 + k], 0.0f));
     }
 }
 
-template <int CI, int C, int CC>
-int launch_stem(const float* x, const float* wd, const float* td,
-                const float* wc, const float* tc, float* y, int B, int H,
+template <int CI, int C, int CC, typename Tin, typename Tw, typename Tout,
+          bool kLow>
+int launch_stem(const void* x, const void* wd, const float* td,
+                const void* wc, const float* tc, void* y, int B, int H,
                 int W, int approximate, cudaStream_t stream) {
     using S = Stem<CI, C, CC>;
+    auto kernel = stem_block_kernel<CI, C, CC, Tin, Tw, Tout, kLow>;
     cudaError_t err = cudaFuncSetAttribute(
-        stem_block_kernel<CI, C, CC>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)S::kSmem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::kSmem);
     if (err != cudaSuccess) return (int)err;
     const int Ho = H / 2, Wo = W / 2;
     const dim3 grid(((Wo + kTw - 1) / kTw) * ((Ho + kTh - 1) / kTh), B);
-    stem_block_kernel<CI, C, CC><<<grid, kThreads, S::kSmem, stream>>>(
-        x, wd, td, wc, tc, y, H, W, approximate);
+    kernel<<<grid, kThreads, S::kSmem, stream>>>(
+        static_cast<const Tin*>(x), static_cast<const Tw*>(wd), td,
+        static_cast<const Tw*>(wc), tc, static_cast<Tout*>(y), H, W,
+        approximate);
     return (int)cudaGetLastError();
+}
+
+// Both StemBlocks at widths (C2, C4): the fp32 form, or the deploy form
+// (the fp32 image in, bf16 weights, bf16 stem_2 and stem_4 out).
+template <int C2, int C4, bool kLow>
+int launch_stems(const void* img, const void* wd2, const float* td2,
+                 const void* wc2, const float* tc2, const void* wd4,
+                 const float* td4, const void* wc4, const float* tc4,
+                 void* s2, void* s4, int B, int H, int W, int approximate,
+                 cudaStream_t stream) {
+    using Tw = typename std::conditional<kLow, __nv_bfloat16, float>::type;
+    using Tout = Tw;
+    const int err = launch_stem<3, C2, 3, float, Tw, Tout, kLow>(
+        img, wd2, td2, wc2, tc2, s2, B, H, W, approximate, stream);
+    if (err != 0) return err;
+    return launch_stem<C2, C4, 4, Tout, Tw, Tout, kLow>(
+        s2, wd4, td4, wc4, tc4, s4, B, H / 2, W / 2, approximate, stream);
 }
 
 }  // namespace
 
-// All tensors fp32 and contiguous; returns a cudaError_t
-// (cudaErrorInvalidValue for H or W not a positive multiple of 4, or
-// widths (C2, C4) other than (32, 48) and (16, 24)).
-// img: (B, 3, H, W); s2: (B, C2, H/2, W/2); s4: (B, C4, H/4, W/4).
+// All tensors contiguous; returns a cudaError_t (cudaErrorInvalidValue for
+// H or W not a positive multiple of 4, or widths (C2, C4) other than
+// (32, 48) and (16, 24)).
+// img: (B, 3, H, W) fp32; s2: (B, C2, H/2, W/2); s4: (B, C4, H/4, W/4).
 // wd2: (3, 3, 3, C2), wc2: (C2, 3, 3, C2), wd4: (C2, 3, 3, C4),
 // wc4: (C4, 3, 3, C4), each (CI, kh, kw, CO) with the BN scale folded in;
-// td*, tc*: the BN shifts.
-extern "C" int fused_stems(const float* img, const float* wd2,
-                           const float* td2, const float* wc2,
-                           const float* tc2, const float* wd4,
-                           const float* td4, const float* wc4,
-                           const float* tc4, float* s2, float* s4, int B,
-                           int H, int W, int C2, int C4, int approximate,
-                           cudaStream_t stream) {
+// td*, tc*: the BN shifts, fp32. With low_precision 0 the weights, s2 and
+// s4 are fp32; with 1 (the deploy form) they are bf16.
+extern "C" int fused_stems(const void* img, const void* wd2, const float* td2,
+                           const void* wc2, const float* tc2, const void* wd4,
+                           const float* td4, const void* wc4,
+                           const float* tc4, void* s2, void* s4, int B, int H,
+                           int W, int C2, int C4, int low_precision,
+                           int approximate, cudaStream_t stream) {
     if (B < 1 || H < 4 || W < 4 || H % 4 || W % 4)
         return (int)cudaErrorInvalidValue;
-    int err;
-    if (C2 == 32 && C4 == 48) {
-        err = launch_stem<3, 32, 3>(img, wd2, td2, wc2, tc2, s2, B, H, W,
-                                    approximate, stream);
-        if (err != 0) return err;
-        return launch_stem<32, 48, 4>(s2, wd4, td4, wc4, tc4, s4, B, H / 2,
-                                      W / 2, approximate, stream);
-    }
-    if (C2 == 16 && C4 == 24) {
-        err = launch_stem<3, 16, 3>(img, wd2, td2, wc2, tc2, s2, B, H, W,
-                                    approximate, stream);
-        if (err != 0) return err;
-        return launch_stem<16, 24, 4>(s2, wd4, td4, wc4, tc4, s4, B, H / 2,
-                                      W / 2, approximate, stream);
-    }
+#define STEMS_ARGS img, wd2, td2, wc2, tc2, wd4, td4, wc4, tc4, s2, s4, B, \
+                   H, W, approximate, stream
+    if (C2 == 32 && C4 == 48)
+        return low_precision ? launch_stems<32, 48, true>(STEMS_ARGS)
+                             : launch_stems<32, 48, false>(STEMS_ARGS);
+    if (C2 == 16 && C4 == 24)
+        return low_precision ? launch_stems<16, 24, true>(STEMS_ARGS)
+                             : launch_stems<16, 24, false>(STEMS_ARGS);
+#undef STEMS_ARGS
     return (int)cudaErrorInvalidValue;
 }

@@ -38,6 +38,18 @@
 // (fp32 products summed in channel order, times 1/(C/G)) bit for bit; the
 // gwc group (2 channels) is a single chunk. The 27 taps then run over the
 // slab.
+//
+// The bf16 form (the deploy numerics) computes what the TPU kernel computes
+// on bf16 descriptors (fused_agg_stem.py:448-453 there): each fp32 product
+// rounded to bf16, the group's rounded products summed in fp32 and scaled by
+// 1/(C/G), and the entry rounded to bf16, which is kernel B's bf16 volume
+// (csrc/correlation.cu, form 1, or 2 on the normalised fp32 maps) entry for
+// entry; then group_stem on the raw bf16 weight with the BN's scale and
+// shift after the fp32 sum, as kernel C's bf16 form, writing the 8-channel
+// intermediate in bf16. The descriptors are widened as they are staged, so
+// the loops are the fp32 ones; E's bf16 form equals B's bf16 form followed by
+// C's, without the 103.6 MB bf16 volume at L.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "activations.cuh"
@@ -55,15 +67,32 @@ constexpr int kSd = kDc + 2;
 constexpr int kTgtW = kSw + kSd - 1;
 constexpr int kMaxChunk = 8;   // channels of a group staged at once
 
-template <int C, int G, int CO>
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+    return __bfloat162float(v);
+}
+__device__ __forceinline__ float round_bf16(float v) {
+    return __bfloat162float(__float2bfloat16_rn(v));
+}
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
+    *p = __float2bfloat16_rn(v);
+}
+
+// Tin: the descriptors' type; kLow: the bf16 form (Tw, Tout bf16, products
+// and entries rounded, BN scale after the sum), else fp32 throughout.
+template <int C, int G, int CO, typename Tin, typename Tw, typename Tout,
+          bool kLow>
 __global__ void __launch_bounds__(kTw * kTh)
-volume_group_stem_kernel(const float* __restrict__ ref,
-                         const float* __restrict__ tgt,
-                         const float* __restrict__ wgt,
+volume_group_stem_kernel(const Tin* __restrict__ ref,
+                         const Tin* __restrict__ tgt,
+                         const Tw* __restrict__ wgt,
+                         const float* __restrict__ scale,
                          const float* __restrict__ shift,
-                         float* __restrict__ y, int D, int H, int W,
+                         Tout* __restrict__ y, int D, int H, int W,
                          int approximate) {
-    // wgt: [CO][G][27] (BN scale folded); shift: [CO]; wsh: [G][27][CO]
+    // wgt: [CO][G][27] (BN scale folded, or raw with kLow); scale, shift:
+    // [CO]; wsh: [G][27][CO]
     constexpr int kCpg = C / G;
     constexpr int kChunk = kCpg < kMaxChunk ? kCpg : kMaxChunk;
     static_assert(kCpg % kChunk == 0, "a group splits into whole chunks");
@@ -84,7 +113,7 @@ volume_group_stem_kernel(const float* __restrict__ ref,
     const int tw0 = w0 - 1 - (d0 + kDc);
 
     for (int i = tid; i < G * 27 * CO; i += kThreads)
-        wsh[i] = wgt[(i % CO) * (G * 27) + i / CO];
+        wsh[i] = widen(wgt[(i % CO) * (G * 27) + i / CO]);
 
     float acc[kDc][CO];
 #pragma unroll
@@ -93,8 +122,8 @@ volume_group_stem_kernel(const float* __restrict__ ref,
         for (int o = 0; o < CO; ++o) acc[dd][o] = 0.0f;
 
     const size_t plane = (size_t)H * W;
-    const float* rb = ref + (size_t)b * C * plane;
-    const float* tb = tgt + (size_t)b * C * plane;
+    const Tin* rb = ref + (size_t)b * C * plane;
+    const Tin* tb = tgt + (size_t)b * C * plane;
     const float inv = 1.0f / kCpg;
 
     for (int g = 0; g < G; ++g) {
@@ -109,8 +138,8 @@ volume_group_stem_kernel(const float* __restrict__ ref,
                 const int k = i / (kSw * kSh);
                 const int gh = h0 - 1 + sh, gw = w0 - 1 + sw;
                 rsh[i] = (gh >= 0 && gh < H && gw >= 0 && gw < W)
-                             ? rb[(size_t)(c0 + k) * plane
-                                  + (size_t)gh * W + gw]
+                             ? widen(rb[(size_t)(c0 + k) * plane
+                                        + (size_t)gh * W + gw])
                              : 0.0f;
             }
             for (int i = tid; i < kChunk * kSh * kTgtW; i += kThreads) {
@@ -121,8 +150,8 @@ volume_group_stem_kernel(const float* __restrict__ ref,
                 // columns left of the image are the zeros that make w < d
                 // vanish
                 tsh[i] = (gh >= 0 && gh < H && gw >= 0 && gw < W)
-                             ? tb[(size_t)(c0 + k) * plane
-                                  + (size_t)gh * W + gw]
+                             ? widen(tb[(size_t)(c0 + k) * plane
+                                        + (size_t)gh * W + gw])
                              : 0.0f;
             }
             __syncthreads();
@@ -139,11 +168,15 @@ volume_group_stem_kernel(const float* __restrict__ ref,
                         && gw < W) {
                     float s = k0 == 0 ? 0.0f : vsh[i];
 #pragma unroll
-                    for (int k = 0; k < kChunk; ++k)
-                        s = fmaf(rsh[(k * kSh + sh) * kSw + sw],
-                                 tsh[(k * kSh + sh) * kTgtW + sw - sd + kSd - 1],
-                                 s);
-                    v = last ? s * inv : s;
+                    for (int k = 0; k < kChunk; ++k) {
+                        const float r = rsh[(k * kSh + sh) * kSw + sw];
+                        const float t =
+                            tsh[(k * kSh + sh) * kTgtW + sw - sd + kSd - 1];
+                        s = kLow ? __fadd_rn(s, round_bf16(__fmul_rn(r, t)))
+                                 : fmaf(r, t, s);
+                    }
+                    v = !last ? s
+                        : kLow ? round_bf16(__fmul_rn(s, inv)) : s * inv;
                 }
                 vsh[i] = v;
             }
@@ -178,47 +211,78 @@ volume_group_stem_kernel(const float* __restrict__ ref,
     if (h >= H || w >= W) return;
     const bool approx = approximate != 0;
     const size_t vol = (size_t)D * plane;
-    float* yb = y + (size_t)b * CO * vol + (size_t)h * W + w;
+    Tout* yb = y + (size_t)b * CO * vol + (size_t)h * W + w;
 #pragma unroll
     for (int dd = 0; dd < kDc; ++dd) {
         const int d = d0 + dd;
         if (d >= D) break;
 #pragma unroll
-        for (int o = 0; o < CO; ++o)
-            yb[(size_t)o * vol + (size_t)d * plane] =
-                gelu(acc[dd][o] + shift[o], approx);
+        for (int o = 0; o < CO; ++o) {
+            const float v = kLow
+                ? __fadd_rn(__fmul_rn(acc[dd][o], scale[o]), shift[o])
+                : acc[dd][o] + shift[o];
+            put(yb + (size_t)o * vol + (size_t)d * plane, gelu(v, approx));
+        }
     }
 }
 
-template <int C, int G>
-int launch(const float* ref, const float* tgt, const float* wgt,
-           const float* shift, float* y, int B, int D, int H, int W,
-           int approximate, cudaStream_t stream) {
+template <int C, int G, typename Tin, typename Tw, typename Tout, bool kLow>
+int launch(const void* ref, const void* tgt, const void* wgt,
+           const float* scale, const float* shift, void* y, int B, int D,
+           int H, int W, int approximate, cudaStream_t stream) {
     const int tiles = ((W + kTw - 1) / kTw) * ((H + kTh - 1) / kTh);
     const dim3 grid(tiles, (D + kDc - 1) / kDc, B);
     const dim3 block(kTw, kTh);
-    volume_group_stem_kernel<C, G, 8><<<grid, block, 0, stream>>>(
-        ref, tgt, wgt, shift, y, D, H, W, approximate);
+    volume_group_stem_kernel<C, G, 8, Tin, Tw, Tout, kLow>
+        <<<grid, block, 0, stream>>>(
+            static_cast<const Tin*>(ref), static_cast<const Tin*>(tgt),
+            static_cast<const Tw*>(wgt), scale, shift, static_cast<Tout*>(y),
+            D, H, W, approximate);
     return (int)cudaGetLastError();
+}
+
+// The instances of one (C, G): form 0 fp32; 1 the bf16 form on bf16
+// descriptors (gwc); 2 the bf16 form on the fp32 normalised maps.
+template <int C, int G>
+int launch_form(int form, const void* ref, const void* tgt, const void* wgt,
+                const float* scale, const float* shift, void* y, int B, int D,
+                int H, int W, int approximate, cudaStream_t stream) {
+    using bf16 = __nv_bfloat16;
+    switch (form) {
+        case 0: return launch<C, G, float, float, float, false>(
+                    ref, tgt, wgt, scale, shift, y, B, D, H, W, approximate,
+                    stream);
+        case 1: return launch<C, G, bf16, bf16, bf16, true>(
+                    ref, tgt, wgt, scale, shift, y, B, D, H, W, approximate,
+                    stream);
+        case 2: return launch<C, G, float, bf16, bf16, true>(
+                    ref, tgt, wgt, scale, shift, y, B, D, H, W, approximate,
+                    stream);
+    }
+    return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// ref, tgt: (B, C, H, W), normalised beforehand for norm-correlation; wgt:
-// (CO, G, 3, 3, 3) with the BN scale folded in; shift: (CO,); y: (B, CO, D,
-// H, W). All fp32, contiguous. Returns a cudaError_t; cudaErrorInvalidValue
-// for an unsupported (C, G, CO).
-extern "C" int volume_group_stem(const float* ref, const float* tgt,
-                                 const float* wgt, const float* shift,
-                                 float* y, int B, int C, int G, int CO, int D,
-                                 int H, int W, int approximate,
+// ref, tgt: (B, C, H, W), normalised beforehand for norm-correlation (fp32
+// maps); y: (B, CO, D, H, W); all contiguous. form 0: fp32 descriptors, wgt
+// (CO, G, 3, 3, 3) fp32 with the BN scale folded in, scale unused, shift
+// (CO,), fp32 y; form 1: bf16 descriptors, form 2: the fp32 normalised maps
+// of bf16 descriptors, both with wgt bf16 raw, the BN's scale and shift
+// (CO,) fp32, and bf16 y. Returns a cudaError_t; cudaErrorInvalidValue for
+// an unsupported (C, G, CO, form).
+extern "C" int volume_group_stem(const void* ref, const void* tgt,
+                                 const void* wgt, const float* scale,
+                                 const float* shift, void* y, int B, int C,
+                                 int G, int CO, int D, int H, int W,
+                                 int form, int approximate,
                                  cudaStream_t stream) {
     if (CO != 8 || D < 1) return (int)cudaErrorInvalidValue;
     if (C == 64 && G == 32)
-        return launch<64, 32>(ref, tgt, wgt, shift, y, B, D, H, W,
-                              approximate, stream);
+        return launch_form<64, 32>(form, ref, tgt, wgt, scale, shift, y, B,
+                                   D, H, W, approximate, stream);
     if (C == 64 && G == 1)
-        return launch<64, 1>(ref, tgt, wgt, shift, y, B, D, H, W, approximate,
-                             stream);
+        return launch_form<64, 1>(form, ref, tgt, wgt, scale, shift, y, B, D,
+                                  H, W, approximate, stream);
     return (int)cudaErrorInvalidValue;
 }

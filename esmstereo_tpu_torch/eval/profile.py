@@ -22,14 +22,14 @@ CUDA device; the kernels build on first use.
 
 The deploy numerics of ``bench.py``: ``--dtype bfloat16 --fast-gelu``
 (bf16 compute, tanh GELU), and ``--volume-int8`` for the int8 volume, at
-every ``--cv-scale`` and ``--cost-volume`` and with ``--confidence``, but
-with no ``--fuse-*`` switch (``ESMStereoConfig`` refuses bf16 with one).
+every ``--cv-scale`` and ``--cost-volume``, with ``--confidence`` and with
+any ``--fuse-*`` switches (their kernels then run their bf16 forms).
 ``--fast-gelu`` sets the package's GELU switch, a process global, for the
 run.
 
 The switches select the configuration's opt-in kernel paths, as
-``bench.py``'s ``BENCH_FUSE_VOLUME_AGG`` and ``BENCH_FUSE_HOURGLASS`` do for
-the JAX model:
+``bench.py``'s ``BENCH_FUSE_VOLUME_AGG``, ``BENCH_FUSE_HOURGLASS`` and
+``BENCH_FUSE_MIXER`` do for the JAX model:
 
   --fuse-volume-agg     the volume built inside group_stem (kernel E in
                         place of B + C)
@@ -98,7 +98,7 @@ def main() -> None:
     ap.add_argument("--dtype", choices=("float32", "bfloat16"),
                     default="float32",
                     help="compute dtype; bfloat16 is the deploy numerics "
-                         "(any variant and volume, no --fuse-* switch)")
+                         "(any variant, volume and --fuse-* switches)")
     ap.add_argument("--fast-gelu", action="store_true",
                     help="tanh GELU (the package's global switch)")
     ap.add_argument("--volume-int8", action="store_true",
@@ -146,8 +146,8 @@ def run(args, config: ESMStereoConfig) -> None:
         frame_ms(model, left, right, 3)                    # build + warm up
         reset_launches()
         frame_ms(model, left, right, 1)
-        launched = {k: getattr(fn, "form_launches", None) or fn.launches
-                    for k, fn in kernels.items() if fn.launches}
+        launched = {k: dict(fn.form_launches) for k, fn in kernels.items()
+                    if fn.launches}
         wall = frame_ms(model, left, right, args.frames)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:

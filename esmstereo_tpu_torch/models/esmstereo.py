@@ -23,15 +23,18 @@ cv8), the hourglass levels, the stem_2 + stem_4 towers and the cv4
 upsampler's ShuffleMixer section. On CPU tensors their plain PyTorch
 versions run.
 
-The deploy numerics (``dtype="bfloat16"``, every variant and volume
-without a ``fuse_*`` switch): the modules compute in bf16 with fp32
-parameters and BN statistics (``nn.blocks``); kernel A writes bf16 (in
-either backbone's form), B builds the bf16 volume in its rounding (gwc or
+The deploy numerics (``dtype="bfloat16"``, every variant and volume, with
+any ``fuse_*`` switch): the modules compute in bf16 with fp32 parameters
+and BN statistics (``nn.blocks``); kernel A writes bf16 (in either
+backbone's form), B builds the bf16 volume in its rounding (gwc or
 normalised), the cv16 attention multiply runs in bf16, and C runs its bf16
 form (or, with ``volume_int8``, its int8 form on the quantised volume;
 at cv16 with the norm-correlation volume corr_stem and agg stay plain bf16
-modules). The cost is cast to fp32 before regression, and the disparity
-stream stays fp32 from there
+modules). The switches' kernels run their bf16 forms: E on the bf16
+descriptors, G and H on the bf16 volume's hourglass, F from the fp32 image
+to bf16 stems, I from the bf16 spx map to a bf16 map, each rounding its
+operands where the TPU kernel does. The cost is cast to fp32 before
+regression, and the disparity stream stays fp32 from there
 (``esmstereo_tpu/models/esmstereo.py:769-774``): the upsamplers' features
 are bf16, their 1-channel disparity sums fp32.
 """
@@ -68,8 +71,8 @@ class ESMStereoConfig:
     another backbone raises ``ValueError``, as the JAX config does;
     mobilenetv2_100 at cv4 raises ``NotImplementedError``. ``dtype``
     ``"bfloat16"`` (the deploy numerics of ``bench.py``) is ported for L,
-    M and S with either volume and no ``fuse_*`` switch; bf16 with a switch
-    raises ``NotImplementedError`` naming its ``ROADMAP.md`` item.
+    M and S with either volume and any ``fuse_*`` switches, as
+    ``bench.py``'s ``BENCH_FUSE_*`` settings run them.
     ``max_disp`` is floored to a multiple of ``cv_scale`` (``num_bins =
     max_disp // cv_scale``), as in JAX.
 
@@ -134,14 +137,6 @@ class ESMStereoConfig:
                 f"reduction 8; got cv_scale {self.cv_scale}, {rest}")
         if self.dtype not in ("float32", "bfloat16"):
             raise ValueError(f"dtype {self.dtype!r}")
-        if self.dtype == "bfloat16":
-            switches = [f.name for f in dataclasses.fields(self)
-                        if f.name.startswith("fuse_")
-                        and getattr(self, f.name)]
-            if switches:
-                raise NotImplementedError(
-                    f"bfloat16 with {switches}: the bf16 forms of kernels "
-                    "E, F, G, H and I are queued in ROADMAP.md §2 item 1")
 
     @property
     def torch_dtype(self) -> torch.dtype | None:
@@ -186,9 +181,11 @@ class FeatUp(nn.Module):
 
 def _level_fold(prepare, *names):
     """A ``folded_once`` fold of the named submodules of an
-    ``Aggregation3D`` (one function per level, so each keeps its memo)."""
+    ``Aggregation3D`` (one function per level, so each keeps its memo), in
+    the kernel's form for the blocks' compute dtype."""
     def fold(agg):
-        return prepare(*(getattr(agg, n) for n in names))
+        mods = [getattr(agg, n) for n in names]
+        return prepare(*mods, low_precision=blocks.computes_bf16(agg))
     return fold
 
 
@@ -209,8 +206,10 @@ class Aggregation3D(nn.Module):
     In eval mode ``fuse_pairs`` runs each down level (k3 s2 + k3 s1) as
     kernel G and ``fuse_up`` each up level (transposed conv, concat, 1x1x1,
     k3) as kernel H, as ``FoldedAggregation3D`` does
-    (``esmstereo_tpu/models/folded_agg.py:50-53``); ``conv1_up`` stays a
-    plain ``ConvBlock`` there and here."""
+    (``esmstereo_tpu/models/folded_agg.py:50-53``), in their bf16 forms at
+    the deploy numerics (the volume arrives in the model dtype, as
+    ``folded_agg.py:93-96`` casts it); ``conv1_up`` stays a plain
+    ``ConvBlock`` there and here."""
 
     def __init__(self, in_channels: int, add_channel: int, device=None,
                  fuse_pairs: bool = False, fuse_up: bool = False):
@@ -327,6 +326,12 @@ class SpxBlock(nn.Module):
         return apply_act(self.bn(self.conv1(self.conv0(x))), "gelu")
 
 
+def _mixer_consts(stage) -> dict:
+    """Kernel I's packed weights, rounded to bf16 in the bf16 form."""
+    return fused_mixer.prepare_consts(
+        stage, low_precision=blocks.computes_bf16(stage))
+
+
 class _UpStage(nn.Module):
     """One ESM stage of ``scale`` (2, or 4 at cv16): disparity features ->
     fuse -> (mix) -> shuffle-up by ``scale`` -> tail -> hourglass
@@ -358,9 +363,8 @@ class _UpStage(nn.Module):
     def forward(self, disp, fuse_feat, ref_f1, ref_f2):
         x = self.spx(torch.cat([self.dm(disp), fuse_feat], dim=1))
         if self.fuse_mixer and not self.training:
-            consts = folded_once(self, fused_mixer.prepare_consts,
-                                 self.to_feat, self.block0, self.block1,
-                                 self.up)
+            consts = folded_once(self, _mixer_consts, self.to_feat,
+                                 self.block0, self.block1, self.up)
             x = fused_mixer.mixer(x, consts)
         else:
             if self.use_mixer:
@@ -438,13 +442,16 @@ def _stem_agg_consts(model) -> dict:
     """Kernel C's weights: fp32 with BN folded, or the deploy forms' (bf16
     weights, fp32 BN scale and shift) for a bf16 model or an int8
     volume."""
-    low = model.config.dtype == "bfloat16" or model.volume_int8
+    low = blocks.computes_bf16(model.agg) or model.volume_int8
     return fused_agg_stem.prepare_consts(model.volume_stem, model.agg,
                                          low_precision=low)
 
 
 def _stems_consts(model) -> dict:
-    return fused_stems.prepare_consts(model.stem_2, model.stem_4)
+    """Kernel F's weights: fp32, or its deploy form's (bf16) at bf16."""
+    return fused_stems.prepare_consts(
+        model.stem_2, model.stem_4,
+        low_precision=blocks.computes_bf16(model.stem_2))
 
 
 # per cv_scale: stem widths (JAX esmstereo.py:517), the pyramid level and
@@ -578,7 +585,8 @@ class ESMStereo(nn.Module):
         if cfg.fuse_stems:
             # kernel F: each conv_down map stays in shared memory; stem_8
             # (and stem_16) run plain on F's stem_4, as in JAX
-            # (esmstereo.py:568-572)
+            # (esmstereo.py:568-572). Its deploy form takes the fp32 image
+            # and writes bf16, as JAX casts F's outputs (:563-567)
             consts = folded_once(self, _stems_consts, self.stem_2,
                                  self.stem_4)
             stems = list(fused_stems.stems(both, consts, approx))

@@ -55,6 +55,14 @@ def set_compute_dtype(model: nn.Module, dtype: torch.dtype | None) -> None:
             m.compute_dtype = dtype
 
 
+def computes_bf16(module: nn.Module) -> bool:
+    """Whether ``module`` computes in bf16 (``set_compute_dtype``; the
+    deploy numerics): the one rule by which the model picks a kernel's
+    deploy form for the modules the kernel replaces."""
+    return any(getattr(m, "compute_dtype", None) == torch.bfloat16
+               for m in module.modules())
+
+
 def apply_act(x: torch.Tensor, act: str | None) -> torch.Tensor:
     if act is None:
         return x
@@ -202,6 +210,14 @@ def fold_bn(weight: torch.Tensor, bn: nn.Module, axis: int = 0
     shape = [1] * weight.ndim
     shape[axis] = -1
     return weight * inv.view(shape), bn.bias - bn.running_mean * inv
+
+
+def bn_scale_shift(bn: nn.Module) -> tuple[torch.Tensor, torch.Tensor]:
+    """An eval BatchNorm as ``y = x * scale + shift``, in JAX's order
+    (``esmstereo_tpu/ops/pallas/fused_agg_stem.py:42-48``): the deploy
+    forms of the kernels apply it after their fp32 sums."""
+    inv = bn.weight * torch.rsqrt(bn.running_var + bn.eps)
+    return inv, bn.bias - bn.running_mean * inv
 
 
 def folded_once(owner: nn.Module, fold, *sources: nn.Module):

@@ -15,24 +15,31 @@ its plain PyTorch version, with the forms each wrapper takes:
     3-D convs, G = 32 or 1 volume channels, any depth; fp32, and on a bf16
     or int8 volume with bf16 operands (the deploy forms)
   * ``fused_agg_stem.volume_stem_agg``  kernel E, B + C with the volume built
-    inside group_stem (``fuse_volume_agg``; cv4 and cv8 only)
+    inside group_stem (``fuse_volume_agg``; cv4 and cv8 only); fp32, and
+    on bf16 descriptors as B's bf16 form followed by C's
   * ``fused_hourglass.down_pair``       kernel G, one hourglass down level
     (``fuse_hourglass``), any number of output channels (tiled by 8, the
-    last tile masked: L's 24/40/72, M's 16/24/40, S's 12/16/24)
+    last tile masked: L's 24/40/72, M's 16/24/40, S's 12/16/24); fp32 and
+    bf16
   * ``fused_hourglass.up_pair``         kernel H, one hourglass up level
-    (``fuse_hourglass_up``), the same channel rule, at most 128
+    (``fuse_hourglass_up``), the same channel rule, at most 128; fp32 and
+    bf16
   * ``fused_stems.stems``               kernel F, stem_2 + stem_4
     (``fuse_stems``), at the widths ``fused_stems.WIDTHS``: (32, 48) for L
-    and M, (16, 24) for S
+    and M, (16, 24) for S; fp32, and the deploy form (bf16 operands, bf16
+    out)
   * ``fused_mixer.mixer``               kernel I, the cv4 upsampler's
-    ShuffleMixer section (``fuse_mixer``; L only)
+    ShuffleMixer section (``fuse_mixer``; L only); fp32 and bf16
+
+Each deploy form rounds its operands to bf16 where the TPU kernel does,
+sums in fp32 and applies BN after the fp32 sum.
 
 A wrapper runs the plain version when its tensors lie on the CPU and
 launches its kernel when they lie on a CUDA device, raising on anything the
 kernel does not take (a dtype outside the wrapper's list among them); it
 never falls back. ``wrapper.launches`` counts the calls that launched the
 kernel, and ``wrapper.form_launches`` the same by form (``"fp32"``,
-``"bf16"``, ``"int8"``) for the wrappers with deploy forms.
+``"bf16"``, ``"int8"``; kernel B's ``correlation.volume_form`` names).
 
 Kernels launch on the current stream and allocate nothing; the wrappers
 allocate outputs and scratch with ``torch.empty``. Scratch that goes out of
@@ -92,8 +99,7 @@ def reset_launches() -> None:
     """Set every wrapper's launch counts to 0."""
     for fn in wrappers().values():
         fn.launches = 0
-        if hasattr(fn, "form_launches"):
-            fn.form_launches = {}
+        fn.form_launches = {}
 
 
 def stream_handle(t: torch.Tensor) -> int:

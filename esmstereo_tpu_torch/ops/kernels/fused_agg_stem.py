@@ -22,12 +22,20 @@ volume, ``out_dtype``). On the CPU nothing reproduces the TPU's operand
 rounding (interpret mode runs fp32 operands), so the plain forms are held
 against interpret mode at a stated number of bf16 ulps.
 
+E's bf16 form takes bf16 descriptors and C's deploy-form consts and
+rounds where the TPU kernel rounds (``fused_agg_stem.py:448-453`` there):
+the volume in kernel B's bf16 rounding, then C's bf16 form, so its plain
+version is B's plain bf16 form followed by C's, and the kernel equals that
+pair without ever holding the volume.
+
 On CUDA, C's wrapper launches the direct-conv kernel twice (G -> 8, then
 8 -> 8; G = 32 for gwc, 1 for norm-correlation), with the 8-channel
 intermediate in device memory (bf16 in the deploy forms). E's launches
 the volume + group_stem kernel, then C's 8 -> 8 conv; it reads the two descriptor maps and never
 allocates the volume. Its normalised form first writes the two
-L2-normalised maps into scratch with kernel B's ``l2_normalize_groups``.
+L2-normalised maps into scratch (fp32, from fp32 or bf16 descriptors) with
+kernel B's ``l2_normalize_groups``. Both wrappers count launches by form
+(``form_launches``).
 """
 
 from __future__ import annotations
@@ -38,23 +46,16 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from esmstereo_tpu_torch.nn.blocks import fold_bn
+from esmstereo_tpu_torch.nn.blocks import bn_scale_shift, fold_bn
 from esmstereo_tpu_torch.ops.kernels import (_build, count_launch, on_cuda,
                                              stream_handle)
 from esmstereo_tpu_torch.ops.kernels.activations import gelu
 from esmstereo_tpu_torch.ops.kernels import correlation
 from esmstereo_tpu_torch.ops.kernels.fused_hourglass import (
-    conv3d_bn_gelu, conv3d_bn_gelu_bf16)
+    bn_gelu, conv3d_bn_gelu, conv3d_bn_gelu_bf16)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-
-
-def bn_scale_shift(bn) -> tuple[torch.Tensor, torch.Tensor]:
-    """An eval BatchNorm as ``y = x * scale + shift``, in JAX's order
-    (``esmstereo_tpu/ops/pallas/fused_agg_stem.py:42-48``)."""
-    inv = bn.weight * torch.rsqrt(bn.running_var + bn.eps)
-    return inv, bn.bias - bn.running_mean * inv
 
 
 def prepare_consts(stem_block, agg_block, low_precision: bool = False
@@ -110,10 +111,8 @@ def stem_agg_plain(vol: torch.Tensor, consts: dict, approximate: bool,
                     approximate)
 
     def layer(x, i):
-        y = F.conv3d(x, consts[f"w{i}"].float(), padding=1)
-        view = (1, -1, 1, 1, 1)
-        y = y * consts[f"s{i}"].view(view) + consts[f"t{i}"].view(view)
-        return gelu(y, approximate)
+        return bn_gelu(F.conv3d(x, consts[f"w{i}"].float(), padding=1),
+                       consts[f"s{i}"], consts[f"t{i}"], approximate)
 
     y = layer(vol.float(), 1).to(torch.bfloat16).float()
     return layer(y, 2).to(_out_dtype(vol, out_dtype))
@@ -177,7 +176,8 @@ stem_agg.form_launches = {}
 def volume_stem_agg_plain(ref: torch.Tensor, tgt: torch.Tensor, consts: dict,
                           max_disp: int, num_groups: int, approximate: bool,
                           normalize: bool = False) -> torch.Tensor:
-    """Plain PyTorch version: kernel B's plain volume, then C's."""
+    """Plain PyTorch version: kernel B's plain volume (its bf16 form on
+    bf16 descriptors), then C's."""
     vol = correlation.correlation_volume_plain(ref, tgt, max_disp, num_groups,
                                                normalize)
     return stem_agg_plain(vol, consts, approximate)
@@ -187,7 +187,7 @@ def volume_stem_agg_plain(ref: torch.Tensor, tgt: torch.Tensor, consts: dict,
 def _volume_fn():
     lib = _build.load("fused_volume_agg")
     fn = lib.volume_group_stem
-    fn.argtypes = [_P, _P, _P, _P, _P] + [_I] * 8 + [_P]
+    fn.argtypes = [_P] * 6 + [_I] * 9 + [_P]
     fn.restype = _I
     return fn
 
@@ -200,7 +200,9 @@ def volume_stem_agg(ref: torch.Tensor, tgt: torch.Tensor, consts: dict,
     ``D = max_disp``: kernel E on CUDA tensors (the (B, G, D, H, W) volume
     is never allocated), the plain version on CPU tensors. Kernel E takes
     C=64 with G=32 (gwc) or G=1 (norm-correlation), with or without
-    ``normalize``; it never falls back to B + C."""
+    ``normalize``; it never falls back to B + C. fp32 descriptors take
+    fp32 ``consts`` and give fp32; bf16 ones (the bf16 form) take
+    ``prepare_consts(..., low_precision=True)`` and give bf16."""
     if ref.shape != tgt.shape or ref.ndim != 4:
         raise ValueError(f"volume_stem_agg: shapes {tuple(ref.shape)} "
                          f"{tuple(tgt.shape)}")
@@ -213,22 +215,39 @@ def volume_stem_agg(ref: torch.Tensor, tgt: torch.Tensor, consts: dict,
         raise ValueError(f"volume_stem_agg: group_stem weight "
                          f"{tuple(consts['w1'].shape)} for {num_groups} "
                          f"groups")
-    if not on_cuda("volume_stem_agg", ref, tgt, *consts.values()):
+    if ref.dtype != tgt.dtype:
+        raise TypeError(f"volume_stem_agg: {ref.dtype} and {tgt.dtype}")
+    form = "bf16" if ref.dtype == torch.bfloat16 else "fp32"
+    if _low_precision(consts) != (form == "bf16"):
+        raise TypeError(f"volume_stem_agg: {ref.dtype} descriptors with "
+                        f"{consts['w1'].dtype} weights")
+    if not on_cuda("volume_stem_agg", ref, tgt, *consts.values(),
+                   dtypes=(torch.float32, torch.bfloat16)):
         return volume_stem_agg_plain(ref, tgt, consts, max_disp, num_groups,
                                      approximate, normalize)
     correlation.check_kernel_form("volume_stem_agg", c, num_groups)
     if normalize:
         ref, tgt = correlation.l2_normalize_pair(ref, tgt, num_groups)
-    y = torch.empty((b, 8, max_disp, h, w), device=ref.device,
-                    dtype=torch.float32)
+    # the kernel's form code: fp32; bf16 descriptors; fp32 normalised maps
+    # of bf16 descriptors
+    code = 0 if form == "fp32" else (2 if normalize else 1)
+    dtype = torch.float32 if form == "fp32" else torch.bfloat16
+    # the fp32 form's weights carry the BN scale; it takes no scale
+    scale = None if form == "fp32" else consts["s1"].data_ptr()
+    y = torch.empty((b, 8, max_disp, h, w), device=ref.device, dtype=dtype)
     err = _volume_fn()(ref.data_ptr(), tgt.data_ptr(), consts["w1"].data_ptr(),
-                       consts["t1"].data_ptr(), y.data_ptr(), b, c,
-                       num_groups, 8, max_disp, h, w, int(approximate),
+                       scale, consts["t1"].data_ptr(), y.data_ptr(), b, c,
+                       num_groups, 8, max_disp, h, w, code, int(approximate),
                        stream_handle(ref))
     _build.check(err, "volume_stem_agg")
-    y = conv3d_bn_gelu(y, consts["w2"], consts["t2"], 1, approximate)
-    volume_stem_agg.launches += 1
+    if form == "fp32":
+        y = conv3d_bn_gelu(y, consts["w2"], consts["t2"], 1, approximate)
+    else:
+        y = conv3d_bn_gelu_bf16(y, consts["w2"], consts["s2"], consts["t2"],
+                                dtype, approximate)
+    count_launch(volume_stem_agg, form)
     return y
 
 
 volume_stem_agg.launches = 0
+volume_stem_agg.form_launches = {}

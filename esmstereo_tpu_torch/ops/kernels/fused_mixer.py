@@ -16,8 +16,17 @@ stage.to_feat(x))))``.
 matrices are not ported. The plain version reads the packed tensor through
 the same layout, so the CPU tests exercise the packing.
 
+The bf16 form (a bf16 input, with ``prepare_consts(...,
+low_precision=True)``) rounds where the TPU kernel's bf16 matmul operands
+round (``fused_mixer.py:198-209`` there, whatever the model's dtype): the
+conv and linear weights in the packed tensor, and each such layer's input,
+to bf16 (``ROUNDINGS`` names the inputs' steps); the LayerNorm statistics
+(``_mm(..., False)`` there), sums, biases and the residual stream stay
+fp32, and the output is bf16, as ``phased_upsample.py:497`` casts it.
+
 On CUDA a call makes seven launches (``csrc/fused_mixer.cu`` says where
-the section is split); it counts as one launch.
+the section is split); it counts as one launch, by form in
+``form_launches``.
 """
 
 from __future__ import annotations
@@ -29,7 +38,8 @@ import torch
 import torch.nn.functional as F
 
 from esmstereo_tpu_torch.nn.shufflemixer import channel_shuffle
-from esmstereo_tpu_torch.ops.kernels import _build, on_cuda, stream_handle
+from esmstereo_tpu_torch.ops.kernels import (_build, count_launch, on_cuda,
+                                             stream_handle)
 from esmstereo_tpu_torch.ops.sampling import pixel_shuffle
 
 _P = ctypes.c_void_p
@@ -61,6 +71,10 @@ def _layout() -> tuple:
 
 LAYOUT = _layout()
 PARAMS_SIZE = sum(int(torch.Size(s).numel()) for _, s in LAYOUT)
+# the packed entries that are matmul operands (rounded to bf16 in the bf16
+# form); the norms and biases stay fp32
+_WEIGHTS = ("to_feat", "fc1_w", "fc2_w", "dw_w", "expand_w", "project_w",
+            "up_w")
 
 
 def unpack(packed: torch.Tensor) -> dict:
@@ -82,9 +96,11 @@ def _taps_last(w: torch.Tensor) -> torch.Tensor:
     return w.permute(1, 2, 3, 0).reshape(w.shape[1], 9, w.shape[0])
 
 
-def prepare_consts(stage) -> dict:
+def prepare_consts(stage, low_precision: bool = False) -> dict:
     """The packed weights of a mixer stage (the port's ``_UpStage`` with
-    ``use_mixer``): ``{"packed": (PARAMS_SIZE,) tensor}``."""
+    ``use_mixer``): ``{"packed": (PARAMS_SIZE,) fp32 tensor}``; with
+    ``low_precision`` (the bf16 form's) the conv and linear weights in it
+    are rounded to bf16."""
     vals = {"to_feat": _taps_last(stage.to_feat.weight)}
     for b in ("block0", "block1"):
         blk = getattr(stage, b)
@@ -110,51 +126,76 @@ def prepare_consts(stage) -> dict:
         if tuple(vals[name].shape) != shape:
             raise ValueError(f"mixer: {name} {tuple(vals[name].shape)}, the "
                              f"16-wide section has {shape}")
+    if low_precision:
+        vals = {n: v.to(torch.bfloat16).float()
+                if n.split(".")[-1] in _WEIGHTS else v
+                for n, v in vals.items()}
     packed = torch.cat([vals[n].reshape(-1) for n, _ in LAYOUT]).contiguous()
     return {"packed": packed}
 
 
-def mixer_plain(x: torch.Tensor, consts: dict) -> torch.Tensor:
-    """Plain PyTorch version: (B, 32, H, W) -> (B, 16, 2H, 2W)."""
-    p = unpack(consts["packed"])
+# the bf16 form's rounding steps, by the operand each rounds (the
+# LayerNorm output splits into fc1's half and the half that passes through
+# to the residual stream)
+ROUNDINGS = ("fc1", "pass_through", "fc2", "dw", "expand", "project", "up")
 
-    def conv(v, w, b=None, groups=1):
-        return F.conv2d(v, w, b, padding=w.shape[-1] // 2, groups=groups)
+
+def mixer_plain(x: torch.Tensor, consts: dict,
+                exact: tuple = ()) -> torch.Tensor:
+    """Plain PyTorch version: (B, 32, H, W) -> (B, 16, 2H, 2W); in the bf16
+    form each conv's and linear layer's input rounded to bf16, the rest in
+    fp32, and the output in bf16. The steps of ``ROUNDINGS`` named in
+    ``exact`` keep their operand in fp32 (a check that the comparison sees
+    each rounding)."""
+    p = unpack(consts["packed"])
+    low = x.dtype == torch.bfloat16
+
+    def operand(t, step):
+        return t.to(torch.bfloat16).float() if low and step not in exact \
+            else t
+
+    def conv(v, step, w, b=None, groups=1):
+        return F.conv2d(operand(v, step), w, b, padding=w.shape[-1] // 2,
+                        groups=groups)
 
     def mlp_residual(v, pre):
         mu = v.mean(dim=1, keepdim=True)
         var = v.var(dim=1, keepdim=True, unbiased=False)
-        n = (v - mu) / torch.sqrt(var + _LN_EPS) * p[pre + "norm"].view(
-            1, -1, 1, 1)
-        h = F.silu(conv(n[:, :_C // 2], p[pre + "fc1_w"][..., None, None],
-                        p[pre + "fc1_b"]))
-        y1 = conv(h, p[pre + "fc2_w"][..., None, None], p[pre + "fc2_b"])
-        return v + channel_shuffle(torch.cat([y1, n[:, _C // 2:]], dim=1), 8)
+        n = ((v - mu) / torch.sqrt(var + _LN_EPS)
+             * p[pre + "norm"].view(1, -1, 1, 1))
+        h = F.silu(conv(n[:, :_C // 2], "fc1",
+                        p[pre + "fc1_w"][..., None, None], p[pre + "fc1_b"]))
+        y1 = conv(h, "fc2", p[pre + "fc2_w"][..., None, None],
+                  p[pre + "fc2_b"])
+        rest = operand(n[:, _C // 2:], "pass_through")
+        return v + channel_shuffle(torch.cat([y1, rest], dim=1), 8)
 
     def taps(w):            # (I, 9, O) -> (O, I, 3, 3)
         return w.permute(2, 0, 1).reshape(w.shape[2], w.shape[0], 3, 3)
 
-    v = conv(x, taps(p["to_feat"]))
+    v = conv(x.to(p["to_feat"].dtype), "to_feat", taps(p["to_feat"]))
     for b in ("block0", "block1"):
         y = v
         for s in ("sm1", "sm2"):
             pre = f"{b}.{s}."
             y = mlp_residual(y, pre + "1.")
-            y = conv(y, p[pre + "dw_w"].view(_C, 1, 7, 7), p[pre + "dw_b"],
-                     groups=_C)
+            y = conv(y, "dw", p[pre + "dw_w"].view(_C, 1, 7, 7),
+                     p[pre + "dw_b"], groups=_C)
             y = mlp_residual(y, pre + "2.")
         x2 = y + v
-        z = F.silu(conv(x2, taps(p[b + ".expand_w"]), p[b + ".expand_b"]))
-        v = conv(z, p[b + ".project_w"][..., None, None],
+        z = F.silu(conv(x2, "expand", taps(p[b + ".expand_w"]),
+                        p[b + ".expand_b"]))
+        v = conv(z, "project", p[b + ".project_w"][..., None, None],
                  p[b + ".project_b"]) + x2
-    y = conv(v, p["up_w"][..., None, None], p["up_b"])
-    return F.silu(pixel_shuffle(y, 2))
+    y = conv(v, "up", p["up_w"][..., None, None], p["up_b"])
+    y = F.silu(pixel_shuffle(y, 2))
+    return y.to(torch.bfloat16) if low else y
 
 
 @functools.cache
 def _lib():
     lib = _build.load("fused_mixer")
-    lib.fused_mixer.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P]
+    lib.fused_mixer.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
     lib.fused_mixer.restype = _I
     lib.mixer_params_size.argtypes = []
     lib.mixer_params_size.restype = _I
@@ -164,29 +205,36 @@ def _lib():
 
 
 def mixer(x: torch.Tensor, consts: dict) -> torch.Tensor:
-    """(B, 32, H, W) -> (B, 16, 2H, 2W): the kernel on CUDA tensors, the
-    plain version on CPU tensors."""
+    """(B, 32, H, W) -> (B, 16, 2H, 2W), fp32 or, in the bf16 form (a bf16
+    ``x``, its consts from ``prepare_consts(..., low_precision=True)``),
+    bf16: the kernel on CUDA tensors, the plain version on CPU tensors.
+    The form follows ``x``'s dtype, as in the other wrappers."""
     if x.ndim != 4 or x.shape[1] != _CIN or x.shape[2] == 0 \
             or x.shape[3] == 0:
         raise ValueError(f"mixer: input {tuple(x.shape)}; the kernel takes "
                          f"(B, {_CIN}, H, W)")
+    form = "bf16" if x.dtype == torch.bfloat16 else "fp32"
     packed = consts["packed"]
-    if not on_cuda("mixer", x, packed):
+    if not on_cuda("mixer", x, packed,
+                   dtypes=(torch.float32, torch.bfloat16)):
         return mixer_plain(x, consts)      # unpack raises on another width
     lib = _lib()
     if packed.shape != (lib.mixer_params_size(),):
         raise ValueError(f"mixer: packed parameters {tuple(packed.shape)}, "
                          f"the kernel takes ({lib.mixer_params_size()},)")
+    if packed.dtype != torch.float32:
+        raise TypeError(f"mixer: packed parameters {packed.dtype}")
     b, _, h, w = x.shape
     ws = torch.empty(lib.mixer_workspace_floats(b, h, w), device=x.device,
                      dtype=torch.float32)
-    out = torch.empty((b, _C, 2 * h, 2 * w), device=x.device,
-                      dtype=torch.float32)
+    out = torch.empty((b, _C, 2 * h, 2 * w), device=x.device, dtype=x.dtype)
     err = lib.fused_mixer(x.data_ptr(), packed.data_ptr(), out.data_ptr(),
-                          ws.data_ptr(), b, h, w, stream_handle(x))
+                          ws.data_ptr(), b, h, w, int(form == "bf16"),
+                          stream_handle(x))
     _build.check(err, "mixer")
-    mixer.launches += 1
+    count_launch(mixer, form)
     return out
 
 
 mixer.launches = 0
+mixer.form_launches = {}

@@ -254,11 +254,11 @@ def test_s_all_switch_matches_jax():
 
 
 def test_s_guards():
-    """cv16 is S: mobilenetv2_100 in either volume, with any switch;
+    """cv16 is S: mobilenetv2_100 in either volume, with any switch, in
+    fp32 and in bf16 (S-deploy-all: tests/test_torch_deploy_switches.py);
     cv16 with efficientnet_b2 raises ``ValueError`` (the JAX rule);
-    mobilenetv2_100 at cv4 and bf16 with a switch are not ported (S in
-    bf16 is: tests/test_torch_deploy_variants.py). The S forms of the
-    wrappers run their plain versions on CPU tensors and launch nothing."""
+    mobilenetv2_100 at cv4 is not ported. The S forms of the wrappers run
+    their plain versions on CPU tensors and launch nothing."""
     for volume in ("gwc", "norm_correlation"):
         ESMStereoConfig(**S, cost_volume=volume, **ALL)
     with pytest.raises(ValueError):
@@ -266,8 +266,7 @@ def test_s_guards():
     with pytest.raises(NotImplementedError):
         ESMStereoConfig(backbone="mobilenetv2_100")
     ESMStereoConfig(**S, dtype="bfloat16")
-    with pytest.raises(NotImplementedError):
-        ESMStereoConfig(**S, dtype="bfloat16", **ALL)
+    ESMStereoConfig(**S, dtype="bfloat16", **ALL)
     model = ESMStereo(ESMStereoConfig(**S, **ALL), device="cpu", seed=6)
     sc = fused_stems.prepare_consts(model.stem_2, model.stem_4)
     with pytest.raises(ValueError):            # a width set with no instance

@@ -8,8 +8,10 @@ mode, bit for bit; kernel C's bf16 and int8 forms against
 the TPU rounds them to bf16, so at a stated number of bf16 ulps; kernel A's
 bf16 output against ``FusedHeadPyramid(dtype=bfloat16)``. Then the L-deploy
 model (``ESMStereoConfig(dtype="bfloat16")`` under tanh GELU) against the
-JAX deploy model, its int8-volume form against itself, and the guards of
-the bf16 configuration.
+JAX deploy model, its int8-volume form against itself, L-deploy-all and
+each ``fuse_*`` switch alone at L-deploy against the JAX deploy model (the
+switches' bf16 forms are in tests/test_torch_deploy_switches.py), and the
+guards of the bf16 configuration.
 
 The CUDA kernels run only on the card (``chip_smoke.py`` holds each form
 against its plain version there); on CPU tensors the wrappers run their
@@ -52,6 +54,20 @@ torch.set_num_threads(2)
 H, W = 64, 128
 L_PARAMS = 6_796_056          # ACCURACY.json, the L row
 DEPLOY = ESMStereoConfig(dtype="bfloat16")
+SWITCHES = ("fuse_volume_agg", "fuse_hourglass", "fuse_hourglass_up",
+            "fuse_stems", "fuse_mixer")
+# L-deploy-all and each switch alone at L-deploy: name -> switches
+SWITCHED = {"all": dict.fromkeys(SWITCHES, True),
+            **{k: {k: True} for k in SWITCHES}}
+# The switched cases' disparity against the JAX L-deploy in multiples of
+# the deploy numerics' own error, where 1x does not hold on this draw:
+# cv4's top-2 regression flips bins on the init-rule weights' near-flat
+# cost, and G's and H's bf16 forms round where the TPU kernels do, not
+# where JAX's plain modules do. Measured: fuse_hourglass's disparity mean
+# 1.023x (its flips 6.24% against the JAX L-deploy's own 6.69%),
+# fuse_hourglass_up's flips 7.01% (mean 0.993x). Every other case, and
+# every cost, holds at 1x.
+SWITCHED_TIMES = {"fuse_hourglass": 2.0, "fuse_hourglass_up": 2.0}
 FAST_COMPILE = {"xla_llvm_disable_expensive_passes": True}
 # The JAX bf16 reference rounds where its program says (each op's bf16
 # output), as flax's dtype semantics and the port do; XLA's CPU default
@@ -261,39 +277,47 @@ def jax_variables_from_port(model: torch.nn.Module, shapes) -> dict:
 
 @pytest.fixture(scope="module")
 def deploy():
-    """One 64x128 pair through: the JAX L in fp32 with exact GELU (the
-    reference numerics) and the JAX L-deploy (bf16, tanh GELU), in one JAX
-    program; the port's L-deploy and L-deploy-int8. The weights follow the
-    reference's init rules (those of tests/test_bf16.py's deploy test),
+    """One 64x128 pair through: the JAX L-deploy (bf16, tanh GELU); the
+    port's L in fp32 with exact GELU (the reference numerics, the fp32 side
+    of the deploy numerics' own error: the port's fp32 L is held to JAX's
+    at 1e-4 relative in tests/test_torch_model.py, which spares a second
+    JAX program); the port's L-deploy and L-deploy-int8. The weights follow
+    the reference's init rules (those of tests/test_bf16.py's deploy test),
     drawn by the port from seed 0 and carried to JAX by the bridge run
-    backwards. Returns ``{name: {"cost", "disparity"}}`` as numpy fp32."""
+    backwards. The port also runs L-deploy-all and each switch alone at
+    L-deploy (``SWITCHED``). Returns ``{name: {"cost", "disparity"}}`` as
+    numpy fp32."""
     rng = np.random.default_rng(0)
     left = rng.standard_normal((1, H, W, 3)).astype(np.float32)
     right = rng.standard_normal((1, H, W, 3)).astype(np.float32)
     port = ESMStereo(device="cpu", seed=0)
-    j32, j16 = JaxESMStereo(JaxConfig()), JaxESMStereo(
-        JaxConfig(dtype=jnp.bfloat16))
+    j16 = JaxESMStereo(JaxConfig(dtype=jnp.bfloat16))
     variables = jax_variables_from_port(port, jax.eval_shape(
-        j32.init, jax.random.key(0), left, right))
+        j16.init, jax.random.key(0), left, right))
 
     def run(v, l, r):
-        exact = j32.apply(v, l, r, capture_internals=True)
         jblocks.set_gelu_approximate(True)
         try:
-            return exact, j16.apply(v, l, r, capture_internals=True)
+            return j16.apply(v, l, r, capture_internals=True)
         finally:
             jblocks.set_gelu_approximate(False)
 
-    runs = jax.jit(run, compiler_options=LITERAL_BF16)(variables, left, right)
-    out = {name: {"cost": np.asarray(aux["cost"], np.float32),
-                  "disparity": np.asarray(disp[0], np.float32)}
-           for name, (disp, aux) in zip(("jax_fp32", "jax_bf16"), runs)}
+    disp, aux = jax.jit(run, compiler_options=LITERAL_BF16)(variables, left,
+                                                             right)
+    out = {"jax_bf16": {"cost": np.asarray(aux["cost"], np.float32),
+                        "disparity": np.asarray(disp[0], np.float32)}}
+    with torch.inference_mode():
+        disp, aux = port(torch.from_numpy(left), torch.from_numpy(right),
+                         capture_internals=True)
+    out["fp32"] = {"cost": aux["cost"].numpy(), "disparity": disp[0].numpy()}
     sd = state_dict_from_jax(jax.tree.map(np.asarray, variables), DEPLOY)
     blocks.set_gelu_approximate(True)
     try:
         for name, cfg in (("bf16", DEPLOY),
                           ("int8", ESMStereoConfig(dtype="bfloat16",
-                                                   volume_int8=True))):
+                                                   volume_int8=True)),
+                          *((k, ESMStereoConfig(dtype="bfloat16", **kw))
+                            for k, kw in SWITCHED.items())):
             model = ESMStereo(cfg, device="cpu")
             model.load_state_dict(sd)
             with torch.inference_mode():
@@ -319,9 +343,9 @@ def _flips(a: np.ndarray, b: np.ndarray) -> tuple[float, float]:
 def test_l_deploy_cost_matches_jax_bf16(deploy):
     """The cost (continuous, before regression): the port's L-deploy is no
     further from the JAX L-deploy, in max and in mean, than the JAX
-    L-deploy is from the JAX fp32 model (the deploy numerics' own error)."""
+    L-deploy is from the fp32 model (the deploy numerics' own error)."""
     port, j16, j32 = (deploy[k]["cost"] for k in ("bf16", "jax_bf16",
-                                                   "jax_fp32"))
+                                                   "fp32"))
     assert port.shape == j16.shape == (1, 48, H // 4, W // 4)
     assert np.isfinite(port).all()
     ours, own = np.abs(port - j16), np.abs(j16 - j32)
@@ -331,14 +355,14 @@ def test_l_deploy_cost_matches_jax_bf16(deploy):
 
 def test_l_deploy_disparity_matches_jax_bf16(deploy):
     """The disparity: no further from the JAX L-deploy, in max and in mean,
-    than the JAX L-deploy is from the JAX fp32 model; and within
+    than the JAX L-deploy is from the fp32 model; and within
     tests/test_bf16.py's bounds (< 5% of pixels off by more than 1 px, a
     mean under 0.05 px over the others), or, where the JAX L-deploy itself
     misses a bound against fp32 on this draw (cv4's top-2 regression flips
     bins on the near-flat cost of init-rule weights), within the JAX
     L-deploy's own figure."""
     port, j16, j32 = (deploy[k]["disparity"] for k in ("bf16", "jax_bf16",
-                                                        "jax_fp32"))
+                                                        "fp32"))
     assert port.shape == (1, H, W) and np.isfinite(port).all()
     ours, own = np.abs(port - j16), np.abs(j16 - j32)
     assert ours.max() <= own.max(), (ours.max(), own.max())
@@ -348,16 +372,45 @@ def test_l_deploy_disparity_matches_jax_bf16(deploy):
     assert sub < max(0.05, own_sub), (sub, own_sub)
 
 
+@pytest.mark.parametrize("name", list(SWITCHED))
+def test_l_deploy_switches_match_jax_bf16(deploy, name):
+    """L-deploy-all and each switch alone at L-deploy, the switches'
+    kernels in their bf16 forms, against the JAX L-deploy (on the CPU the
+    JAX switches change nothing but ``fuse_stems``' fp32 stems, so its
+    L-deploy is the reference), held as L-deploy is: the cost and the
+    disparity no further, in max and in mean, than the JAX L-deploy is
+    from the fp32 model, and the disparity within tests/test_bf16.py's
+    flip and sub-pixel bounds (or the JAX L-deploy's own figures where it
+    misses them on this draw); the disparity of the cases in
+    ``SWITCHED_TIMES`` within that many times those bounds."""
+    j16, j32 = deploy["jax_bf16"], deploy["fp32"]
+    port = deploy[name]
+    times = SWITCHED_TIMES.get(name, 1.0)
+    for key in ("cost", "disparity"):
+        assert port[key].shape == j16[key].shape
+        assert np.isfinite(port[key]).all()
+        ours, own = np.abs(port[key] - j16[key]), np.abs(j16[key] - j32[key])
+        t = times if key == "disparity" else 1.0
+        assert ours.max() <= t * own.max(), (key, ours.max(), own.max())
+        assert ours.mean() <= t * own.mean(), (key, ours.mean(), own.mean())
+    (flips, sub), (own_flips, own_sub) = (
+        _flips(port["disparity"], j16["disparity"]),
+        _flips(j16["disparity"], j32["disparity"]))
+    assert flips < times * max(0.05, own_flips), (flips, own_flips)
+    assert sub < times * max(0.05, own_sub), (sub, own_sub)
+
+
 def test_l_deploy_int8_near_l_deploy(deploy):
     """L-deploy-int8 against the port's own L-deploy: the 95th percentile
     of the disparity difference under 1 px (the bound of
     tests/test_fused_agg_stem.py::test_int8_volume_full_model), or, where
     the bf16 numerics themselves move it further on this draw (the JAX
-    L-deploy against fp32), under that; and the int8 volume moves the
+    L-deploy against the fp32 model), under that; and the int8 volume
+    moves the
     cost."""
     q, b = deploy["int8"], deploy["bf16"]
     own = np.quantile(np.abs(deploy["jax_bf16"]["disparity"]
-                             - deploy["jax_fp32"]["disparity"]), 0.95)
+                             - deploy["fp32"]["disparity"]), 0.95)
     q95 = np.quantile(np.abs(q["disparity"] - b["disparity"]), 0.95)
     assert np.isfinite(q["disparity"]).all()
     assert q95 < max(1.0, own), (q95, own)
@@ -367,21 +420,21 @@ def test_l_deploy_int8_near_l_deploy(deploy):
 def test_deploy_guards():
     """Parameters and BN statistics stay fp32 (6,796,056 parameters, the
     bridge maps every key of the bf16 model); bf16 at M, S and with the
-    norm-correlation volume is ported, and bf16 with a ``fuse_*`` switch
-    raises ``NotImplementedError``."""
+    norm-correlation volume is ported, and bf16 with each ``fuse_*``
+    switch, and with all five, builds with L's parameters and keys."""
     model = ESMStereo(DEPLOY, device="meta")
     assert sum(p.numel() for p in model.parameters()) == L_PARAMS
     assert all(t.dtype == torch.float32 for t in model.state_dict().values()
                if t.is_floating_point())
-    assert ESMStereo(DEPLOY, device="meta").state_dict().keys() == \
-        ESMStereo(device="meta").state_dict().keys()
+    keys = ESMStereo(device="meta").state_dict().keys()
+    assert model.state_dict().keys() == keys
     for kw in ({"cv_scale": 8}, {"cost_volume": "norm_correlation"},
                {"cv_scale": 16, "backbone": "mobilenetv2_100"}):
         ESMStereoConfig(dtype="bfloat16", **kw)
-    for kw in ({"fuse_volume_agg": True}, {"fuse_hourglass": True},
-               {"fuse_hourglass_up": True}, {"fuse_stems": True},
-               {"fuse_mixer": True}):
-        with pytest.raises(NotImplementedError):
-            ESMStereoConfig(dtype="bfloat16", **kw)
+    for kw in SWITCHED.values():
+        switched = ESMStereo(ESMStereoConfig(dtype="bfloat16", **kw),
+                             device="meta")
+        assert sum(p.numel() for p in switched.parameters()) == L_PARAMS
+        assert switched.state_dict().keys() == keys
     with pytest.raises(ValueError):
         ESMStereoConfig(dtype="float16")

@@ -39,7 +39,8 @@ from esmstereo_tpu_torch.ops.kernels import fused_head  # noqa: E402
 from test_torch_deploy import _ulp, jax_variables_from_port  # noqa: E402
 from test_torch_deploy_variants import (SERVED, SERVED_TIMES,  # noqa: E402
                                         _deploy, _jax_shapes, _no_further,
-                                        _rng_pair, _run_jax, _run_port,
+                                        _rng_pair, _run_fp32, _run_jax,
+                                        _run_port,
                                         check_parameter_count)
 from test_torch_kernels import random_variables  # noqa: E402
 
@@ -98,8 +99,9 @@ def test_confidence_deploy_parameter_counts():
 
 @pytest.fixture(scope="module")
 def c_deploy():
-    """One 96x160 pair through the JAX confidence model on S-norm in fp32
-    and in bf16 (one program) and the port's C-deploy, on init-rule weights
+    """One 96x160 pair through the JAX confidence model on S-norm in bf16,
+    the port's in fp32 (``_run_fp32``) and the port's C-deploy, on
+    init-rule weights
     drawn by the port (seed 0; ``scale_bn3``, zero at init, gets scales in
     [0.75, 1.25) so that the enlarged grid's scaling is seen), carried to
     JAX by the bridge run backwards. Returns ``{name: {"cost",
@@ -113,15 +115,15 @@ def c_deploy():
         bn.weight.copy_(0.75 + 0.5 * torch.rand(
             bn.weight.shape, generator=torch.Generator().manual_seed(1)))
     variables = jax_variables_from_port(port, _jax_shapes("C-deploy"))
-    runs = _run_jax(jconf.ESMStereoConfidence(JaxConfig(**kw)),
-                    jconf.ESMStereoConfidence(JaxConfig(**kw,
-                                                        dtype=jnp.bfloat16)),
-                    variables, left, right)
-    out = {name: {"cost": np.asarray(aux["cost"], np.float32),
-                  "disparity": np.asarray(disp, np.float32),
-                  "confidence": np.asarray(conf.astype(jnp.float32))}
-           for name, ((disp, conf), aux) in zip(("jax_fp32", "jax_bf16"),
-                                                runs)}
+    jax_run = _run_jax(jconf.ESMStereoConfidence(JaxConfig(
+        **kw, dtype=jnp.bfloat16)), variables, left, right)
+    out = {}
+    for name, ((disp, conf), aux) in (("jax_bf16", jax_run),
+                                      ("fp32", _run_fp32(port, left,
+                                                         right))):
+        out[name] = {"cost": np.asarray(aux["cost"], np.float32),
+                     "disparity": np.asarray(disp, np.float32),
+                     "confidence": np.asarray(conf, np.float32)}
     model = ESMStereoConfidence(_deploy(**kw), device="cpu")
     model.load_state_dict(state_dict_from_jax(
         jax.tree.map(np.asarray, variables), _deploy(**kw)))
@@ -130,7 +132,7 @@ def c_deploy():
         assert disp.dtype == aux["cost"].dtype == torch.float32
         out[name] = {"cost": aux["cost"].numpy(), "disparity": disp.numpy(),
                      "confidence": conf.float().numpy()}
-    out["dtypes"] = (conf.dtype, runs[1][0][1].dtype)
+    out["dtypes"] = (conf.dtype, jax_run[0][1].dtype)
     return out
 
 
@@ -142,11 +144,11 @@ def test_c_deploy_matches_jax_bf16(c_deploy, key):
     submodule's cost and disparity (S-norm-deploy) and the confidence map.
     Inside ``op_by_op_bf16`` (the JAX reference's program as written): no
     further from the JAX C-deploy, in max and in mean, than the JAX
-    C-deploy is from the JAX fp32 model (measured at most 0.88x in max,
+    C-deploy is from the fp32 model (``_run_fp32``) (measured at most 0.88x in max,
     0.63x in mean). As served, its activations rounding once: within
     ``SERVED_TIMES`` that error. The confidence map is bf16, as JAX's
     sigmoid of bf16 logits is, in [0, 1]."""
-    j16, j32 = c_deploy["jax_bf16"][key], c_deploy["jax_fp32"][key]
+    j16, j32 = c_deploy["jax_bf16"][key], c_deploy["fp32"][key]
     own = np.abs(j16 - j32)
     shape = {"cost": (1, 12, 6, 10), "disparity": (1, 96, 160),
              "confidence": (1, 96, 160)}[key]

@@ -14,7 +14,11 @@ emulation of ``jax.nn``'s bf16 activations op by op (``op_by_op_bf16``)
 against ``jax.nn``, the configuration's guards, the parameter counts of
 M-, M-norm- and S-deploy against the JAX ``eval_shape``, and M-deploy as a
 whole model against the JAX bf16 model of its config, both as served and
-with the emulation (its int8-volume form against itself).
+with the emulation (its int8-volume form against itself). Then
+M-norm-deploy-all and S-deploy-all (every ``fuse_*`` switch at the deploy
+numerics; the switches' bf16 forms are in
+tests/test_torch_deploy_switches.py) against the JAX bf16 programs of
+M-norm and S, on the ``eval_shape`` trees the parameter counts use.
 
 The CUDA kernels run only on the card (``chip_smoke.py`` holds each form
 against its plain version there); on CPU tensors the wrappers run their
@@ -344,19 +348,31 @@ def test_bf16_activations_match_jax(name):
 
 def test_deploy_variant_guards():
     """bf16 is accepted at every cv_scale with either volume (and
-    ``volume_int8``), and refused with each ``fuse_*`` switch at each
-    scale, naming ROADMAP.md; the int8 volume reaches kernel C where JAX
-    quantises (M in both volumes, S with gwc; not S-norm, whose corr_stem
-    and agg are plain)."""
+    ``volume_int8``), and with each ``fuse_*`` switch and all five at each
+    scale, with the parameters and keys of the config without them (M-,
+    M-norm-, S- and S-norm-deploy's counts); the int8 volume reaches
+    kernel C where JAX quantises (M in both volumes, S with gwc; not
+    S-norm, whose corr_stem and agg are plain; under ``fuse_volume_agg``
+    no volume is stored, so nowhere at cv4 and cv8)."""
+    counts = {(kw.get("cv_scale", 4), kw.get("cost_volume", "gwc")): n
+              for name, (kw, n) in SERVED.items() if name != "C-deploy"}
+    every = dict.fromkeys(SWITCHES, True)
     for cv, backbone in ((4, "efficientnet_b2"), (8, "efficientnet_b2"),
                          (16, "mobilenetv2_100")):
         for volume in ("gwc", "norm_correlation"):
-            _deploy(cv_scale=cv, backbone=backbone, cost_volume=volume,
-                    volume_int8=True)
+            base = dict(cv_scale=cv, backbone=backbone, cost_volume=volume,
+                        volume_int8=True)
             for k in SWITCHES:
-                with pytest.raises(NotImplementedError, match="ROADMAP"):
-                    _deploy(cv_scale=cv, backbone=backbone,
-                            cost_volume=volume, **{k: True})
+                _deploy(**base, **{k: True})
+            plain, switched, vol_agg = (
+                ESMStereo(_deploy(**base, **sw), device="meta")
+                for sw in ({}, every, {"fuse_volume_agg": True}))
+            assert switched.state_dict().keys() == plain.state_dict().keys()
+            assert _port_count(switched) == _port_count(plain)
+            if (cv, volume) in counts:
+                assert _port_count(switched) == counts[cv, volume]
+            assert switched.volume_int8 == vol_agg.volume_int8 == (
+                plain.volume_int8 and cv == 16)
     int8 = {name: ESMStereo(_deploy(**kw, volume_int8=True),
                             device="meta").volume_int8
             for name, (kw, _) in SERVED.items() if name != "C-deploy"}
@@ -392,19 +408,28 @@ def _rng_pair(seed: int, h: int, w: int):
                  for _ in range(2))
 
 
-def _run_jax(model32, model16, variables, left, right):
-    """One JAX program: the fp32 model with exact GELU (the reference
-    numerics) and the bf16 model with tanh GELU (the deploy numerics), with
-    their internals; compiled to round where the program says."""
+def _run_jax(model16, variables, left, right):
+    """The JAX bf16 model with tanh GELU (the deploy numerics), with its
+    internals; compiled to round where the program says."""
     def run(v, l, r):
-        exact = model32.apply(v, l, r, capture_internals=True)
         jblocks.set_gelu_approximate(True)
         try:
-            return exact, model16.apply(v, l, r, capture_internals=True)
+            return model16.apply(v, l, r, capture_internals=True)
         finally:
             jblocks.set_gelu_approximate(False)
 
     return jax.jit(run, compiler_options=LITERAL_BF16)(variables, left, right)
+
+
+def _run_fp32(model, left, right):
+    """The port's fp32 model with exact GELU (the reference numerics): the
+    fp32 side of the deploy numerics' own error. The port's fp32 models are
+    held to JAX's at 1e-4 relative (tests/test_torch_variants.py,
+    tests/test_torch_cv16.py, tests/test_torch_confidence.py), which spares
+    a second JAX program."""
+    with torch.inference_mode():
+        return model(torch.from_numpy(left), torch.from_numpy(right),
+                     capture_internals=True)
 
 
 def _run_port(model, left, right, op_by_op: bool = False):
@@ -423,20 +448,22 @@ def _run_port(model, left, right, op_by_op: bool = False):
 
 @pytest.fixture(scope="module")
 def m_deploy():
-    """One 64x128 pair through the JAX M (cv8) in fp32 and in bf16 (one
-    program) and the port's M-deploy and M-deploy-int8, on init-rule
-    weights drawn by the port (seed 0) and carried to JAX by the bridge run
-    backwards. Returns ``{name: {"cost", "disparity"}}`` as numpy fp32."""
+    """One 64x128 pair through the JAX M-deploy (cv8, bf16), the port's M
+    in fp32 (``_run_fp32``) and the port's M-deploy and M-deploy-int8, on
+    init-rule weights drawn by the port (seed 0) and carried to JAX by the
+    bridge run backwards. Returns ``{name: {"cost", "disparity"}}`` as
+    numpy fp32."""
     left, right = _rng_pair(0, 64, 128)
     kw = SERVED["M-deploy"][0]
     port = ESMStereo(ESMStereoConfig(**kw), device="cpu", seed=0)
     variables = jax_variables_from_port(port, _jax_shapes("M-deploy"))
-    runs = _run_jax(JaxESMStereo(JaxConfig(**kw)),
-                    JaxESMStereo(JaxConfig(**kw, dtype=jnp.bfloat16)),
-                    variables, left, right)
-    out = {name: {"cost": np.asarray(aux["cost"], np.float32),
-                  "disparity": np.asarray(disp[0], np.float32)}
-           for name, (disp, aux) in zip(("jax_fp32", "jax_bf16"), runs)}
+    out = {}
+    for name, (disp, aux) in (
+            ("jax_bf16", _run_jax(JaxESMStereo(JaxConfig(
+                **kw, dtype=jnp.bfloat16)), variables, left, right)),
+            ("fp32", _run_fp32(port, left, right))):
+        out[name] = {"cost": np.asarray(aux["cost"], np.float32),
+                     "disparity": np.asarray(disp[0], np.float32)}
     sd = state_dict_from_jax(jax.tree.map(np.asarray, variables),
                              _deploy(**kw))
     for name, cfg, op_by_op in (("bf16", _deploy(**kw), False),
@@ -494,11 +521,11 @@ def test_m_deploy_matches_jax_bf16(m_deploy, key):
     regresses the raw cost, so it is continuous too), finite and fp32.
     Inside ``op_by_op_bf16``, which computes the JAX reference's program as
     written: no further from the JAX M-deploy, in max and in mean, than the
-    JAX M-deploy is from the JAX fp32 model (the deploy numerics' own
-    error; measured 0.73x and 0.86x on the cost, 0.36x and 0.01x on the
+    JAX M-deploy is from the fp32 model (``_run_fp32``; the deploy
+    numerics' own error; measured 0.73x and 0.86x on the cost, 0.36x and 0.01x on the
     disparity). As served, its activations rounding once: within
     ``SERVED_TIMES`` that error."""
-    j16, j32 = m_deploy["jax_bf16"][key], m_deploy["jax_fp32"][key]
+    j16, j32 = m_deploy["jax_bf16"][key], m_deploy["fp32"][key]
     own = np.abs(j16 - j32)
     for name, times in (("bf16_op_by_op", 1.0), ("bf16", SERVED_TIMES)):
         port = m_deploy[name][key]
@@ -516,9 +543,98 @@ def test_m_deploy_int8_near_m_deploy(m_deploy):
     than 1 px."""
     q, b = m_deploy["int8"], m_deploy["bf16"]
     own = np.quantile(np.abs(m_deploy["jax_bf16"]["disparity"]
-                             - m_deploy["jax_fp32"]["disparity"]), 0.95)
+                             - m_deploy["fp32"]["disparity"]), 0.95)
     q95 = np.quantile(np.abs(q["disparity"] - b["disparity"]), 0.95)
     assert np.isfinite(q["disparity"]).all()
     assert q95 < max(1.0, own), (q95, own)
     assert np.abs(q["cost"] - b["cost"]).max() > 0.0
     assert _flips(q["disparity"], b["disparity"])[0] < 0.05
+
+
+# --- M-norm-deploy-all and S-deploy-all: every switch at the deploy numerics -
+
+# the whole-model cases: name -> the served deploy config they switch on
+SWITCHED = {"M-norm-deploy-all": "M-norm-deploy", "S-deploy-all": "S-deploy"}
+# their costs at 64x128: 24 bins on the /8 grid, 12 on the /16 one
+COST_SHAPES = {"M-norm-deploy-all": (1, 24, 8, 16),
+               "S-deploy-all": (1, 12, 4, 8)}
+# Against the JAX bf16 program, in multiples of the deploy numerics' own
+# error: the op-by-op run at 1x and the served one at SERVED_TIMES, as
+# M-deploy, except M-norm-deploy-all's op-by-op run, whose kernel forms
+# round where the TPU kernels do, not where JAX's plain modules do
+# (measured: M-norm-deploy-all 1.31x in max and 1.04x in mean on the
+# cost, 1.03x in max on the disparity, in both runs; S-deploy-all 1.07x in
+# max on the served disparity, 0.54x at most op by op).
+TIMES = {("M-norm-deploy-all", "bf16_op_by_op"): SERVED_TIMES}
+
+
+@pytest.fixture(scope="module")
+def switched():
+    """One 64x128 pair through the JAX bf16 programs (tanh GELU) of M-norm
+    and S (one program; the switches change nothing there on the CPU) and
+    through the port: each config in fp32 with exact GELU (``_run_fp32``)
+    and with every switch at the deploy numerics, as
+    served and inside ``op_by_op_bf16``. Init-rule weights drawn by the
+    port (seed 0), carried to JAX by the bridge run backwards. Returns
+    ``{case: {run: {"cost", "disparity"}}}`` as numpy fp32."""
+    left, right = _rng_pair(0, 64, 128)
+    cases, jmodels, jvars = {}, [], []
+    for name, served in SWITCHED.items():
+        kw = SERVED[served][0]
+        fp32 = ESMStereo(ESMStereoConfig(**kw), device="cpu", seed=0)
+        cases[name] = (kw, fp32)
+        jvars.append(jax_variables_from_port(fp32, _jax_shapes(served)))
+        jmodels.append(JaxESMStereo(JaxConfig(**kw, dtype=jnp.bfloat16)))
+
+    def run(vs, l, r):
+        jblocks.set_gelu_approximate(True)
+        try:
+            return [m.apply(v, l, r, capture_internals=True)
+                    for m, v in zip(jmodels, vs)]
+        finally:
+            jblocks.set_gelu_approximate(False)
+
+    runs = jax.jit(run, compiler_options=LITERAL_BF16)(jvars, left, right)
+    out = {}
+    for (name, (kw, fp32)), (disp, aux), v in zip(cases.items(), runs,
+                                                  jvars):
+        res = {"jax_bf16": {"cost": np.asarray(aux["cost"], np.float32),
+                            "disparity": np.asarray(disp[0], np.float32)}}
+        d32, a32 = _run_fp32(fp32, left, right)
+        res["fp32"] = {"cost": a32["cost"].numpy(),
+                       "disparity": d32[0].numpy()}
+        config = _deploy(**kw, **dict.fromkeys(SWITCHES, True))
+        model = ESMStereo(config, device="cpu")
+        model.load_state_dict(state_dict_from_jax(
+            jax.tree.map(np.asarray, v), config))
+        for run_name, op_by_op in (("bf16", False), ("bf16_op_by_op", True)):
+            d, a = _run_port(model, left, right, op_by_op)
+            assert d[0].dtype == a["cost"].dtype == torch.float32
+            res[run_name] = {"cost": a["cost"].numpy(),
+                             "disparity": d[0].numpy()}
+        out[name] = res
+    return out
+
+
+@pytest.mark.parametrize("key", ["cost", "disparity"])
+@pytest.mark.parametrize("name", list(SWITCHED))
+def test_switched_deploy_matches_jax_bf16(switched, name, key):
+    """M-norm-deploy-all's and S-deploy-all's cost (before regression) and
+    disparity (cv8 and cv16 regress the raw cost: continuous), finite and
+    fp32, against the JAX bf16 program, as
+    tests/test_torch_deploy_variants.py holds M-deploy: inside
+    ``op_by_op_bf16`` no further, in max and in mean, than the deploy
+    numerics' own error (the JAX bf16 run against the fp32 one); as served,
+    its activations rounding once, within ``SERVED_TIMES`` that error;
+    M-norm-deploy-all's op-by-op run within ``TIMES`` that error."""
+    runs = switched[name]
+    j16 = runs["jax_bf16"][key]
+    own = np.abs(j16 - runs["fp32"][key])
+    shape = COST_SHAPES[name] if key == "cost" else (1, 64, 128)
+    for run, served in (("bf16_op_by_op", 1.0), ("bf16", SERVED_TIMES)):
+        times = TIMES.get((name, run), served)
+        port = runs[run][key]
+        assert port.shape == j16.shape == shape
+        assert np.isfinite(port).all()
+        _no_further(np.abs(port - j16), own, times)
+

@@ -254,7 +254,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
                                "stem_agg",
                                "volume_stem_agg", "down_pair", "up_pair",
                                "stems", "mixer"}
-    # CPU calls run the plain versions and launch nothing
+    # CPU calls run the plain versions and launch nothing, in any form:
+    # every wrapper counts its launches by form too ("fp32", "bf16", ...)
     correlation.correlation_volume(x, x, 4, 32)
     correlation.correlation_volume(x, x, 4, 1, normalize=True)
+    correlation.correlation_volume(x.bfloat16(), x.bfloat16(), 4, 32)
     assert all(fn.launches == 0 for fn in wrappers().values())
+    assert all(fn.form_launches == {} for fn in wrappers().values())

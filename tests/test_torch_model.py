@@ -10,6 +10,8 @@ a forward), and the slice's guards.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import pytest
 
@@ -37,6 +39,15 @@ H, W = 64, 128
 L_PARAMS = 6_796_056          # ACCURACY.json, the L row
 
 
+@functools.cache
+def _l_shapes():
+    """The JAX L model's ``eval_shape`` variables, built once for the
+    module: ``max_disp`` changes no parameter, so L at 190 shares them."""
+    x = np.zeros((1, H, W, 3), np.float32)
+    return jax.eval_shape(JaxESMStereo(JaxConfig()).init, jax.random.key(0),
+                          x, x)
+
+
 @pytest.fixture(scope="module")
 def jax_l():
     """The JAX default-config model, its variables and one input pair.
@@ -47,8 +58,7 @@ def jax_l():
     left = rng.standard_normal((1, H, W, 3)).astype(np.float32)
     right = rng.standard_normal((1, H, W, 3)).astype(np.float32)
     model = JaxESMStereo(JaxConfig())
-    shapes = jax.eval_shape(model.init, jax.random.key(0), left, right)
-    variables = random_variables(shapes, rng)
+    variables = random_variables(_l_shapes(), rng)
     variables["params"]["aggregation_out"]["conv1_up"]["conv"]["kernel"] *= 30
     return model, variables, left, right
 
@@ -121,8 +131,7 @@ def test_max_disp_not_a_multiple_of_cv_scale_matches_jax():
     left = rng.standard_normal((1, H, W, 3)).astype(np.float32)
     right = rng.standard_normal((1, H, W, 3)).astype(np.float32)
     model = JaxESMStereo(JaxConfig(max_disp=190))
-    variables = random_variables(jax.eval_shape(
-        model.init, jax.random.key(0), left, right), rng)
+    variables = random_variables(_l_shapes(), rng)
     variables["params"]["aggregation_out"]["conv1_up"]["conv"]["kernel"] *= 30
     want, want_aux = jax.jit(lambda v, l, r: model.apply(
         v, l, r, capture_internals=True), compiler_options={
@@ -144,41 +153,50 @@ def test_max_disp_not_a_multiple_of_cv_scale_matches_jax():
 
 def test_m_max_disp_not_a_multiple_of_cv_scale():
     """cv8 floors ``max_disp`` as JAX does. At 196 both packages build 24
-    bins and the port matches the JAX model by test_variant_matches_jax's
-    cv8 rule (cost within 1e-4 relative of max(1, max|JAX|), the disparity
-    on every pixel). At 190 both floor to 23 bins, which the hourglass's
-    transposed convs return as 24, and both refuse the cv8 regression of
-    24 bins against 23: JAX asserts
+    bins, the default's: the JAX model's program at 196 is the default
+    M's (their jaxprs are equal), and the port at 196 gives the default
+    port M's outputs bit for bit on the same weights, which
+    tests/test_torch_variants.py::test_variant_matches_jax holds against
+    that one JAX M program by the cv8 rule (cost within 1e-4 relative of
+    max(1, max|JAX|), the disparity on every pixel). At 190 both floor to
+    23 bins, which the hourglass's transposed convs return as 24, and both
+    refuse the cv8 regression of 24 bins against 23: JAX asserts
     (``esmstereo_tpu/ops/regression.py:33``), the port raises
     ``ValueError``."""
     rng = np.random.default_rng(8)
-    left = rng.standard_normal((1, H, W, 3)).astype(np.float32)
-    right = rng.standard_normal((1, H, W, 3)).astype(np.float32)
-    model = JaxESMStereo(JaxConfig(cv_scale=8, max_disp=196))
-    variables = random_variables(jax.eval_shape(
-        model.init, jax.random.key(0), left, right), rng)
-    want, want_aux = jax.jit(lambda v, l, r: model.apply(
-        v, l, r, capture_internals=True), compiler_options={
-            "xla_llvm_disable_expensive_passes": True})(variables, left,
-                                                         right)
+    # the programs' shapes follow the input's; 32x64 traces cheapest
+    left = rng.standard_normal((1, H // 2, W // 2, 3)).astype(np.float32)
+    right = rng.standard_normal((1, H // 2, W // 2, 3)).astype(np.float32)
+    m196, m192 = (JaxESMStereo(JaxConfig(cv_scale=8, max_disp=d))
+                  for d in (196, 192))
+    shapes = jax.eval_shape(m196.init, jax.random.key(0), left, right)
+    programs = [str(jax.make_jaxpr(lambda v, l, r, m=m: m.apply(
+        v, l, r, capture_internals=True))(shapes, left, right))
+        for m in (m196, m192)]
+    assert programs[0] == programs[1]
+
+    default = ESMStereo(ESMStereoConfig(cv_scale=8), device="cpu", seed=8)
     config = ESMStereoConfig(cv_scale=8, max_disp=196)
     port = ESMStereo(config, device="cpu")
-    assert port.num_bins == 24
-    port.load_state_dict(state_dict_from_jax(variables, config))
+    assert port.num_bins == default.num_bins == 24
+    port.load_state_dict(default.state_dict())
     with torch.inference_mode():
         got, got_aux = port(torch.from_numpy(left), torch.from_numpy(right),
                             capture_internals=True)
-    assert got_aux["cost"].shape == want_aux["cost"].shape == (1, 24, 8, 16)
-    assert _rel(got_aux["cost"], want_aux["cost"]).max() < 1e-4
-    assert _rel(got[0].numpy(), want[0]).max() < 1e-4
+        want, want_aux = default(torch.from_numpy(left),
+                                 torch.from_numpy(right),
+                                 capture_internals=True)
+    assert got_aux["cost"].shape == (1, 24, 4, 8)
+    assert torch.equal(got_aux["cost"], want_aux["cost"])
+    assert torch.equal(got[0], want[0])
 
     m190 = JaxESMStereo(JaxConfig(cv_scale=8, max_disp=190))
     with pytest.raises(AssertionError):
-        jax.eval_shape(lambda v: m190.apply(v, left, right), variables)
+        jax.eval_shape(lambda v: m190.apply(v, left, right), shapes)
     config = ESMStereoConfig(cv_scale=8, max_disp=190)
     port = ESMStereo(config, device="cpu")
     assert port.num_bins == 23
-    port.load_state_dict(state_dict_from_jax(variables, config))
+    port.load_state_dict(default.state_dict())
     with torch.inference_mode(), pytest.raises(ValueError):
         port(torch.from_numpy(left), torch.from_numpy(right))
 
@@ -244,15 +262,14 @@ def test_runner_pads_and_crops_as_jax():
 
 
 def test_slice_guards(monkeypatch):
-    # mobilenetv2 at cv4 and bf16 with a fuse_* switch are not ported (bf16
-    # without one is: tests/test_torch_deploy.py and
-    # tests/test_torch_deploy_variants.py)
-    for kw in ({"backbone": "mobilenetv2_100"},
-               {"cv_scale": 8, "dtype": "bfloat16", "fuse_hourglass": True},
+    # mobilenetv2 at cv4 is not ported; bf16 with a fuse_* switch is
+    # (tests/test_torch_deploy.py, tests/test_torch_deploy_switches.py)
+    with pytest.raises(NotImplementedError):
+        ESMStereoConfig(backbone="mobilenetv2_100")
+    for kw in ({"cv_scale": 8, "dtype": "bfloat16", "fuse_hourglass": True},
                {"cv_scale": 16, "backbone": "mobilenetv2_100",
                 "dtype": "bfloat16", "fuse_stems": True}):
-        with pytest.raises(NotImplementedError):
-            ESMStereoConfig(**kw)
+        ESMStereoConfig(**kw)
     # the JAX config's variant/backbone constraints
     for kw in ({"cv_scale": 8, "backbone": "mobilenetv2_100"},
                {"cv_scale": 16}, {"cost_volume": "concat"}):
