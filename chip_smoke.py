@@ -26,7 +26,7 @@ frame (A, B). It holds each hand-written kernel against its plain PyTorch
 version:
 
   1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-  2. build the six kernel sources from ``esmstereo_tpu_torch/csrc`` (one
+  2. build the seven kernel sources from ``esmstereo_tpu_torch/csrc`` (one
      ``nvcc`` per source, all at once) and print ``ptxas`` register/spill
      lines;
   3. each kernel and its plain version on the same inputs at the main-path
@@ -62,8 +62,16 @@ version:
      version without any one of its rounding steps differing from the
      kernel on more than 15%, and the masked channel tile, H's transposed
      conv and I's dw 7x7 each moving the plain version by 10 tolerances.
+     Kernel J, on no served path, over stages 1-5 of L's and S's backbones
+     (``check_fused_stages``): from kernel A's output on a seeded image of
+     both eyes at 544x992, on a copy of each backbone with weights redrawn
+     so that every BN has a shift, each stage within 1e-4 of max(1,
+     max|plain|) on the plain chain's input and on the kernel's own chain,
+     its SE gate, residual and stride-2 row phase each seen, with the
+     served unfused modules (cuDNN convs, BN, SE) as its yardstick.
      Then each kernel and each deploy form again at small shapes with
-     ragged tiles on every axis;
+     ragged tiles on every axis (J at every stage 0-5 of both backbones,
+     odd outputs);
   4. each path's model on the card against the same weights on the CPU
      (plain versions) on a 128x256 pair, each map relative to its max|CPU|,
      for each ``fuse_*`` switch set alone at cv4, for L with the
@@ -75,21 +83,23 @@ version:
      float64, the card within 10 times the CPU's own distance, and kernels
      A and F against their plain versions at those weights; then each
      deploy path (the seven served ones, L-norm-deploy and the int8 forms
-     of M, M-norm and S) on the card against the same path on the CPU,
-     beside the CPU's own bf16 distance from the CPU in fp32 (the deploy
-     numerics' own error), which the card may not exceed on the cost, the
-     disparity and the confidence map (in max by 1 bf16 ulp of the map's
-     peak at most), with tests/test_bf16.py's flip and sub-pixel bounds on
-     the disparity (at cv4 its mean and flip share pooled over three pairs
-     and held within 1.25 times the own figures); then the three switched
-     paths and each switch alone at L-deploy the same way. Every check
-     draws from one generator;
+     of M, M-norm and S) on the card against the same path on the CPU on
+     three pairs, beside the CPU's own bf16 distance from the CPU in fp32
+     (the deploy numerics' own error), which the card may not exceed on
+     the cost, the disparity and the confidence map (in mean pooled over
+     the pairs, in max on each pair, by 1 bf16 ulp of the map's peak at
+     most), with tests/test_bf16.py's flip and sub-pixel bounds on the
+     disparity (at cv4 its mean and flip share held within 1.25 times the
+     own figures, and no max); then the three switched paths and each
+     switch alone at L-deploy the same way. Every check draws from one
+     generator;
   5. for each path, launch counters set to 0, then 3 requests served
      through ``InferenceRunner`` (uint8 540x960 pairs; 375x1242 for C):
      shape, finiteness and time of each; every kernel of the path must
      have launched on each request (G at 3 levels, H at 2), in the path's
      form (bf16 or int8 on the deploy paths, every kernel in bf16 on the
-     switched ones, fp32 elsewhere), and no kernel of another path;
+     switched ones, fp32 elsewhere), and no kernel of another path (J on
+     none);
   6. a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and last
      ``{"ok": true, "device": {...}}``.
 
@@ -104,6 +114,7 @@ the script exits non-zero before it prints a result.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import json
 import math
@@ -120,9 +131,11 @@ from esmstereo_tpu_torch.models.esmstereo import ESMStereo, ESMStereoConfig
 from esmstereo_tpu_torch.ops.kernels import _build, reset_launches, wrappers
 from esmstereo_tpu_torch.ops.kernels import correlation, fused_agg_stem
 from esmstereo_tpu_torch.ops.kernels import fused_head, fused_hourglass
-from esmstereo_tpu_torch.ops.kernels import fused_mixer, fused_stems
+from esmstereo_tpu_torch.ops.kernels import fused_mixer, fused_stage
+from esmstereo_tpu_torch.ops.kernels import fused_stems
 from esmstereo_tpu_torch.ops.kernels.activations import gelu
 from esmstereo_tpu_torch.backbones import fused as fused_backbone
+from esmstereo_tpu_torch.backbones.fused_stage import prepare_stage_consts
 from esmstereo_tpu_torch.nn import blocks
 
 SEED = 0
@@ -185,9 +198,19 @@ STRICT_DEPLOY = ("L-deploy", "L-deploy-int8")
 # (measured on the H100 over the nine cv4 deploy paths: the card's mean
 # distance 0.44-1.10 times the own over 74 single draws, 9 of them above
 # 1; pooled over three draws 0.51-0.93 times, its flip share 0.56-0.91
-# times). They are pooled over CV4_DRAWS pairs and held within CV4_MARGIN
-# times the own figures.
-CV4_DRAWS = 3
+# times). They are pooled over DEPLOY_DRAWS pairs and held within
+# CV4_MARGIN times the own figures.
+# The int8 volume does the same to the cost at cv8 and cv16: a bf16 ulp
+# that the card and the CPU round apart before the quantisation moves a
+# value near max|volume| by half an int8 step, so the two runs land on
+# other int8 levels about as often as the int8 run does against fp32 and
+# one draw can put the card's mean distance above the own (measured on
+# the H100, S-deploy-int8's cost: 0.59-1.06 times the own over 24 single
+# draws, 1 of them above 1, on this code and on the code before kernel J
+# alike). Every deploy path's cost and confidence means are therefore
+# pooled over DEPLOY_DRAWS pairs at 1 times the own; their maxima, and
+# the disparity's at cv8 and cv16, are held on every pair.
+DEPLOY_DRAWS = 3
 CV4_MARGIN = 1.25
 # multiply-adds per /4 pixel of kernel I: to_feat, two FMBlocks (two
 # SMLayers of two 8 -> 16 -> 8 MLPs and a dw 7x7 each, expand, project), up
@@ -1415,6 +1438,127 @@ def check_mixer_bf16(net, gen, path: str) -> dict:
             "bound_ms": bms, "bound_by": by, "library_ms": None}
 
 
+def stage_flops(consts: dict, shape) -> int:
+    """Operations of kernel J's stage ``consts`` on an input of ``shape``
+    (B, C, H, W): 2 per multiply-add of the expand (on the input grid), the
+    depthwise conv, the SE MLP and the project, plus the gate's multiply
+    and the residual's add per element."""
+    b, _, h, w = shape
+    ops = 0
+    for blk in consts["blocks"]:
+        mid, cout, k = blk["mid"], blk["cout"], blk["k"]
+        ho = fused_stage.out_size(h, blk["stride"])
+        wo = fused_stage.out_size(w, blk["stride"])
+        macs = b * ho * wo * mid * (k * k + cout)
+        if blk["kind"] == "ir":
+            macs += b * h * w * blk["cin"] * mid
+        if "se_w1" in blk:
+            macs += b * 2 * mid * blk["se_w1"].shape[0]
+            ops += b * ho * wo * mid
+        if blk["residual"]:
+            ops += b * ho * wo * cout
+        ops += 2 * macs
+        h, w = ho, wo
+    return ops
+
+
+def stage_blinds(x: torch.Tensor, consts: dict) -> dict:
+    """Kernel J's plain version without each step a comparison must see:
+    the SqueezeExcite gate (where the stage has one), the residual, and the
+    stride-2 entry's row phase (the input shifted up one row, so that the
+    entry samples the odd rows)."""
+    blks = consts["blocks"]
+    blinds = {"the residual": fused_stage.stage_reference(x, dict(
+        consts, blocks=[dict(b, residual=False) for b in blks]))}
+    if "se_w1" in blks[0]:
+        blinds["the SE gate"] = fused_stage.stage_reference(x, dict(
+            consts, blocks=[{k: t for k, t in b.items()
+                             if not k.startswith("se_")} for b in blks]))
+    if blks[0]["stride"] == 2:
+        odd = torch.cat([x[:, :, 1:], x[:, :, -1:]], dim=2)
+        blinds["the even rows at the stride-2 entry (odd rows sampled)"] = \
+            fused_stage.stage_reference(odd, consts)
+    return blinds
+
+
+def redrawn_pyramid(net, gen):
+    """A copy of ``net``'s backbone with its weights redrawn by the CPU
+    tests' rule (``fan_in_scaled_``): every BN gets a shift, which the init
+    rule leaves at 0, and without which the depthwise conv's zero padding
+    could not be told from the expand's act(shift) there."""
+    pyr = copy.deepcopy(net.feature)
+    fan_in_scaled_(pyr, gen)
+    return pyr.eval()
+
+
+def check_fused_stages(net, gen, path) -> dict:
+    """Kernel J over stages 1-5 of ``net``'s backbone (efficientnet_b2 for
+    L, mobilenetv2_100 for S) at the main path's shapes: kernel A's output
+    on a seeded (2, 3, 544, 992) image (both eyes), on a redrawn copy of
+    the backbone (``redrawn_pyramid``). Each stage's kernel and plain
+    version take the plain chain's input; the kernel's own chain (each
+    stage on the kernel's previous output) is held against the plain chain
+    too, at every stage, within 1e-4 of max(1, max|plain|). Each stage's SE
+    gate, residual and stride-2 row phase must each be seen
+    (``stage_blinds``). The yardstick is the served unfused modules
+    (``FeaturePyramid._run_stage``: cuDNN convs, BN, SE)."""
+    pyr = redrawn_pyramid(net, gen)
+    img = torch.randn((2, 3, *PADDED), generator=gen).cuda()
+    x = chained = fused_backbone.fused_head(pyr, img)
+    form = pyr.arch
+    levels = []
+    for si in range(1, 6):
+        consts = prepare_stage_consts(pyr, si)
+        got = fused_stage.fused_stage(x, consts)
+        want = fused_stage.stage_reference(x, consts)
+        # fp32 sums of up to 1248 products, and SE means over up to 34k
+        # pixels, in another order than cuDNN's and torch's
+        name = f"fused_stage {form} stage {si} {tuple(x.shape)}"
+        err = compare(name, got, want, 1e-4)
+        for what, blind in stage_blinds(x, consts).items():
+            require_seen(what, blind, want, 1e-4)
+        chained = fused_stage.fused_stage(chained, consts)
+        chain_err = compare(f"{name}, chained on the kernel's own output",
+                            chained, want, 1e-4)
+        weights = [t for b in consts["blocks"]
+                   for t in fused_stage.block_tensors(b)]
+        bms, by = bound(nbytes(x, got, *weights),
+                        stage_flops(consts, x.shape))
+        levels.append({
+            "level": si, "input": list(x.shape), "output": list(got.shape),
+            "max_abs_err": max(err, chain_err),
+            "ms": cuda_ms(lambda x=x, c=consts: fused_stage.fused_stage(x, c)),
+            "plain_ms": cuda_ms(lambda x=x, c=consts:
+                                fused_stage.stage_reference(x, c)),
+            "bound_ms": bms, "bound_by": by,
+            "library_ms": cuda_ms(lambda x=x, si=si: pyr._run_stage(si, x))})
+        x = want
+    row = level_rows("fused_stage", "esmstereo_tpu_torch/csrc/fused_stage.cu",
+                     "esmstereo_tpu/attic/fused_stage.py:270", net, path,
+                     levels)
+    row["form"] = form
+    return row
+
+
+def check_ragged_stages(model, s_gwc, gen) -> None:
+    """Kernel J at small shapes that leave ragged 8 x 32 tiles and odd
+    output sizes, batch 2: every stage 0-5 of both backbones (stage 0's
+    depthwise-separable blocks too, with and without SE) on a redrawn
+    copy of each backbone."""
+    dev = torch.device("cuda")
+    for net in (model, s_gwc):
+        pyr = redrawn_pyramid(net, gen)
+        cin = pyr.cfg.stem_chs
+        for si, stage in enumerate(pyr.cfg.stages):
+            size = (22, 74) if stage[0].stride == 2 else (11, 37)
+            x = torch.randn((2, cin, *size), generator=gen).to(dev)
+            consts = prepare_stage_consts(pyr, si)
+            compare(f"fused_stage {pyr.arch} stage {si} {tuple(x.shape)}",
+                    fused_stage.fused_stage(x, consts),
+                    fused_stage.stage_reference(x, consts), 1e-4)
+            cin = stage[-1].out_chs
+
+
 def check_ragged_switches_deploy(model, m_norm, s_gwc, gen) -> None:
     """The switches' deploy forms at small shapes with ragged tiles on
     every axis and batch 2, by ``compare_deploy``: E's gwc (``model``'s
@@ -1539,26 +1683,27 @@ def check_deploy_against_cpu(gen, config: ESMStereoConfig,
                              ulp_slack: bool = True) -> None:
     """A deploy path (``config``, bf16, tanh GELU; with ``confidence`` the
     confidence model on it) on the card against the same path on the CPU
-    (plain versions) on 128x256 pairs, beside the CPU path's own distance
-    from the CPU in fp32 with exact GELU (the deploy numerics' own error),
-    at the reference's init-rule weights (the confidence head's
-    ``scale_bn3``, zero at init, gets scales in [0.75, 1.25)). cuDNN's and
-    the CPU's bf16 convs round at other places, so the card is held to no
-    further from the CPU in bf16 than the deploy numerics are from fp32:
-    in mean on every map; in max on the maps rounded to bf16 (the cost,
-    cast to fp32 after its bf16 conv, and the confidence map) give or take
-    1 bf16 ulp of max|CPU| with ``ulp_slack`` (the card and the CPU may
-    round one value to neighbouring bf16 values, a whole ulp, where the
-    fp32 model's own distance there can be under one); in max on the fp32
-    disparity at cv8 and cv16, whose regression of the raw cost is
-    continuous. The disparity is also held to tests/test_bf16.py:116-119's
-    bounds (< 5% of pixels off by more than 1 px, a mean under 0.05 px
-    over the others), or to the deploy numerics' own figures where those
-    are larger, as tests/test_torch_deploy.py holds the CPU against JAX.
-    cv4's top-2 regression moves a pixel that flips by the gap between two
-    peaks, which the draw sets: its disparity has no max bound, and its
-    mean and flip share are pooled over ``CV4_DRAWS`` pairs and held
-    within ``CV4_MARGIN`` times the deploy numerics' own figures."""
+    (plain versions) on ``DEPLOY_DRAWS`` 128x256 pairs, beside the CPU
+    path's own distance from the CPU in fp32 with exact GELU (the deploy
+    numerics' own error), at the reference's init-rule weights (the
+    confidence head's ``scale_bn3``, zero at init, gets scales in [0.75,
+    1.25)). cuDNN's and the CPU's bf16 convs round at other places, so the
+    card is held to no further from the CPU in bf16 than the deploy
+    numerics are from fp32: in mean on every map, pooled over the pairs;
+    in max on every pair, on the maps rounded to bf16 (the cost, cast to
+    fp32 after its bf16 conv, and the confidence map) give or take 1 bf16
+    ulp of max|CPU| with ``ulp_slack`` (the card and the CPU may round one
+    value to neighbouring bf16 values, a whole ulp, where the fp32 model's
+    own distance there can be under one), and on the fp32 disparity at
+    cv8 and cv16, whose regression of the raw cost is continuous. The
+    disparity is also held to tests/test_bf16.py:116-119's bounds (< 5% of
+    pixels off by more than 1 px, a mean under 0.05 px over the others),
+    or to the deploy numerics' own figures where those are larger, as
+    tests/test_torch_deploy.py holds the CPU against JAX. cv4's top-2
+    regression moves a pixel that flips by the gap between two peaks,
+    which the draw sets: its disparity has no max bound, and its mean and
+    flip share are held within ``CV4_MARGIN`` times the deploy numerics'
+    own figures."""
     cls = ESMStereoConfidence if confidence else ESMStereo
     fp32 = dataclasses.replace(config, dtype="float32", volume_int8=False)
     ref = cls(fp32, device="cpu", seed=SEED + 2)
@@ -1573,8 +1718,8 @@ def check_deploy_against_cpu(gen, config: ESMStereoConfig,
     gpu.load_state_dict(ref.state_dict())
     cv4 = config.cv_scale == 4
     margin = CV4_MARGIN if cv4 else 1.0
-    disparities = []
-    for draw in range(CV4_DRAWS if cv4 else 1):
+    disparities, means = [], {}
+    for draw in range(DEPLOY_DRAWS):
         left = torch.randn((1, 128, 256, 3), generator=gen)
         right = torch.randn((1, 128, 256, 3), generator=gen)
         with torch.inference_mode():
@@ -1604,25 +1749,36 @@ def check_deploy_against_cpu(gen, config: ESMStereoConfig,
                   f"mean {float(own.mean()):.3e}")
             if key == "disparity":
                 disparities.append((g, c, r))
+                require(cv4 or card.max() <= own.max(),
+                        "disparity: the card is further from the CPU than "
+                        "the deploy numerics are from fp32 in max")
                 continue
             slack = bf16_ulp(float(c.float().abs().max())) if ulp_slack \
                 else 0.0
-            require(card.max() <= own.max() + slack
-                    and card.mean() <= own.mean(),
+            require(card.max() <= own.max() + slack,
                     f"{key}: the card is further from the CPU than the "
-                    "deploy numerics are from fp32 (bound on the max "
+                    "deploy numerics are from fp32 in max (bound "
                     f"{float(own.max()) + slack:.3e})")
+            means.setdefault(key, []).append((float(card.mean()),
+                                              float(own.mean())))
+    for key, pairs in means.items():
+        card, own = (sum(m) / len(pairs) for m in zip(*pairs))
+        print(f"  {key} over {len(pairs)} draw(s): card against CPU bf16 "
+              f"mean {card:.4e}, {card / own:.4f} times the deploy numerics' "
+              f"own {own:.4e} (at most 1)")
+        require(card <= own,
+                f"{key}: the card is further from the CPU than the deploy "
+                "numerics are from fp32 in mean")
     g, c, r = (torch.cat(maps) for maps in zip(*disparities))
     card, own = (g - c).abs(), (c - r).abs()
-    top = math.inf if cv4 else float(own.max())
     ratio = float(card.mean()) / float(own.mean())
     print(f"  disparity over {len(disparities)} draw(s): card against CPU "
           f"bf16 mean {float(card.mean()):.4e}, {ratio:.4f} times the deploy "
           f"numerics' own {float(own.mean()):.4e} (at most {margin}); max "
-          f"{float(card.max()):.3e} (at most {top:.3e})")
-    require(card.max() <= top and card.mean() <= margin * own.mean(),
+          f"{float(card.max()):.3e} (own {float(own.max()):.3e})")
+    require(card.mean() <= margin * own.mean(),
             "disparity: the card is further from the CPU than the deploy "
-            "numerics are from fp32")
+            "numerics are from fp32 in mean")
 
     def flips(a, b):
         diff = (a - b).abs()
@@ -2066,6 +2222,8 @@ def main() -> int:
             row_g, downs = check_down_pairs_bf16(s_gwc, gen, "S-deploy-all")
             rows += [row_g, check_up_pairs_bf16(s_gwc, gen, downs,
                                                 "S-deploy-all")]
+        # kernel J over stages 1-5 of L's and S's backbones (on no path)
+        rows += [check_fused_stages(net, gen, None) for net in (model, s_gwc)]
         for r in rows:
             lib = r["library_ms"]
             lib = "none" if lib is None else f"{lib:.4f} ms"
@@ -2085,6 +2243,7 @@ def main() -> int:
         check_ragged(model, m_norm, s_gwc, gen)
         check_ragged_deploy(model, m_norm, s_gwc, gen)
         check_ragged_switches_deploy(model, m_norm, s_gwc, gen)
+        check_ragged_stages(model, s_gwc, gen)
 
     # the served paths' configurations (C's is S-norm's), each switch alone
     # at cv4, and L with the norm-correlation volume

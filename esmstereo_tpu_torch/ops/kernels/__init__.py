@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels of the eval paths of ESMStereo-L, -M and -S
-(gwc and norm-correlation volumes) and the confidence model, each beside
-its plain PyTorch version, with the forms each wrapper takes:
+(gwc and norm-correlation volumes) and the confidence model, and of the
+backbone stages after stage 0, each beside its plain PyTorch version, with
+the forms each wrapper takes:
 
   * ``fused_head.fused_stage0``         kernel A, backbone stem + stage 0, in
     two layouts (``fused_head.FORMS``): efficientnet_b2's (two blocks with
@@ -30,6 +31,11 @@ its plain PyTorch version, with the forms each wrapper takes:
     out)
   * ``fused_mixer.mixer``               kernel I, the cv4 upsampler's
     ShuffleMixer section (``fuse_mixer``; L only); fp32 and bf16
+  * ``fused_stage.fused_stage``         kernel J, one whole backbone stage
+    >= 1 (expand, k3 or k5 depthwise at stride 1 or 2, SqueezeExcite or
+    none, project, residual) of either backbone; fp32. No model path runs
+    it: ``backbones.fused_stage.run_stage`` drives it stage by stage, as
+    the JAX package drives its kernel
 
 Each deploy form rounds its operands to bf16 where the TPU kernel does,
 sums in fp32 and applies BN after the fp32 sum.
@@ -53,10 +59,11 @@ import torch
 
 
 def wrappers() -> dict:
-    """``{kernel name: wrapper}`` for the kernels of the port's eval paths."""
+    """``{kernel name: wrapper}`` for the port's kernels."""
     from esmstereo_tpu_torch.ops.kernels import correlation, fused_agg_stem
     from esmstereo_tpu_torch.ops.kernels import fused_head, fused_hourglass
-    from esmstereo_tpu_torch.ops.kernels import fused_mixer, fused_stems
+    from esmstereo_tpu_torch.ops.kernels import fused_mixer, fused_stage
+    from esmstereo_tpu_torch.ops.kernels import fused_stems
 
     return {"fused_stage0": fused_head.fused_stage0,
             "correlation_volume": correlation.correlation_volume,
@@ -65,7 +72,8 @@ def wrappers() -> dict:
             "down_pair": fused_hourglass.down_pair,
             "up_pair": fused_hourglass.up_pair,
             "stems": fused_stems.stems,
-            "mixer": fused_mixer.mixer}
+            "mixer": fused_mixer.mixer,
+            "fused_stage": fused_stage.fused_stage}
 
 
 def on_cuda(what: str, *tensors: torch.Tensor,

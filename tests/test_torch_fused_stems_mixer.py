@@ -234,5 +234,5 @@ def test_stems_mixer_wrappers_guard_and_launch_nothing_on_cpu():
     assert set(wrappers()) == {"fused_stage0", "correlation_volume",
                                "stem_agg",
                                "volume_stem_agg", "down_pair", "up_pair",
-                               "stems", "mixer"}
+                               "stems", "mixer", "fused_stage"}
     assert all(fn.launches == 0 for fn in wrappers().values())
