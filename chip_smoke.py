@@ -69,9 +69,17 @@ version:
      max|plain|) on the plain chain's input and on the kernel's own chain,
      its SE gate, residual and stride-2 row phase each seen, with the
      served unfused modules (cuDNN convs, BN, SE) as its yardstick.
+     The conv3d k3 p1 that C, E's agg, G and H share, conv by conv
+     (``check_convs``): each distinct conv shape of L, M and S (C's
+     group_stem, M-norm's corr_stem, agg, G's two convs at 3 levels; H's
+     and E's have the shapes of G's s1 and C's agg), in fp32 (1e-4) and
+     in the deploy form (bf16, and C's first conv on the int8 volume; by
+     ``compare_deploy``), beside one cuDNN ``conv3d`` with the folded bias
+     and the tile, cluster size and blocks of its launch plan.
      Then each kernel and each deploy form again at small shapes with
      ragged tiles on every axis (J at every stage 0-5 of both backbones,
-     odd outputs);
+     odd outputs; G's deploy form conv by conv, each on its own input,
+     and as a chain by its max);
   4. each path's model on the card against the same weights on the CPU
      (plain versions) on a 128x256 pair, each map relative to its max|CPU|,
      for each ``fuse_*`` switch set alone at cv4, for L with the
@@ -99,7 +107,9 @@ version:
      have launched on each request (G at 3 levels, H at 2), in the path's
      form (bf16 or int8 on the deploy paths, every kernel in bf16 on the
      switched ones, fp32 elsewhere), and no kernel of another path (J on
-     none);
+     none); the shared conv as often as those kernels run it (2 a C, 1
+     an E, 2 a G level, 1 an H level), in the path's form, and each conv
+     row's shape at least once on its path;
   6. a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and last
      ``{"ok": true, "device": {...}}``.
 
@@ -127,8 +137,10 @@ import torch
 
 from esmstereo_tpu_torch.eval.runner import InferenceRunner, precision
 from esmstereo_tpu_torch.models.confidence import ESMStereoConfidence
-from esmstereo_tpu_torch.models.esmstereo import ESMStereo, ESMStereoConfig
-from esmstereo_tpu_torch.ops.kernels import _build, reset_launches, wrappers
+from esmstereo_tpu_torch.models.esmstereo import (ESMStereo, ESMStereoConfig,
+                                                  conv3d_shapes)
+from esmstereo_tpu_torch.ops.kernels import (_build, conv_wrappers,
+                                             reset_launches, wrappers)
 from esmstereo_tpu_torch.ops.kernels import correlation, fused_agg_stem
 from esmstereo_tpu_torch.ops.kernels import fused_head, fused_hourglass
 from esmstereo_tpu_torch.ops.kernels import fused_mixer, fused_stage
@@ -318,6 +330,22 @@ def compare_ulps(name: str, got: torch.Tensor, want: torch.Tensor,
 def apart(a: torch.Tensor, b: torch.Tensor) -> float:
     """The share of the elements where ``a`` and ``b`` differ."""
     return float((a.float() != b.float()).float().mean())
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms (a process global), restored after.
+    The ones it picks by default for the unfused hourglass's bf16 3-D
+    convs on the H100 sum in an order that changes from run to run, which
+    moves a bf16 rounding of a deploy path's cost by one ulp between runs
+    on one input (L-deploy's max distance from the CPU read 4.470e-08 or
+    5.215e-08 on one draw, against the deploy numerics' own 4.863e-08)."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
 
 
 @contextlib.contextmanager
@@ -1329,6 +1357,138 @@ def check_up_pairs_bf16(net, gen, downs: list, path: str) -> dict:
     return dict(row, form="bf16", model=path, form_key="bf16")
 
 
+# --- the shared conv3d k3 p1 of C, E's agg, G and H, conv by conv ----------
+
+def conv_cases(net) -> list:
+    """(label, ConvBlock, input shape, stride) of each distinct conv3d k3 p1
+    that kernels C, E's agg, G and H launch at ``net``'s main-path shapes
+    (``conv3d_shapes``: group_stem or corr_stem and agg on the volume, then
+    G's k3 s2 and k3 s1 at each level; H's k3 convs have the shapes of G's
+    s1 convs at levels 1 and 2, E's agg that of agg); the label is the
+    submodule's name without ``aggregation_out.``."""
+    return [(name.split(".")[-1], net.get_submodule(name),
+             (1, ci, d, h, w), stride)
+            for name, ci, co, d, h, w, stride
+            in conv3d_shapes(net.config, *PADDED)]
+
+
+# the labels of kernel C's convs among ``conv_cases``
+C_CONVS = ("group_stem", "corr_stem", "agg")
+
+
+def conv_bf16_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                    shift: torch.Tensor, stride: int) -> torch.Tensor:
+    """The plain version of ``conv3d_bn_gelu_bf16`` writing bf16, tanh
+    GELU: the fp32 sum of bf16 (or int8) operands, then the BN and GELU in
+    fp32, rounded to bf16."""
+    y = torch.nn.functional.conv3d(x.float(), w.float(), stride=stride,
+                                   padding=1)
+    return fused_hourglass.bn_gelu(y, scale, shift, True).to(torch.bfloat16)
+
+
+def check_conv(label: str, block, shape: tuple, stride: int, form: str,
+               gen, path: str | None, model: str) -> dict:
+    """One conv3d k3 p1 of the shared kernel (``conv3d_bn_gelu`` in fp32,
+    exact GELU; ``conv3d_bn_gelu_bf16`` on a bf16 or, with ``form`` int8,
+    a quantised unit-normal input, tanh GELU, writing bf16) against its
+    plain version (``F.conv3d`` + BN + GELU): fp32 within 1e-4 of max(1,
+    max|plain|), the deploy forms by ``compare_deploy``. The yardstick is
+    one cuDNN ``conv3d`` with the folded bias (bf16 for the deploy forms);
+    the row gives the launch plan's tile, cluster size and blocks.
+    ``path`` is the served path whose run counts its launches (None for a
+    form no path serves)."""
+    f = torch.nn.functional
+    bf16 = torch.bfloat16
+    xin = torch.randn(shape, generator=gen).cuda()
+    wf, tf = blocks.fold_bn(block.conv.weight, block.bn)
+    ci, co = shape[1], wf.shape[0]
+    if form == "fp32":
+        x, args = xin, (wf, tf)
+
+        def kernel():
+            return fused_hourglass.conv3d_bn_gelu(x, wf, tf, stride, False)
+
+        def plain():
+            return gelu(f.conv3d(x, wf, tf, stride=stride, padding=1), False)
+
+        plan_form, lib, rate = "fp32", (xin, wf, tf), FP32_FLOPS_PER_S
+    else:
+        sc, sh = blocks.bn_scale_shift(block.bn)
+        w = block.conv.weight.to(bf16)
+        x = xin.to(bf16)
+        if form == "int8":
+            x, scale = fused_agg_stem.quantize_volume(x)
+            w = (block.conv.weight.float() * scale).to(bf16)
+        args = (w, sc, sh)
+
+        def kernel():
+            return fused_hourglass.conv3d_bn_gelu_bf16(x, w, sc, sh, bf16,
+                                                       True, stride)
+
+        def plain():
+            return conv_bf16_plain(x, w, sc, sh, stride)
+
+        plan_form = "int8_bf16" if form == "int8" else "bf16"
+        lib = (xin.to(bf16), wf.to(bf16), tf.to(bf16))
+        rate = BF16_FLOPS_PER_S
+    plan = fused_hourglass.conv_plan(plan_form, ci, co, *shape[2:], stride)
+    name = (f"conv3d {form} {model} {label} {ci} -> {co} s{stride} "
+            f"{tuple(shape)}")
+    got, want = kernel(), plain()
+    if form == "fp32":
+        # fp32 sums of 27 CI products in another order than cuDNN's
+        err = compare(name, got, want, 1e-4)
+    else:
+        err = compare_deploy(name, got, want)
+    print(f"    plan: tile {plan.tile}, {plan.groups} channel tiles of 8, "
+          f"cluster {plan.cluster}, {plan.blocks} blocks, {plan.smem} B of "
+          f"shared memory")
+    bms, by = bound(nbytes(x, *args, got),
+                    2 * got.numel() * ci * 27, rate)
+
+    def library():
+        return f.conv3d(lib[0], lib[1], lib[2], stride=stride, padding=1)
+
+    return {"name": "conv3d_k3", "form": form, "model": model, "path": path,
+            "conv": label, "shape_key": (plan_form, ci, co, *shape[2:],
+                                         stride),
+            "route": "cuda",
+            "source": "esmstereo_tpu_torch/csrc/fused_hourglass.cu",
+            "replaces": ("esmstereo_tpu/ops/pallas/fused_agg_stem.py:162"
+                         if label in C_CONVS else
+                         "esmstereo_tpu/attic/fused_hourglass.py:144"),
+            "input": list(shape), "stride": stride, "tile": list(plan.tile),
+            "cluster": plan.cluster, "blocks": plan.blocks,
+            "max_abs_err": err, "ms": cuda_ms(kernel),
+            "plain_ms": cuda_ms(plain), "bound_ms": bms, "bound_by": by,
+            "library_ms": cuda_ms(library)}
+
+
+def check_convs(nets: list, gen) -> list:
+    """``check_conv`` on every distinct conv shape of C, G and H at L, M
+    and S, in fp32 and the deploy form, C's first conv also on the int8
+    volume. ``nets``: (model, net, fp32 C path, fp32 G path, deploy C path,
+    deploy G path) each; a shape already checked on an earlier net is not
+    checked again (M-norm adds only corr_stem)."""
+    rows, seen = [], set()
+    for model, net, c_path, g_path, cd_path, gd_path in nets:
+        for label, block, shape, stride in conv_cases(net):
+            key = (shape, stride, block.conv.weight.shape[0])
+            if key in seen:
+                continue
+            seen.add(key)
+            c = label in C_CONVS
+            rows.append(check_conv(label, block, shape, stride, "fp32", gen,
+                                   c_path if c else g_path, model))
+            rows.append(check_conv(label, block, shape, stride, "bf16", gen,
+                                   cd_path if c else gd_path, model))
+            if label in ("group_stem", "corr_stem"):
+                rows.append(check_conv(
+                    label, block, shape, stride, "int8", gen,
+                    "L-deploy-int8" if model == "L" else None, model))
+    return rows
+
+
 def check_stems_deploy(net, gen, path: str) -> dict:
     """Kernel F's deploy form at the main path's shapes (both eyes, 544 x
     992, a unit-normal fp32 image, x4 at S's widths as in
@@ -1563,8 +1723,10 @@ def check_ragged_switches_deploy(model, m_norm, s_gwc, gen) -> None:
     """The switches' deploy forms at small shapes with ragged tiles on
     every axis and batch 2, by ``compare_deploy``: E's gwc (``model``'s
     group_stem) and normalised G = 1 (``m_norm``'s corr_stem) forms at 13
-    and 48 bins, G and H at L's, M's and S's widths, F at (32, 48) and
-    (16, 24), I."""
+    and 48 bins; G at L's, M's and S's widths, each conv on its own input
+    (the k3 s1 conv's plain version on the kernel's intermediate) and the
+    chain against the plain chain by ``compare_ulps``; H there; F at (32,
+    48) and (16, 24); I."""
     dev = torch.device("cuda")
     bf16 = torch.bfloat16
     for shape, d in (((2, 64, 7, 37), 13), ((2, 64, 5, 70), 48)):
@@ -1591,9 +1753,23 @@ def check_ragged_switches_deploy(model, m_norm, s_gwc, gen) -> None:
                 getattr(agg, f"conv{k}_0"), getattr(agg, f"conv{k}_1"),
                 low_precision=True)
             x = torch.randn(shape, generator=gen).to(dev).to(bf16)
-            compare_deploy(f"down_pair bf16 level {k} {shape}",
-                           fused_hourglass.down_pair(x, low, True),
-                           fused_hourglass.down_pair_plain(x, low, True))
+            name = f"down_pair bf16 level {k} {shape}"
+            # each conv on its own input: the k3 s1 conv's plain version
+            # takes the kernel's intermediate, as the kernel does (one
+            # intermediate value that lies within an fp32 rounding of a
+            # bf16 midpoint rounds either way in the two summation orders
+            # and moves a few % of a ragged level's outputs)
+            mid = fused_hourglass.conv3d_bn_gelu_bf16(
+                x, low["wa"], low["sa"], low["ta"], bf16, True, stride=2)
+            compare_deploy(f"{name}: its k3 s2 conv", mid,
+                           conv_bf16_plain(x, low["wa"], low["sa"],
+                                           low["ta"], 2))
+            got = fused_hourglass.down_pair(x, low, True)
+            compare_deploy(f"{name}: on its own k3 s2 output", got,
+                           conv_bf16_plain(mid, low["wb"], low["sb"],
+                                           low["tb"], 1))
+            compare_ulps(f"{name}: the chain", got,
+                         fused_hourglass.down_pair_plain(x, low, True))
         for names, src_shape, skip_shape in (
                 (("conv3_up", "agg_0_0", "agg_0_1"), (2, c3, 3, 5, 6),
                  (2, c2, 5, 9, 11)),
@@ -1703,7 +1879,8 @@ def check_deploy_against_cpu(gen, config: ESMStereoConfig,
     regression moves a pixel that flips by the gap between two peaks,
     which the draw sets: its disparity has no max bound, and its mean and
     flip share are held within ``CV4_MARGIN`` times the deploy numerics'
-    own figures."""
+    own figures. The card runs cuDNN's deterministic algorithms, so that a
+    draw's verdict repeats."""
     cls = ESMStereoConfidence if confidence else ESMStereo
     fp32 = dataclasses.replace(config, dtype="float32", volume_int8=False)
     ref = cls(fp32, device="cpu", seed=SEED + 2)
@@ -1726,8 +1903,9 @@ def check_deploy_against_cpu(gen, config: ESMStereoConfig,
             runs = [ref(left, right, capture_internals=True)]
             with tanh_gelu():
                 runs.append(cpu(left, right, capture_internals=True))
-                runs.append(gpu(left.cuda(), right.cuda(),
-                                capture_internals=True))
+                with deterministic_cudnn():
+                    runs.append(gpu(left.cuda(), right.cuda(),
+                                    capture_internals=True))
         outs = []
         for out, aux in runs:
             maps = dict(zip(("disparity", "confidence"), out))
@@ -2224,6 +2402,14 @@ def main() -> int:
                                                 "S-deploy-all")]
         # kernel J over stages 1-5 of L's and S's backbones (on no path)
         rows += [check_fused_stages(net, gen, None) for net in (model, s_gwc)]
+        # the conv3d k3 p1 that C, E's agg, G and H share, conv by conv
+        print("  the shared conv3d k3 p1 at each of its shapes:")
+        rows += check_convs([
+            ("L", model, "default", "fused", "L-deploy", "L-deploy-all"),
+            ("M", m_gwc, "M", "M-norm-all", "M-deploy", "M-norm-deploy-all"),
+            ("M-norm", m_norm, "M-norm", "M-norm-all", "M-norm-deploy",
+             "M-norm-deploy-all"),
+            ("S", s_gwc, "S", "S-all", "S-deploy", "S-deploy-all")], gen)
         for r in rows:
             lib = r["library_ms"]
             lib = "none" if lib is None else f"{lib:.4f} ms"
@@ -2236,6 +2422,10 @@ def main() -> int:
                       f"{lv['plain_ms']:.4f} ms, library "
                       f"{lv['library_ms']:.4f} ms, bound "
                       f"{lv['bound_ms']:.4f} ms by {lv['bound_by']})")
+            if "cluster" in r:
+                print(f"    {r['conv']} {r['input']} s{r['stride']}: tile "
+                      f"{r['tile']}, cluster {r['cluster']}, {r['blocks']} "
+                      f"blocks")
             if "b_plus_c_ms" in r:
                 print(f"    beside kernels B + C on the same inputs: "
                       f"{r['ms']:.4f} ms against {r['b_plus_c_ms']:.4f} ms")
@@ -2297,7 +2487,9 @@ def main() -> int:
         nets[name] = cls(config, device="cuda", seed=SEED)
         nets[name].load_state_dict(sources[name].state_dict())
     kernels = wrappers()
+    convs = conv_wrappers()
     launches, forms = {}, {}
+    conv_launches, conv_forms, conv_shapes = {}, {}, {}
     for name, net in nets.items():
         frame = KITTI_FRAME if name.split("-")[0] == "C" else FRAME
         padded = [(n // 32 + 1) * 32 for n in frame]
@@ -2311,6 +2503,13 @@ def main() -> int:
             torch.cuda.synchronize()
         launches[name] = {k: fn.launches for k, fn in kernels.items()}
         forms[name] = {k: dict(fn.form_launches) for k, fn in kernels.items()}
+        conv_launches[name] = {k: fn.launches for k, fn in convs.items()}
+        conv_forms[name], conv_shapes[name] = {}, {}
+        for fn in convs.values():
+            for mine, theirs in ((conv_forms[name], fn.form_launches),
+                                 (conv_shapes[name], fn.shape_launches)):
+                for k, n in theirs.items():
+                    mine[k] = mine.get(k, 0) + n
         print(f"  launches per request on the {name} path: "
               f"{ {k: n / REQUESTS for k, n in launches[name].items()} }; "
               f"by form: { {k: v for k, v in forms[name].items() if v} }")
@@ -2339,6 +2538,26 @@ def main() -> int:
             require(n == per_request.get(k, 0) * REQUESTS,
                     f"{k} launched {n} times in {REQUESTS} requests on the "
                     f"{path} path (want {per_request.get(k, 0)} a request)")
+    # the shared conv3d k3 p1: 2 a C, 1 an E, 2 a G level, 1 an H level,
+    # every one in fp32 on the fp32 paths and in a deploy form (bf16; C's
+    # first on the int8 volume) on the deploy paths
+    for path, per_request in want.items():
+        n = REQUESTS * (2 * per_request.get("stem_agg", 0)
+                        + per_request.get("volume_stem_agg", 0)
+                        + 2 * per_request.get("down_pair", 0)
+                        + per_request.get("up_pair", 0))
+        deploy = path in served_deploy
+        int8 = (REQUESTS * per_request.get("stem_agg", 0)
+                if path == "L-deploy-int8" else 0)
+        want_forms = ({"bf16": n - int8, "int8_bf16": int8} if deploy
+                      else {"fp32": n})
+        want_forms = {k: v for k, v in want_forms.items() if v}
+        require(conv_launches[path] == {"conv3d": 0 if deploy else n,
+                                        "conv3d_bf16": n if deploy else 0}
+                and conv_forms[path] == want_forms,
+                f"the shared conv launched {conv_launches[path]} in the forms "
+                f"{conv_forms[path]} in {REQUESTS} requests on the {path} "
+                f"path (want {want_forms})")
     # the forms each path launched: the deploy forms on the deploy paths
     # only, and nothing but fp32 elsewhere
     gwc_bf16 = {"fused_stage0": "bf16", "correlation_volume": "bf16",
@@ -2362,9 +2581,15 @@ def main() -> int:
     for r in rows:
         # a form no path serves (gwc_norm, D's bf16 forms, the int8 forms
         # of M, M-norm and S) has no run that counts its launches; a
-        # deploy form's row counts that form's launches on its path
+        # deploy form's row counts that form's launches on its path; a
+        # conv's row the launches of its shape and form on its path
         key = r.pop("form_key", None)
-        if not r["path"]:
+        shape_key = r.pop("shape_key", None)
+        if shape_key and r["path"]:
+            r["launches"] = conv_shapes[r["path"]].get(shape_key, 0)
+            require(r["launches"] > 0, f"conv3d {shape_key} launched no "
+                    f"time on the {r['path']} path")
+        elif not r["path"]:
             r["launches"] = None
         elif key:
             r["launches"] = forms[r["path"]][r["name"]][key]

@@ -1,6 +1,5 @@
-// The direct 3-D convolutions of the cost-volume section, every conv with
-// its eval BatchNorm folded into the weights and a GELU epilogue, fp32:
-// kernels C and G, E's agg conv and H.
+// The 3-D convolutions of the cost-volume section, each with its eval
+// BatchNorm and a GELU epilogue: kernels C and G, E's agg conv and H.
 //
 // Replaces esmstereo_tpu/ops/pallas/fused_agg_stem.py::folded_stem_agg_apply
 // (pallas_call at :295), esmstereo_tpu/attic/fused_hourglass.py::
@@ -15,60 +14,102 @@
 //             [up | skip], read through two pointers so the concat never
 //             exists; then conv3d k3 s1 p1 (CO -> CO).
 //
-// What bounds them on an H100: operations. On the L main path C is about
-// 28 GFLOP against 207 MB read and 52 MB written; the hourglass levels are
-// 1.4 to 9.9 GFLOP each against at most ~80 MB of inputs and outputs.
+// What bounds them on an H100: operations in fp32 (C at L is about 28
+// GFLOP against 207 MB read and 52 MB written); bytes for the deploy forms
+// on the tensor cores (G's three levels at L move about 52 MB for 13
+// GFLOP, 0.0156 ms of HBM time against 0.0135 ms of bf16 operations). At
+// M's and S's levels neither: a conv there is a few MFLOP on a grid of a
+// few dozen output tiles, so the time is the latency of its chain of
+// loads and barriers, and what counts is how many SMs share it.
 //
-// Design for that: direct convolutions. A block owns a 32 x 4 (w, h) tile
-// of output pixels, a chunk of kDc output depths and kCot output channels;
-// each thread owns one (h, w) column and keeps kDc * kCot sums in
-// registers. Tiling the output channels by 8 keeps that register count at
-// every width (8 to 72 channels) instead of spilling at the wide ones; each
-// channel tile reads the input again, from L2. A width that is not a
-// multiple of 8 (ESMStereo-S's 12) runs the kernels' masked instances
-// (kMasked): the last tile's weight loads read zeros past CO and its
-// stores skip those channels. Whole widths (L's and M's) run the unmasked
-// instances, whose code is that of widths of 8 only: masking every width
-// cost the shared conv 40-60% at L's and M's shapes, at the same register
-// counts. The tail tile's 4 idle channels cost a third of the
-// 12-channel level's arithmetic, which at S's tiny levels is not what
-// bounds it (a narrower instance would be a second kernel to hold).
-// Input channels stream through shared memory one at a time as the tile's
-// halo slab, beside that channel's weights for the tile. For each input
-// channel and (kh, kw) tap of the stride-1 conv a thread loads its kDc+2
-// depth values once and reuses each for three kd taps and 8 outputs. The
-// transposed conv is written in gather form (each output sums the 2 x 2 x 2
-// input taps that reach it), so it needs no atomics and repeats bit for
-// bit. No tensor cores: fp32 parity first.
+// The conv3d k3 p1 (stride 1 or 2) has two kernels, each over a launch
+// plan that the wrapper computes (fused_hourglass.py::conv_plan) and
+// passes in as ints: the tile, the channel tiling, the cluster size and
+// the shared memory, which the entry point checks against its own count.
 //
-// Kernel C's deploy forms (conv3d_k3_bn_gelu_bf16) are instances of the same
-// stride-1 conv that compute what the TPU kernel computes with bf16 operands
-// (esmstereo_tpu/ops/pallas/fused_agg_stem.py:141-155,189-192): the input is
-// bf16 (the volume, or conv1's bf16 output) or int8 (the quantised volume,
-// exact in bf16), the weights are bf16 (raw, BN not folded: conv1's times
-// the int8 volume's dequantisation scale), each product of two bf16 values
-// is exact in fp32 and the sums are fp32, and the epilogue applies the BN
-// scale and shift in fp32 (sum * scale, then + shift, each rounded, as the
-// plain version's two ops) before GELU and the store in bf16 or fp32. The
-// values are widened to fp32 as the tile is staged, so the inner loop is the
-// fp32 one; only the bytes of the volume, the intermediate and the output
-// shrink. A tensor-core form is later work.
+// conv3d_mma_kernel, the deploy form (conv3d_k3_bn_gelu_bf16): an implicit
+// GEMM on the tensor cores, as the TPU kernel's per-tap dot_general of bf16
+// operands with fp32 sums (fused_agg_stem.py:142-146 there). M is a block's
+// tile of 16 (w) x TH (h) x TD (d) output voxels, one 16-row m-tile per
+// (d, h) row; N is all of CO in one block (n-tiles of 8, NT of them, the
+// padded channels zero weights that are never stored), so the input is
+// read once and not once per 8 channels; K is (input-channel chunk, tap),
+// the chunks of KC = 16 channels (8 where CI <= 8: C's agg, corr_stem, G's
+// first level), each zero-padded past CI. The instruction is
+// mma.sync.m16n8k16 (m16n8k8 at KC 8) .row.col.f32.bf16.bf16.f32: each
+// product of two bf16 values is exact in fp32; each tap's products are
+// summed by the tensor core from zero and added to the running fp32 sum
+// with one rounded add, as the TPU kernel adds each (kh, kw) dot to its
+// accumulator (summing inside the MMA instead, whose adds do not round to
+// nearest, moved up to 0.76% of a chained level's bf16 outputs against
+// cuDNN's fp32 on the H100, the rounded adds up to 0.41%). The slab of one
+// chunk lives in shared memory channel-innermost, [d][h][w][KC ci] bf16
+// (at KC 16, 32 bytes a voxel with the two 16-byte halves swapped on every
+// other group of 4 voxels, so that any 8 consecutive voxels hit 8 distinct
+// bank groups), and at stride 2 with the even input columns before the odd
+// ones, so that one ldmatrix reads the A fragment (16 voxels x KC
+// channels) of any tap at either stride from 16 consecutive slab rows.
+// int8 input is widened to bf16 as it is staged (every int8 is exact in
+// bf16). A chunk's weights, the B operand, sit beside the slab as
+// [tap][n][KC ci] bf16. Every warp stages a rank's first chunk; then 4
+// consumer warps run chunk k's MMAs while 4 producer warps (8 where 5 or
+// more n-tiles make the weights the larger copy) stage chunk k+1's slab
+// and weights into the other buffer through registers: each item is 8
+// coalesced 2-byte loads, 8 channels apart, packed into one 16-byte shared
+// store, which is the transpose to channel-innermost (cp.async copies 4
+// bytes at least and cannot do it). One barrier a chunk. The epilogue is
+// GELU(__fadd_rn(__fmul_rn(sum, scale), shift)), in fp32, stored in bf16
+// or fp32, through a shared-memory transpose so that the stores run along
+// w. When a grid has fewer output tiles than the card has SMs, the plan
+// splits the chunks over a cluster of up to 8 blocks (below).
 //
-// G's and H's deploy forms (bf16 in, bf16 out) are the same kernels with the
-// rounding of esmstereo_tpu/attic/fused_hourglass.py's bf16 operands
-// (:160,264,289-293 for G, :472,585,616-622,656 for H): raw bf16 weights,
-// fp32 sums, the BN scale then the shift in fp32 after each sum, GELU, and
-// every intermediate stored in bf16, which is the rounding the TPU kernel
-// applies when that intermediate becomes the next matmul's operand. G runs
-// the stride-2 and stride-1 instances of conv3d_k3_bn_gelu_bf16; H runs
-// hourglass_deconv_bf16, hourglass_conv1x1_cat_bf16 and the stride-1 conv.
-// Widths that are not a multiple of 8 (S's 12) take the masked instances.
+// conv3d_fp32_kernel, the fp32 form (conv3d_k3_bn_gelu): fp32 FMA (TF32
+// is off in every fp32 run of the port). A block owns 32 (w) x TH (h) x KDC
+// (d) output voxels and NG groups of 8 output channels, a warp one (h,
+// group) pair and a thread one column's KDC x 8 sums, so all of CO is in
+// one block and the input slab is read once. Input channels stream through
+// shared memory as the tile's halo slab beside that channel's weights,
+// double-buffered with cp.async (4-byte copies, zero-filled outside the
+// input): the next channel's copies fly while this channel's FMAs run, one
+// wait and one barrier a channel. For each (kh, kw) tap a thread loads its
+// column's depth values once and reuses each for three kd taps and 8
+// outputs. Smaller tiles (fewer rows, 4 depths) fill the card where the
+// large one would not.
+//
+// Both kernels split K where the plan asks: the blocks of a thread-block
+// cluster of R <= 8 (cudaLaunchAttributeClusterDimension) share one output
+// tile and each sums a contiguous share of the input channels (of the
+// 16-channel chunks for the MMA kernel). Each writes its partial sums to
+// its own shared memory; after a cluster barrier each block reduces a
+// stripe of the tile through distributed shared memory, in rank order
+// (rank 0's sum, plus rank 1's, ...), and runs the epilogue on it. One
+// launch, deterministic, no scratch and no atomics. With R = 1 the fp32
+// kernel stores from its registers.
+//
+// G's and H's deploy forms (bf16 in, bf16 out) round as
+// esmstereo_tpu/attic/fused_hourglass.py's bf16 operands do (:160,264,
+// 289-293 for G, :472,585,616-622,656 for H): raw bf16 weights, fp32 sums,
+// the BN scale then the shift in fp32 after each sum, GELU, and every
+// intermediate stored in bf16, which is the rounding the TPU kernel applies
+// when that intermediate becomes the next matmul's operand; C's
+// (esmstereo_tpu/ops/pallas/fused_agg_stem.py:141-155,189-192) take a bf16
+// or int8 volume and write bf16, or fp32 after an int8 volume.
+//
+// The transposed conv is written in gather form (each output sums the
+// 2 x 2 x 2 input taps that reach it), so it needs no atomics and repeats
+// bit for bit; it and the 1x1x1 conv keep the direct fp32 FMA design of a
+// 32 x 4 (w, h) tile, kDc depths and kCot output channels a block.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
+#include <unordered_map>
 
 #include "activations.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -78,14 +119,7 @@ constexpr int kDc = 8;     // output depths per thread
 constexpr int kCot = 8;    // output channels per block
 constexpr int kThreads = kTw * kTh;
 constexpr int kMaxCat = 256;   // input channels of the 1x1x1 conv, at most
-
-// The input slab a 3x3x3 conv of stride S (padding 1) reads for one tile.
-template <int S>
-struct Slab3 {
-    static constexpr int w = S * (kTw - 1) + 3;
-    static constexpr int h = S * (kTh - 1) + 3;
-    static constexpr int d = S * (kDc - 1) + 3;
-};
+constexpr int kMaxCluster = 8;
 
 __device__ __forceinline__ bool inside(int d, int h, int w, int D, int H,
                                        int W) {
@@ -96,7 +130,6 @@ __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) {
     return __bfloat162float(v);
 }
-__device__ __forceinline__ float widen(int8_t v) { return (float)v; }
 
 template <typename T>
 __device__ __forceinline__ T narrow(float v);
@@ -107,9 +140,20 @@ __device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
     return __float2bfloat16_rn(v);
 }
 
-// Writes a thread's kDc x kCot sums through the BN (the folded shift, or
-// with kScaled the scale then the shift) and GELU; kMasked skips the
-// channels past CO.
+// The BN and GELU of one sum: the folded shift, or with kScaled the scale
+// then the shift, each rounded, as the plain version's two ops.
+template <bool kScaled, typename Tout>
+__device__ __forceinline__ Tout finish(float acc,
+                                       const float* __restrict__ scale,
+                                       const float* __restrict__ shift,
+                                       int co, bool approx) {
+    const float v = kScaled ? __fadd_rn(__fmul_rn(acc, scale[co]), shift[co])
+                            : acc + shift[co];
+    return narrow<Tout>(gelu(v, approx));
+}
+
+// Writes a thread's kDc x kCot sums through the BN and GELU (finish);
+// kMasked skips the channels past CO.
 template <bool kMasked, typename Tout = float, bool kScaled = false>
 __device__ __forceinline__ void store_tile(
         const float (&acc)[kDc][kCot], const float* __restrict__ scale,
@@ -126,100 +170,557 @@ __device__ __forceinline__ void store_tile(
         if (d >= D) break;
 #pragma unroll
         for (int o = 0; o < kCot; ++o)
-            if (!kMasked || co0 + o < CO) {
-                const float v = kScaled
-                    ? __fadd_rn(__fmul_rn(acc[dd][o], scale[co0 + o]),
-                                shift[co0 + o])
-                    : acc[dd][o] + shift[co0 + o];
+            if (!kMasked || co0 + o < CO)
                 yb[(size_t)o * vol + (size_t)d * plane] =
-                    narrow<Tout>(gelu(v, approx));
-            }
+                    finish<kScaled, Tout>(acc[dd][o], scale, shift, co0 + o,
+                                          approx);
     }
 }
 
-// conv3d k3, stride S, padding 1: x (B, CI, D, H, W) -> y (B, CO, Do, Ho, Wo).
-// wgt: (CO, CI, 3, 3, 3) with the BN scale folded in and shift (CO,), or
-// with kScaled the raw weight and the BN's scale and shift (CO,) each.
-template <int S, bool kMasked, typename Tin = float, typename Tw = float,
-          typename Tout = float, bool kScaled = false>
-__global__ void __launch_bounds__(kThreads)
-conv3d_k3_kernel(const Tin* __restrict__ x, const Tw* __restrict__ wgt,
-                 const float* __restrict__ scale,
-                 const float* __restrict__ shift, Tout* __restrict__ y,
-                 int CI, int CO, int D, int H, int W, int Do, int Ho, int Wo,
-                 int approximate) {
-    using SL = Slab3<S>;
-    __shared__ float xsh[SL::d * SL::h * SL::w];
-    __shared__ float wsh[27 * kCot];   // [tap][o] for this channel tile
+// --- asynchronous copies and tensor-core fragments --------------------------
 
-    const int tilesW = (Wo + kTw - 1) / kTw;
-    const int wo0 = (blockIdx.x % tilesW) * kTw;
-    const int ho0 = (blockIdx.x / tilesW) * kTh;
-    const int chunksD = (Do + kDc - 1) / kDc;
-    const int do0 = (blockIdx.y % chunksD) * kDc;
-    const int co0 = (blockIdx.y / chunksD) * kCot;
-    const int b = blockIdx.z;
-    const int tx = threadIdx.x, ty = threadIdx.y;
-    const int tid = ty * kTw + tx;
-    // input coordinates of slab index 0 on each axis
-    const int di0 = S * do0 - 1, hi0 = S * ho0 - 1, wi0 = S * wo0 - 1;
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+    return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
 
-    float acc[kDc][kCot];
-#pragma unroll
-    for (int dd = 0; dd < kDc; ++dd)
-#pragma unroll
-        for (int o = 0; o < kCot; ++o) acc[dd][o] = 0.0f;
+// 4 bytes, or 4 zero bytes when !valid (src is then not read).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0)
+                 : "memory");
+}
 
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], unsigned a) {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a)
+        : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x2(uint32_t& r0, uint32_t& r1,
+                                            unsigned a) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+                 : "=r"(r0), "=r"(r1) : "r"(a) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x1(uint32_t& r0, unsigned a) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x1.shared.b16 {%0}, [%1];\n"
+                 : "=r"(r0) : "r"(a) : "memory");
+}
+
+// d += a * b on one m16n8k8 tile: bf16 operands, fp32 sums.
+__device__ __forceinline__ void mma_bf16_k8(float (&d)[4], uint32_t a0,
+                                            uint32_t a1, uint32_t b0) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a0), "r"(a1), "r"(b0));
+}
+
+// d += a * b on one m16n8k16 tile: bf16 operands, fp32 sums.
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Byte offset of the 16-byte half `half` (channels 8 half .. 8 half + 7) of
+// 32-byte row `row` (a slab voxel, or a (tap, n) weight row): the halves
+// swap on every other group of 4 rows, so any 8 consecutive rows' same
+// half fall in 8 distinct 16-byte bank groups (ldmatrix reads 8 rows a
+// phase).
+__device__ __host__ __forceinline__ int swz(int row, int half) {
+    return row * 32 + ((half ^ ((row >> 2) & 1)) << 4);
+}
+
+__device__ __forceinline__ uint32_t bits16(__nv_bfloat16 v) {
+    return __bfloat16_as_ushort(v);
+}
+__device__ __forceinline__ uint32_t bits16(int8_t v) {
+    return __bfloat16_as_ushort(__float2bfloat16_rn((float)v));
+}
+
+// --- the deploy form: implicit GEMM on the tensor cores ---------------------
+
+constexpr int kMmaWarps = 4;   // consumer warps, the MMAs
+
+// Producer warps: 4, or 8 where 5 or more n-tiles make the weights of a
+// chunk (27 x NP x KC values) the larger part of its copies; and the items
+// (8 loads each) a producer keeps in flight: 2 at one n-tile, where the
+// registers bound the blocks an SM holds, else 4 (the faster of 2, 4 and 8
+// on the H100 at each).
+__host__ __device__ constexpr int load_warps(int NT) {
+    return NT >= 5 ? 8 : 4;
+}
+__host__ __device__ constexpr int load_batch(int NT) {
+    return NT == 1 ? 2 : 4;
+}
+__host__ __device__ constexpr int mma_threads(int NT) {
+    return 32 * (kMmaWarps + load_warps(NT));
+}
+
+// A block's tile of 16 x TH x TD output voxels (w, h, d) at stride S with
+// input channels in chunks of KC (16, or 8 where CI <= 8): the input slab
+// it reads, in shared memory [sd][sh][column][KC ci], beside a chunk's
+// weights [tap][NP + 1][KC ci] (a tap's rows padded by one, so that a
+// producer's 8 consecutive taps hit 8 distinct bank groups).
+template <int S, int TH, int TD, int NT, int KC>
+struct MmaTile {
+    static constexpr int sd = S * (TD - 1) + 3;
+    static constexpr int sh = S * (TH - 1) + 3;
+    static constexpr int sw = S * 15 + 3;            // 18 or 33 columns
+    static constexpr int row = 2 * KC;     // bytes a voxel or (tap, n)
+    static constexpr int halves = KC / 8;            // 16-byte units a row
+    static constexpr int voxels = 16 * TH * TD;
+    static constexpr int slab_bytes = sd * sh * sw * row;
+    static constexpr int mtiles = TH * TD;           // one per (d, h) row
+    static constexpr int wrow = 8 * NT + 1;          // weight rows a tap
+    static constexpr int stage = slab_bytes + 27 * wrow * row;
+};
+
+// Byte offset of 16-byte unit `half` of row `row` in a layout of KC
+// channels a row: swz at 16; at 8 the rows are single units, and any 8
+// consecutive ones are 8 distinct bank groups as they stand.
+template <int KC>
+__device__ __forceinline__ int unit(int row, int half) {
+    return KC == 16 ? swz(row, half) : row * 16;
+}
+
+// Shared-memory column of slab column sw: itself at stride 1; at stride 2
+// the 17 even columns first, then the 16 odd ones, so that output column
+// ww at tap kw reads column wcol<S>(kw) + ww at either stride.
+template <int S>
+__device__ __forceinline__ int wcol(int sw) {
+    return S == 1 ? sw : ((sw & 1) ? 17 : 0) + (sw >> 1);
+}
+
+// One chunk of KC input channels (from c0) into buf: the tile's slab,
+// widened to bf16 and zero outside the input or past CI, and the chunk's
+// weights for output channels co0 .. co0 + 8 NT - 1, zero past CO. Items
+// are (voxel, 8-channel unit) and (n, unit, tap); consecutive threads
+// (ptid of nthr) take consecutive w or taps, so each of an item's 8 loads
+// (8 channels, vol or 27 values apart) is coalesced over the warp, and its
+// 16-byte store lands in a distinct bank group. kBatch items' loads are in
+// flight before their stores.
+template <int S, int TH, int TD, int NT, int KC, typename Tin>
+__device__ __forceinline__ void stage_chunk(
+        const Tin* __restrict__ xb, const __nv_bfloat16* __restrict__ wgt,
+        char* buf, int c0, int CI, int CO, int co0, int D, int H, int W,
+        int di0, int hi0, int wi0, int ptid, int nthr) {
+    using T = MmaTile<S, TH, TD, NT, KC>;
+    constexpr int kBatch = load_batch(NT);
+    constexpr int kVox = T::sd * T::sh * T::sw;
+    constexpr int kSlabItems = T::halves * kVox;
+    constexpr int kItems = kSlabItems + 27 * T::halves * 8 * NT;
     const size_t plane = (size_t)H * W;
     const size_t vol = (size_t)D * plane;
-    const Tin* xb = x + (size_t)b * CI * vol;
+    for (int i0 = ptid; i0 < kItems; i0 += nthr * kBatch) {
+        uint32_t v[kBatch][4];
+        int dst[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+            const int i = i0 + u * nthr;
+            dst[u] = -1;
+#pragma unroll
+            for (int q = 0; q < 4; ++q) v[u][q] = 0;
+            if (i < kSlabItems) {
+                const int half = i / kVox, vox = i % kVox;
+                const int sw = vox % T::sw, sh = vox / T::sw % T::sh;
+                const int sd = vox / (T::sw * T::sh);
+                const int gd = di0 + sd, gh = hi0 + sh, gw = wi0 + sw;
+                dst[u] = unit<KC>((sd * T::sh + sh) * T::sw + wcol<S>(sw),
+                                  half);
+                if (inside(gd, gh, gw, D, H, W)) {
+                    const int c = c0 + 8 * half;
+                    const Tin* p = xb + (size_t)c * vol + (size_t)gd * plane
+                                   + (size_t)gh * W + gw;
+#pragma unroll
+                    for (int j = 0; j < 8; ++j)
+                        if (c + j < CI)
+                            v[u][j / 2] |= bits16(p[(size_t)j * vol])
+                                           << (16 * (j & 1));
+                }
+            } else if (i < kItems) {
+                const int k = i - kSlabItems;
+                const int tap = k % 27, half = k / 27 % T::halves;
+                const int n = k / (27 * T::halves);
+                dst[u] = T::slab_bytes + unit<KC>(tap * T::wrow + n, half);
+                const int c = c0 + 8 * half;
+                if (co0 + n < CO) {
+                    const __nv_bfloat16* p =
+                        wgt + ((size_t)(co0 + n) * CI + c) * 27 + tap;
+#pragma unroll
+                    for (int j = 0; j < 8; ++j)
+                        if (c + j < CI)
+                            v[u][j / 2] |= bits16(p[j * 27]) << (16 * (j & 1));
+                }
+            }
+        }
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u)
+            if (dst[u] >= 0)
+                *reinterpret_cast<uint4*>(buf + dst[u]) =
+                    make_uint4(v[u][0], v[u][1], v[u][2], v[u][3]);
+    }
+}
 
-    for (int ci = 0; ci < CI; ++ci) {
-        __syncthreads();  // the previous channel's slab fully consumed
-        const Tin* xc = xb + (size_t)ci * vol;
-        for (int i = tid; i < SL::d * SL::h * SL::w; i += kThreads) {
-            const int sw = i % SL::w;
-            const int sh = (i / SL::w) % SL::h;
-            const int sd = i / (SL::w * SL::h);
-            const int gd = di0 + sd, gh = hi0 + sh, gw = wi0 + sw;
-            xsh[i] = inside(gd, gh, gw, D, H, W)
-                         ? widen(xc[(size_t)gd * plane + (size_t)gh * W + gw])
-                         : 0.0f;
-        }
-        for (int i = tid; i < 27 * kCot; i += kThreads) {
-            const int k = i % 27, o = i / 27;
-            wsh[k * kCot + o] = !kMasked || co0 + o < CO
-                ? widen(wgt[((size_t)(co0 + o) * CI + ci) * 27 + k]) : 0.0f;
-        }
-        __syncthreads();
+// One chunk's 27 taps for one consumer warp: MT m-tiles x NT n-tiles, each
+// tap an m16n8k16 (KC 16) or m16n8k8 (KC 8) from zero, added to the sums.
+template <int S, int NT, int TH, int TD, int KC, int MT>
+__device__ __forceinline__ void mma_chunk(const char* buf,
+                                          float (&acc)[MT][NT][4], int warp,
+                                          int lane) {
+    using T = MmaTile<S, TH, TD, NT, KC>;
+    const unsigned slab = smem_u32(buf);
+    const unsigned wsh = slab + T::slab_bytes;
+    // KC 16, ldmatrix.x4 of A: lane l addresses row (l & 7) + 8 ((l >> 3)
+    // & 1) of the 16 voxels, channel half l >> 4 (a0..a3 of the fragment);
+    // of B (two n-tiles): n (l & 7) + 8 (l >> 4), half (l >> 3) & 1. KC 8,
+    // ldmatrix.x2 of A: row l & 15 (a0, a1); of B (two n-tiles): n l & 15.
+    const int a_row = KC == 16 ? (lane & 7) + ((lane >> 3) & 1) * 8
+                               : lane & 15;
+    const int a_half = KC == 16 ? lane >> 4 : 0;
+    const int b_n = KC == 16 ? (lane & 7) + ((lane >> 4) << 3) : lane & 15;
+    const int b_half = KC == 16 ? (lane >> 3) & 1 : 0;
+    int row0[MT];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+        const int mg = warp * MT + mt;
+        const int td = mg / TH, th = mg % TH;
+        row0[mt] = (S * td * T::sh + S * th) * T::sw + a_row;
+    }
+#pragma unroll 1
+    for (int kd = 0; kd < 3; ++kd) {
 #pragma unroll
         for (int kh = 0; kh < 3; ++kh) {
 #pragma unroll
             for (int kw = 0; kw < 3; ++kw) {
-                float col[SL::d];
+                const int tap = (kd * 3 + kh) * 3 + kw;
+                uint32_t bf[NT][2];
 #pragma unroll
-                for (int sd = 0; sd < SL::d; ++sd)
-                    col[sd] = xsh[(sd * SL::h + S * ty + kh) * SL::w
-                                  + S * tx + kw];
+                for (int j = 0; j + 1 < NT; j += 2) {
+                    const unsigned at = wsh + unit<KC>(tap * T::wrow + j * 8
+                                                       + b_n, b_half);
+                    if constexpr (KC == 16) {
+                        uint32_t r[4];
+                        ldmatrix_x4(r, at);
+                        bf[j][0] = r[0];
+                        bf[j][1] = r[1];
+                        bf[j + 1][0] = r[2];
+                        bf[j + 1][1] = r[3];
+                    } else {
+                        ldmatrix_x2(bf[j][0], bf[j + 1][0], at);
+                    }
+                }
+                if (NT % 2) {
+                    const unsigned at = wsh + unit<KC>(
+                        tap * T::wrow + (NT - 1) * 8 + (lane & 7), b_half);
+                    if constexpr (KC == 16)
+                        ldmatrix_x2(bf[NT - 1][0], bf[NT - 1][1], at);
+                    else
+                        ldmatrix_x1(bf[NT - 1][0], at);
+                }
+                const int toff = (kd * T::sh + kh) * T::sw + wcol<S>(kw);
+#pragma unroll
+                for (int mt = 0; mt < MT; ++mt) {
+                    uint32_t a[4];
+                    const unsigned at = slab + unit<KC>(row0[mt] + toff,
+                                                        a_half);
+                    if constexpr (KC == 16)
+                        ldmatrix_x4(a, at);
+                    else
+                        ldmatrix_x2(a[0], a[1], at);
+#pragma unroll
+                    for (int nt = 0; nt < NT; ++nt) {
+                        // the tap's products summed from 0, then added to
+                        // the running sum with one rounded fp32 add
+                        float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+                        if constexpr (KC == 16)
+                            mma_bf16(part, a, bf[nt][0], bf[nt][1]);
+                        else
+                            mma_bf16_k8(part, a[0], a[1], bf[nt][0]);
+#pragma unroll
+                        for (int j = 0; j < 4; ++j)
+                            acc[mt][nt][j] = __fadd_rn(acc[mt][nt][j],
+                                                       part[j]);
+                    }
+                }
+            }
+        }
+    }
+}
+
+// x (B, CI, D, H, W) bf16 or int8 -> y (B, CO, Do, Ho, Wo) bf16 or fp32.
+// wgt: (CO, CI, 3, 3, 3) bf16, raw; scale, shift: (CO,) fp32, the eval BN.
+// Grid: (output tiles x R, CO blocks of 8 NT channels, B); blocks
+// R c .. R c + R - 1 form one cluster over tile c, rank r summing chunks
+// [r nch / R, (r + 1) nch / R). Every warp stages the rank's first chunk;
+// then the producers stage chunk k + 1 while the consumers multiply k.
+template <int S, int NT, int TH, int TD, int KC, typename Tin, typename Tout>
+__global__ void __launch_bounds__(mma_threads(NT))
+conv3d_mma_kernel(const Tin* __restrict__ x,
+                  const __nv_bfloat16* __restrict__ wgt,
+                  const float* __restrict__ scale,
+                  const float* __restrict__ shift, Tout* __restrict__ y,
+                  int CI, int CO, int D, int H, int W, int Do, int Ho, int Wo,
+                  int R, int approximate) {
+    using T = MmaTile<S, TH, TD, NT, KC>;
+    constexpr int NP = 8 * NT;
+    constexpr int MT = T::mtiles / kMmaWarps;
+    constexpr int kThreads = mma_threads(NT);
+    constexpr int PS = T::voxels + 4;                 // partial row stride
+    extern __shared__ uint4 smem_u4[];
+    char* smem = reinterpret_cast<char*>(smem_u4);
+
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int rank = blockIdx.x % R, tile = blockIdx.x / R;
+    const int tilesW = (Wo + 15) / 16, tilesH = (Ho + TH - 1) / TH;
+    const int wo0 = (tile % tilesW) * 16;
+    const int ho0 = (tile / tilesW % tilesH) * TH;
+    const int do0 = tile / (tilesW * tilesH) * TD;
+    const int co0 = blockIdx.y * NP, b = blockIdx.z;
+    const int nch = (CI + KC - 1) / KC;
+    const int c_begin = rank * nch / R, c_end = (rank + 1) * nch / R;
+    const int di0 = S * do0 - 1, hi0 = S * ho0 - 1, wi0 = S * wo0 - 1;
+    const Tin* xb = x + (size_t)b * CI * D * H * W;
+
+    float acc[MT][NT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[mt][nt][j] = 0.0f;
+
+    const int n_local = c_end - c_begin;
+    if (n_local > 0)
+        stage_chunk<S, TH, TD, NT, KC>(xb, wgt, smem, KC * c_begin, CI, CO,
+                                       co0, D, H, W, di0, hi0, wi0, tid,
+                                       kThreads);
+    __syncthreads();
+    for (int it = 1; it <= n_local; ++it) {
+        if (warp >= kMmaWarps) {
+            if (it < n_local)
+                stage_chunk<S, TH, TD, NT, KC>(
+                    xb, wgt, smem + (it & 1) * T::stage,
+                    KC * (c_begin + it), CI, CO, co0, D, H, W, di0, hi0,
+                    wi0, tid - 32 * kMmaWarps, kThreads - 32 * kMmaWarps);
+        } else {
+            mma_chunk<S, NT, TH, TD, KC, MT>(
+                smem + ((it - 1) & 1) * T::stage, acc, warp, lane);
+        }
+        __syncthreads();
+    }
+
+    // partial sums [n][voxel] in this block's shared memory
+    float* P = reinterpret_cast<float*>(smem);
+    if (warp < kMmaWarps) {
+        const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+            const int m0 = (warp * MT + mt) * 16 + g;
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+                    P[(nt * 8 + 2 * t + (j & 1)) * PS + m0 + 8 * (j >> 1)] =
+                        acc[mt][nt][j];
+        }
+    }
+    cg::cluster_group cluster = cg::this_cluster();
+    if (R > 1)
+        cluster.sync();
+    else
+        __syncthreads();
+    const bool approx = approximate != 0;
+    const int total = min(NP, CO - co0) * T::voxels;
+    const size_t plane = (size_t)Ho * Wo;
+    for (int e = tid + rank * kThreads; e < total; e += R * kThreads) {
+        const int n = e / T::voxels, m = e % T::voxels;
+        const int pe = n * PS + m;
+        float s = R > 1 ? *cluster.map_shared_rank(P + pe, 0) : P[pe];
+        for (int q = 1; q < R; ++q) s += *cluster.map_shared_rank(P + pe, q);
+        const int w = wo0 + m % 16, h = ho0 + m / 16 % TH;
+        const int d = do0 + m / (16 * TH);
+        if (d < Do && h < Ho && w < Wo)
+            y[((size_t)b * CO + co0 + n) * Do * plane + (size_t)d * plane
+              + (size_t)h * Wo + w] =
+                finish<true, Tout>(s, scale, shift, co0 + n, approx);
+    }
+    if (R > 1) cluster.sync();   // no block leaves while others read it
+}
+
+// --- the fp32 form: direct FMA, channels double-buffered with cp.async ------
+
+constexpr int kFp32MaxThreads = 512;
+
+// A block's tile of 32 x TH x KDC output voxels (w, h, d) at stride S and
+// the input slab of one channel, in floats (padded to 16 bytes).
+template <int S, int TH, int KDC>
+struct Fp32Tile {
+    static constexpr int sd = S * (KDC - 1) + 3;
+    static constexpr int sh = S * (TH - 1) + 3;
+    static constexpr int sw = S * 31 + 3;
+    static constexpr int slab = (sd * sh * sw + 3) / 4 * 4;
+    static constexpr int voxels = 32 * TH * KDC;
+};
+
+// x (B, CI, D, H, W) -> y (B, CO, Do, Ho, Wo), fp32. wgt: (CO, CI, 3, 3, 3)
+// with the BN scale folded in, shift (CO,). 32 TH NG threads: warp
+// (ty, g) = (warp % TH, warp / TH) owns row ty and channels co0 + 8 g ..
+// co0 + 8 g + 7. Grid: (output tiles x R, CO blocks of 8 NG, B); cluster
+// rank r sums channels [r CI / R, (r + 1) CI / R). kMasked: CO is not a
+// multiple of 8 NG, and the stores skip the channels past it.
+template <int S, int TH, int KDC, bool kMasked>
+__global__ void __launch_bounds__(kFp32MaxThreads)
+conv3d_fp32_kernel(const float* __restrict__ x, const float* __restrict__ wgt,
+                   const float* __restrict__ shift, float* __restrict__ y,
+                   int CI, int CO, int D, int H, int W, int Do, int Ho,
+                   int Wo, int NG, int R, int approximate) {
+    using T = Fp32Tile<S, TH, KDC>;
+    extern __shared__ float4 smem_f4[];
+    float* smem = reinterpret_cast<float*>(smem_f4);
+    const int NP = 8 * NG;
+    const int stage = T::slab + 27 * NP;
+    const int nthr = blockDim.x, tid = threadIdx.x;
+    const int tx = tid & 31, ty = (tid >> 5) % TH, g = tid / (32 * TH);
+    const int rank = blockIdx.x % R, tile = blockIdx.x / R;
+    const int tilesW = (Wo + 31) / 32, tilesH = (Ho + TH - 1) / TH;
+    const int wo0 = (tile % tilesW) * 32;
+    const int ho0 = (tile / tilesW % tilesH) * TH;
+    const int do0 = tile / (tilesW * tilesH) * KDC;
+    const int co0 = blockIdx.y * NP, b = blockIdx.z;
+    const int di0 = S * do0 - 1, hi0 = S * ho0 - 1, wi0 = S * wo0 - 1;
+    const size_t plane = (size_t)H * W;
+    const size_t vol = (size_t)D * plane;
+    const float* xb = x + (size_t)b * CI * vol;
+    const int c_begin = rank * CI / R, c_end = (rank + 1) * CI / R;
+
+    // channel ci's slab and weights [tap][NP] into buf, zero outside
+    auto stage_channel = [&](int ci, float* buf) {
+        const float* xc = xb + (size_t)ci * vol;
+        for (int i = tid; i < T::sd * T::sh * T::sw; i += nthr) {
+            const int sw = i % T::sw, sh = i / T::sw % T::sh;
+            const int sd = i / (T::sw * T::sh);
+            const int gd = di0 + sd, gh = hi0 + sh, gw = wi0 + sw;
+            const bool ok = inside(gd, gh, gw, D, H, W);
+            cp_async4(buf + i,
+                      ok ? xc + gd * plane + (size_t)gh * W + gw : x, ok);
+        }
+        float* wsh = buf + T::slab;
+        for (int i = tid; i < 27 * NP; i += nthr) {
+            const int k = i % 27, o = i / 27;
+            const bool ok = co0 + o < CO;
+            cp_async4(wsh + k * NP + o,
+                      ok ? wgt + ((size_t)(co0 + o) * CI + ci) * 27 + k : wgt,
+                      ok);
+        }
+        cp_async_commit();
+    };
+
+    float acc[KDC][8];
+#pragma unroll
+    for (int dd = 0; dd < KDC; ++dd)
+#pragma unroll
+        for (int o = 0; o < 8; ++o) acc[dd][o] = 0.0f;
+
+    if (c_begin < c_end) stage_channel(c_begin, smem);
+    for (int ci = c_begin; ci < c_end; ++ci) {
+        const int it = ci - c_begin;
+        // this channel's copies landed everywhere, and every thread is past
+        // the previous channel, whose buffer the next copies overwrite
+        cp_async_wait_all();
+        __syncthreads();
+        if (ci + 1 < c_end)
+            stage_channel(ci + 1, smem + ((it + 1) & 1) * stage);
+        const float* xsh = smem + (it & 1) * stage;
+        const float* wsh = xsh + T::slab + 8 * g;
+#pragma unroll
+        for (int kh = 0; kh < 3; ++kh) {
+#pragma unroll
+            for (int kw = 0; kw < 3; ++kw) {
+                float col[T::sd];
+#pragma unroll
+                for (int sd = 0; sd < T::sd; ++sd)
+                    col[sd] = xsh[(sd * T::sh + S * ty + kh) * T::sw + S * tx
+                                  + kw];
 #pragma unroll
                 for (int kd = 0; kd < 3; ++kd) {
-                    const float* wk = wsh + ((kd * 3 + kh) * 3 + kw) * kCot;
-                    float wr[kCot];
+                    const float4* wk = reinterpret_cast<const float4*>(
+                        wsh + ((kd * 3 + kh) * 3 + kw) * NP);
+                    const float4 w0 = wk[0], w1 = wk[1];
+                    const float wr[8] = {w0.x, w0.y, w0.z, w0.w,
+                                         w1.x, w1.y, w1.z, w1.w};
 #pragma unroll
-                    for (int o = 0; o < kCot; ++o) wr[o] = wk[o];
+                    for (int dd = 0; dd < KDC; ++dd)
 #pragma unroll
-                    for (int dd = 0; dd < kDc; ++dd)
-#pragma unroll
-                        for (int o = 0; o < kCot; ++o)
+                        for (int o = 0; o < 8; ++o)
                             acc[dd][o] = fmaf(col[S * dd + kd], wr[o],
                                               acc[dd][o]);
                 }
             }
         }
     }
-    store_tile<kMasked, Tout, kScaled>(acc, scale, shift, y, b, CO, co0, do0,
-                                       ho0 + ty, wo0 + tx, Do, Ho, Wo,
-                                       approximate);
+
+    const bool approx = approximate != 0;
+    const size_t oplane = (size_t)Ho * Wo;
+    const size_t ovol = (size_t)Do * oplane;
+    if (R == 1) {
+        const int h = ho0 + ty, w = wo0 + tx;
+        if (h >= Ho || w >= Wo) return;
+        float* yb = y + ((size_t)b * CO + co0 + 8 * g) * ovol
+                    + (size_t)h * Wo + w;
+#pragma unroll
+        for (int dd = 0; dd < KDC; ++dd) {
+            const int d = do0 + dd;
+            if (d >= Do) break;
+#pragma unroll
+            for (int o = 0; o < 8; ++o)
+                if (!kMasked || co0 + 8 * g + o < CO)
+                    yb[(size_t)o * ovol + (size_t)d * oplane] =
+                        finish<false, float>(acc[dd][o], nullptr, shift,
+                                             co0 + 8 * g + o, approx);
+        }
+        return;
+    }
+    // partial sums [channel][voxel], reduced over the cluster in rank order
+    __syncthreads();
+    float* P = smem;
+#pragma unroll
+    for (int dd = 0; dd < KDC; ++dd)
+#pragma unroll
+        for (int o = 0; o < 8; ++o)
+            P[(8 * g + o) * T::voxels + (dd * TH + ty) * 32 + tx] =
+                acc[dd][o];
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    const int total = min(NP, CO - co0) * T::voxels;
+    for (int e = tid + rank * nthr; e < total; e += R * nthr) {
+        float s = *cluster.map_shared_rank(P + e, 0);
+        for (int q = 1; q < R; ++q) s += *cluster.map_shared_rank(P + e, q);
+        const int n = e / T::voxels, m = e % T::voxels;
+        const int w = wo0 + m % 32, h = ho0 + m / 32 % TH;
+        const int d = do0 + m / (32 * TH);
+        if (d < Do && h < Ho && w < Wo)
+            y[((size_t)b * CO + co0 + n) * ovol + (size_t)d * oplane
+              + (size_t)h * Wo + w] =
+                finish<false, float>(s, nullptr, shift, co0 + n, approx);
+    }
+    cluster.sync();
 }
 
 // ConvTranspose3d k4 s2 p1 in gather form. On one axis, output q sums the
@@ -383,99 +884,234 @@ conv1x1_cat_kernel(const T* __restrict__ up, const T* __restrict__ skip,
 
 }  // namespace
 
-// All tensors fp32 and contiguous. Each entry point returns a cudaError_t:
-// cudaErrorInvalidValue for shapes it does not take.
-
-static int channel_tiles(int CO) { return (CO + kCot - 1) / kCot; }
-
-// x: (B, CI, D, H, W); wgt: (CO, CI, 3, 3, 3); shift: (CO,);
-// y: (B, CO, (D-1)/stride+1, (H-1)/stride+1, (W-1)/stride+1).
-extern "C" int conv3d_k3_bn_gelu(const float* x, const float* wgt,
-                                 const float* shift, float* y, int B, int CI,
-                                 int CO, int D, int H, int W, int stride,
-                                 int approximate, cudaStream_t stream) {
-    if (CO < 1 || CI < 1 || (stride != 1 && stride != 2))
-        return (int)cudaErrorInvalidValue;
-    const int Do = (D - 1) / stride + 1;
-    const int Ho = (H - 1) / stride + 1;
-    const int Wo = (W - 1) / stride + 1;
-    const dim3 grid(((Wo + kTw - 1) / kTw) * ((Ho + kTh - 1) / kTh),
-                    ((Do + kDc - 1) / kDc) * channel_tiles(CO), B);
-    const dim3 block(kTw, kTh);
-    auto kernel = stride == 1
-        ? (CO % kCot ? conv3d_k3_kernel<1, true> : conv3d_k3_kernel<1, false>)
-        : (CO % kCot ? conv3d_k3_kernel<2, true> : conv3d_k3_kernel<2, false>);
-    kernel<<<grid, block, 0, stream>>>(x, wgt, nullptr, shift, y, CI, CO, D,
-                                       H, W, Do, Ho, Wo, approximate);
-    return (int)cudaGetLastError();
-}
+// All tensors contiguous. Each entry point returns a cudaError_t:
+// cudaErrorInvalidValue for shapes or plans it does not take.
 
 namespace {
 
-template <int S, bool kMasked, typename Tin, typename Tout>
-int launch_conv3d_bf16(const void* x, const void* wgt, const float* scale,
-                       const float* shift, void* y, int B, int CI, int CO,
-                       int D, int H, int W, int approximate,
-                       cudaStream_t stream) {
-    const int Do = (D - 1) / S + 1, Ho = (H - 1) / S + 1, Wo = (W - 1) / S + 1;
-    const dim3 grid(((Wo + kTw - 1) / kTw) * ((Ho + kTh - 1) / kTh),
-                    ((Do + kDc - 1) / kDc) * channel_tiles(CO), B);
-    const dim3 block(kTw, kTh);
-    conv3d_k3_kernel<S, kMasked, Tin, __nv_bfloat16, Tout, true>
-        <<<grid, block, 0, stream>>>(
-            static_cast<const Tin*>(x), static_cast<const __nv_bfloat16*>(wgt),
-            scale, shift, static_cast<Tout*>(y), CI, CO, D, H, W, Do, Ho, Wo,
-            approximate);
+int channel_tiles(int CO) { return (CO + kCot - 1) / kCot; }
+
+// Launches kernel on grid x block with smem bytes of dynamic shared memory,
+// as a cluster of R blocks along x when R > 1.
+template <typename... Params, typename... Args>
+int launch(void (*kernel)(Params...), dim3 grid, dim3 block, int smem, int R,
+           cudaStream_t stream, Args... args) {
+    if (smem > 48 * 1024) {
+        // the most each kernel was allowed so far (one card a process)
+        static std::unordered_map<const void*, int> allowed;
+        int& most = allowed[reinterpret_cast<const void*>(kernel)];
+        if (smem > most) {
+            const cudaError_t err = cudaFuncSetAttribute(
+                reinterpret_cast<const void*>(kernel),
+                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+            if (err != cudaSuccess) return (int)err;
+            most = smem;
+        }
+    }
+    cudaLaunchConfig_t config = {};
+    config.gridDim = grid;
+    config.blockDim = block;
+    config.dynamicSmemBytes = smem;
+    config.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = R;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    config.attrs = attr;
+    config.numAttrs = R > 1 ? 1 : 0;
+    const cudaError_t err = cudaLaunchKernelEx(&config, kernel, args...);
+    if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
+}
+
+// The plan's ints, as conv_plan lays them out (fused_hourglass.py::
+// _launch_ints): the shape, the stride, the deploy forms' dtype codes, the
+// tile's rows and depths, the channel tiles of 8 a block, the cluster size,
+// the dynamic shared memory, the GELU form and the MMA kernel's channels a
+// chunk.
+struct ConvPlan {
+    int B, CI, CO, D, H, W, stride, in_type, out_type;
+    int tile_h, tile_d, groups, cluster, smem, approximate, k_chunk;
+    int Do, Ho, Wo;
+};
+
+ConvPlan read_plan(const int* p) {
+    ConvPlan c = {p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], p[8],
+                  p[9], p[10], p[11], p[12], p[13], p[14], p[15], 0, 0, 0};
+    const int S = c.stride > 0 ? c.stride : 1;
+    c.Do = (c.D - 1) / S + 1;
+    c.Ho = (c.H - 1) / S + 1;
+    c.Wo = (c.W - 1) / S + 1;
+    return c;
+}
+
+template <int S, int TH, int KDC>
+int launch_fp32(const float* x, const float* wgt, const float* shift,
+                float* y, const ConvPlan& c, cudaStream_t stream) {
+    using T = Fp32Tile<S, TH, KDC>;
+    const int NP = 8 * c.groups;
+    const int loop = 2 * (T::slab + 27 * NP) * 4;
+    const int partial = c.cluster > 1 ? NP * T::voxels * 4 : 0;
+    const int threads = 32 * TH * c.groups;
+    if (threads > kFp32MaxThreads || c.cluster > c.CI
+            || c.smem != (loop > partial ? loop : partial))
+        return (int)cudaErrorInvalidValue;
+    const int tiles = ((c.Wo + 31) / 32) * ((c.Ho + TH - 1) / TH)
+                      * ((c.Do + KDC - 1) / KDC);
+    const dim3 grid(tiles * c.cluster, (c.CO + NP - 1) / NP, c.B);
+    auto kernel = c.CO % NP ? conv3d_fp32_kernel<S, TH, KDC, true>
+                            : conv3d_fp32_kernel<S, TH, KDC, false>;
+    return launch(kernel, grid, dim3(threads), c.smem, c.cluster, stream, x,
+                  wgt, shift, y, c.CI, c.CO, c.D, c.H, c.W, c.Do, c.Ho, c.Wo,
+                  c.groups, c.cluster, c.approximate);
+}
+
+template <int S>
+int dispatch_fp32(const float* x, const float* wgt, const float* shift,
+                  float* y, const ConvPlan& c, cudaStream_t stream) {
+    if (c.tile_h == 4 && c.tile_d == 8)
+        return launch_fp32<S, 4, 8>(x, wgt, shift, y, c, stream);
+    if (c.tile_h == 2 && c.tile_d == 4)
+        return launch_fp32<S, 2, 4>(x, wgt, shift, y, c, stream);
+    if (c.tile_h == 1 && c.tile_d == 4)
+        return launch_fp32<S, 1, 4>(x, wgt, shift, y, c, stream);
+    return (int)cudaErrorInvalidValue;
+}
+
+struct MmaCall {
+    const void* x;
+    const void* wgt;
+    const float* scale;
+    const float* shift;
+    void* y;
+    ConvPlan c;
+    cudaStream_t stream;
+};
+
+template <int S, int NT, int TH, int TD, int KC, typename Tin, typename Tout>
+int launch_mma(const MmaCall& m) {
+    using T = MmaTile<S, TH, TD, NT, KC>;
+    constexpr int NP = 8 * NT;
+    const ConvPlan& c = m.c;
+    const int nch = (c.CI + KC - 1) / KC;
+    const int nbuf = (nch + c.cluster - 1) / c.cluster > 1 ? 2 : 1;
+    const int partial = NP * (T::voxels + 4) * 4;
+    const int want = nbuf * T::stage > partial ? nbuf * T::stage : partial;
+    if (c.cluster > nch || c.smem != want) return (int)cudaErrorInvalidValue;
+    const int tiles = ((c.Wo + 15) / 16) * ((c.Ho + TH - 1) / TH)
+                      * ((c.Do + TD - 1) / TD);
+    const dim3 grid(tiles * c.cluster, (c.CO + NP - 1) / NP, c.B);
+    return launch(conv3d_mma_kernel<S, NT, TH, TD, KC, Tin, Tout>, grid,
+                  dim3(mma_threads(NT)), want, c.cluster, m.stream,
+                  static_cast<const Tin*>(m.x),
+                  static_cast<const __nv_bfloat16*>(m.wgt), m.scale, m.shift,
+                  static_cast<Tout*>(m.y), c.CI, c.CO, c.D, c.H, c.W, c.Do,
+                  c.Ho, c.Wo, c.cluster, c.approximate);
+}
+
+// The tiles an instance (S, NT, KC) has: (4, 4) at stride 1, up to 3
+// n-tiles (4 m-tiles a warp) and in chunks of 8 channels; (4, 2) and
+// (2, 2) at any NT. Chunks of 8 channels (CI <= 8) go up to 3 n-tiles.
+template <int S, int NT, int KC, typename Tin, typename Tout>
+int dispatch_tile(const MmaCall& m) {
+    static_assert(KC == 16 || NT <= 3, "chunks of 8 take up to 3 n-tiles");
+    const int th = m.c.tile_h, td = m.c.tile_d;
+    if (th == 4 && td == 4) {
+        if constexpr (S == 1 && NT <= 3 && KC == 8)
+            return launch_mma<S, NT, 4, 4, KC, Tin, Tout>(m);
+        return (int)cudaErrorInvalidValue;
+    }
+    if (th == 4 && td == 2) return launch_mma<S, NT, 4, 2, KC, Tin, Tout>(m);
+    if (th == 2 && td == 2) return launch_mma<S, NT, 2, 2, KC, Tin, Tout>(m);
+    return (int)cudaErrorInvalidValue;
+}
+
+// The MMA kernel's instances, X(stride, n-tiles, channels a chunk, input
+// type, output type), each with the tiles dispatch_tile gives it: the
+// (stride, CO, CI) of every conv3d k3 p1 of ESMStereo-L, -M and -S in the
+// forms their callers launch, and int8 -> fp32 on kernel C's first convs.
+// Types: input 0 bf16, 1 int8; output 0 bf16, 1 fp32. The same list as
+// fused_hourglass.py::MMA_INSTANCES (tests/test_torch_conv_plan.py holds
+// the two and the plan of every conv shape to it).
+#define MMA_INSTANCES(X) \
+    X(1, 1, 8, 0, 0)     \
+    X(1, 1, 16, 0, 0)    \
+    X(1, 2, 16, 0, 0)    \
+    X(1, 3, 16, 0, 0)    \
+    X(1, 5, 16, 0, 0)    \
+    X(1, 9, 16, 0, 0)    \
+    X(2, 2, 8, 0, 0)     \
+    X(2, 3, 8, 0, 0)     \
+    X(2, 2, 16, 0, 0)    \
+    X(2, 3, 16, 0, 0)    \
+    X(2, 5, 16, 0, 0)    \
+    X(2, 9, 16, 0, 0)    \
+    X(1, 1, 8, 0, 1)     \
+    X(1, 1, 8, 1, 0)     \
+    X(1, 1, 16, 1, 0)    \
+    X(1, 1, 8, 1, 1)     \
+    X(1, 1, 16, 1, 1)
+
+template <int C>
+using InType = std::conditional_t<C == 0, __nv_bfloat16, int8_t>;
+template <int C>
+using OutType = std::conditional_t<C == 0, __nv_bfloat16, float>;
+
+int dispatch_mma(const MmaCall& m) {
+    const ConvPlan& c = m.c;
+#define MMA_DISPATCH(S, NT, KC, IN, OUT)                                   \
+    if (c.stride == S && c.groups == NT && c.k_chunk == KC                 \
+            && c.in_type == IN && c.out_type == OUT)                       \
+        return dispatch_tile<S, NT, KC, InType<IN>, OutType<OUT>>(m);
+    MMA_INSTANCES(MMA_DISPATCH)
+#undef MMA_DISPATCH
+    return (int)cudaErrorInvalidValue;
+}
+
+bool plan_ok(const ConvPlan& c) {
+    return c.B >= 1 && c.CI >= 1 && c.CO >= 1 && c.D >= 1 && c.H >= 1
+           && c.W >= 1 && c.groups >= 1 && c.cluster >= 1
+           && c.cluster <= kMaxCluster;
 }
 
 }  // namespace
 
-// The deploy forms of the direct conv3d k3 p1. x: (B, CI, D, H, W) bf16
-// (in_type 0) or int8 (in_type 1); wgt: (CO, CI, 3, 3, 3) bf16, raw; scale,
-// shift: (CO,) fp32, the eval BN; y: (B, CO, Do, Ho, Wo) bf16 (out_type 0)
-// or fp32 (out_type 1). Instances: bf16 -> bf16 at stride 1 or 2 and any
-// CO (kernels C, E's agg, G and H); bf16 -> fp32 and int8 -> either at
-// stride 1 with CO a multiple of 8 (kernel C's other forms).
+// The conv3d k3 p1 of kernels C, E's agg, G and H. plan: 16 ints, B, CI,
+// CO, D, H, W, stride (1 or 2), in_type, out_type, tile_h, tile_d, groups,
+// cluster, smem, approximate, k_chunk (fused_hourglass.py::conv_plan: a
+// tile of 32 or 16 x tile_h x tile_d output voxels, groups x 8 output
+// channels a block, cluster blocks splitting CI, smem bytes of dynamic
+// shared memory; the MMA kernel's chunks of k_chunk input channels).
+//
+// The fp32 form (in_type and out_type 2). x: (B, CI, D, H, W); wgt: (CO,
+// CI, 3, 3, 3) with the BN scale folded in; shift: (CO,); y: (B, CO,
+// (D-1)/stride+1, (H-1)/stride+1, (W-1)/stride+1).
+extern "C" int conv3d_k3_bn_gelu(const float* x, const float* wgt,
+                                 const float* shift, float* y,
+                                 const int* plan, cudaStream_t stream) {
+    const ConvPlan c = read_plan(plan);
+    if (!plan_ok(c) || c.in_type != 2 || c.out_type != 2)
+        return (int)cudaErrorInvalidValue;
+    if (c.stride == 1) return dispatch_fp32<1>(x, wgt, shift, y, c, stream);
+    if (c.stride == 2) return dispatch_fp32<2>(x, wgt, shift, y, c, stream);
+    return (int)cudaErrorInvalidValue;
+}
+
+// The deploy forms. x: (B, CI, D, H, W) bf16 (in_type 0) or int8
+// (in_type 1); wgt: (CO, CI, 3, 3, 3) bf16, raw; scale, shift: (CO,) fp32,
+// the eval BN; y: (B, CO, Do, Ho, Wo) bf16 (out_type 0) or fp32 (out_type
+// 1); groups: n-tiles. The instances of MMA_INSTANCES: bf16 -> bf16 at
+// stride 1 and 2 (kernels C, E's agg, G and H), bf16 -> fp32 and int8 ->
+// either at stride 1 with 1 n-tile (kernel C's other forms); any other
+// plan is refused.
 extern "C" int conv3d_k3_bn_gelu_bf16(const void* x, const void* wgt,
                                       const float* scale, const float* shift,
-                                      void* y, int B, int CI, int CO, int D,
-                                      int H, int W, int stride, int in_type,
-                                      int out_type, int approximate,
+                                      void* y, const int* plan,
                                       cudaStream_t stream) {
-    if (CO < 1 || CI < 1) return (int)cudaErrorInvalidValue;
-    using bf16 = __nv_bfloat16;
-    const bool masked = CO % kCot != 0;
-    if (in_type == 0 && out_type == 0) {
-        if (stride == 1)
-            return masked
-                ? launch_conv3d_bf16<1, true, bf16, bf16>(
-                      x, wgt, scale, shift, y, B, CI, CO, D, H, W,
-                      approximate, stream)
-                : launch_conv3d_bf16<1, false, bf16, bf16>(
-                      x, wgt, scale, shift, y, B, CI, CO, D, H, W,
-                      approximate, stream);
-        if (stride == 2)
-            return masked
-                ? launch_conv3d_bf16<2, true, bf16, bf16>(
-                      x, wgt, scale, shift, y, B, CI, CO, D, H, W,
-                      approximate, stream)
-                : launch_conv3d_bf16<2, false, bf16, bf16>(
-                      x, wgt, scale, shift, y, B, CI, CO, D, H, W,
-                      approximate, stream);
-        return (int)cudaErrorInvalidValue;
-    }
-    if (stride != 1 || masked) return (int)cudaErrorInvalidValue;
-    if (in_type == 0 && out_type == 1)
-        return launch_conv3d_bf16<1, false, bf16, float>(
-            x, wgt, scale, shift, y, B, CI, CO, D, H, W, approximate, stream);
-    if (in_type == 1 && out_type == 0)
-        return launch_conv3d_bf16<1, false, int8_t, bf16>(
-            x, wgt, scale, shift, y, B, CI, CO, D, H, W, approximate, stream);
-    if (in_type == 1 && out_type == 1)
-        return launch_conv3d_bf16<1, false, int8_t, float>(
-            x, wgt, scale, shift, y, B, CI, CO, D, H, W, approximate, stream);
-    return (int)cudaErrorInvalidValue;
+    const MmaCall m = {x, wgt, scale, shift, y, read_plan(plan), stream};
+    if (!plan_ok(m.c)) return (int)cudaErrorInvalidValue;
+    return dispatch_mma(m);
 }
 
 // x: (B, CI, Ds, Hs, Ws); wgt: (CI, CO, 4, 4, 4); shift: (CO,);

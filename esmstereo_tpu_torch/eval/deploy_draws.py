@@ -2,6 +2,7 @@
 input draws.
 
     python3 -m esmstereo_tpu_torch.eval.deploy_draws [--draws 24] [PATH ...]
+    python3 -m esmstereo_tpu_torch.eval.deploy_draws --ragged [--draws 24]
 
 Run from the root of a checkout, on a CUDA device: it imports that
 checkout's ``chip_smoke`` and runs its check of a deploy path against the
@@ -18,6 +19,14 @@ the lines the check prints for each pair, so it also runs in an earlier
 checkout whose check prints the same lines (one pair per check there):
 copy this file there and run it from that checkout's root, to hold two
 trees to the same draws.
+
+``--ragged`` runs ``chip_smoke``'s ragged check of the switches' deploy
+forms (``check_ragged_switches_deploy``, at L's, M-norm's and S's widths)
+once per draw instead, and prints, for kernels G and H, how the share of
+outputs that differ by any bit falls over the draws for each comparison
+(a conv on its own input, or the whole level against its plain version):
+the largest and how many exceed 1%; and how many draws failed the check
+(a draw stops at its first failure).
 """
 
 from __future__ import annotations
@@ -32,9 +41,15 @@ import time
 import torch
 
 import chip_smoke
+from esmstereo_tpu_torch.models.esmstereo import ESMStereo, ESMStereoConfig
 
 LINE = re.compile(r"draw \d+ (\w+): card against CPU bf16 max (\S+) mean "
                   r"(\S+); CPU bf16 against CPU fp32 max (\S+) mean (\S+)")
+# a ragged G or H comparison: its name, the part it holds (none for the
+# whole level, as in earlier checkouts) and the share of outputs differing
+RAGGED = re.compile(r"^  ((?:down_pair|up_pair) bf16 [^:\n]*): "
+                    r"(?:([^:\n]*): )?max abs err .*; (\S+) of the outputs "
+                    r"differ$", re.M)
 FIRST_SEED = 1000
 
 
@@ -64,6 +79,34 @@ def one_draw(name: str, config, seed: int) -> tuple[dict, str | None]:
     return maps, failure
 
 
+def ragged(draws: int) -> int:
+    """``--ragged``: G's and H's shares of differing outputs per comparison
+    over ``draws`` draws of the ragged check."""
+    nets = [ESMStereo(ESMStereoConfig(**kw), device="cuda",
+                      seed=chip_smoke.SEED)
+            for kw in ({}, {"cv_scale": 8, "cost_volume": "norm_correlation"},
+                       {"cv_scale": 16, "backbone": "mobilenetv2_100"})]
+    shares, failed = {}, 0
+    for draw in range(draws):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            try:
+                chip_smoke.check_ragged_switches_deploy(
+                    *nets, torch.Generator().manual_seed(FIRST_SEED + draw))
+            except RuntimeError as err:
+                failed += 1
+                print(f"seed {FIRST_SEED + draw}: {err}", file=sys.stderr)
+        for name, part, share in RAGGED.findall(out.getvalue()):
+            shares.setdefault((name.split()[0], part or "the level"),
+                              []).append(float(share))
+    for (kernel, part), r in shares.items():
+        print(f"SUMMARY ragged {kernel} {part}: {len(r)} comparisons, "
+              f"largest share {max(r):.4%}, {sum(x > 0.01 for x in r)} above "
+              f"1%")
+    print(f"SUMMARY ragged: {failed} of {draws} draws failed the check")
+    return 0
+
+
 def spread(name: str, key: str, what: str, r: list) -> str:
     return (f"SUMMARY {name} {key}: {what} mean ratio {min(r):.4f}-"
             f"{max(r):.4f} over {len(r)}, {sum(x > 1 for x in r)} above 1")
@@ -73,6 +116,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("paths", nargs="*")
     ap.add_argument("--draws", type=int, default=24)
+    ap.add_argument("--ragged", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("deploy_draws: needs a CUDA device", file=sys.stderr)
@@ -80,6 +124,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+    if args.ragged:
+        return ragged(args.draws)
     table = deploy_paths()
     names = args.paths or [n for n, c in table.items() if c.cv_scale != 4]
     print(f"card: {chip_smoke.smi_line()}; torch {torch.__version__}; "

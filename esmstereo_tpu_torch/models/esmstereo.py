@@ -463,6 +463,32 @@ ADD_CHANNEL = {4: 16, 8: 8, 16: 4}
 SEMANTIC_CHS = {"gwc": (64, 32), "norm_correlation": (32, 8)}
 
 
+def conv3d_shapes(config: ESMStereoConfig, height: int, width: int) -> list:
+    """(module, ci, co, d, h, w, stride) of each conv3d k3 p1 that kernels
+    C, E's agg, G and H launch on a ``height`` x ``width`` frame (multiples
+    of 32) of ``config``, at batch 1: the volume's first conv
+    (``group_stem``, or ``corr_stem`` on the norm-correlation volume) and
+    ``agg`` on the (G, D, H/v, W/v) volume, then the k3 s2 and the k3 s1
+    conv of each level of ``Aggregation3D``. H's k3 convs have the shapes
+    of levels 1 and 2's s1 convs, E's agg that of ``agg``. ``module`` names
+    the ``ESMStereo`` submodule that holds the conv."""
+    v = config.cv_scale
+    d, h, w = config.max_disp // v, height // v, width // v
+    red = config.reduction
+    first = (("corr_stem", 1) if config.cost_volume == "norm_correlation"
+             else ("group_stem", config.num_groups))
+    out = [(*first, red, d, h, w, 1), ("agg", red, red, d, h, w, 1)]
+    ci = red
+    for k in (1, 2, 3):
+        # Aggregation3D's c1, c2, c3
+        co = red + (1 << (k - 1)) * ADD_CHANNEL[v]
+        out.append((f"aggregation_out.conv{k}_0", ci, co, d, h, w, 2))
+        d, h, w = ((n - 1) // 2 + 1 for n in (d, h, w))
+        out.append((f"aggregation_out.conv{k}_1", co, co, d, h, w, 1))
+        ci = co
+    return out
+
+
 class ESMStereo(nn.Module):
     """ESMStereo-L, -M or -S in eval mode (``ESMStereo.py:511-745``, the
     cv4, cv8 and cv16 branches).

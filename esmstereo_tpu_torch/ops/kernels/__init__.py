@@ -40,6 +40,12 @@ the forms each wrapper takes:
 Each deploy form rounds its operands to bf16 where the TPU kernel does,
 sums in fp32 and applies BN after the fp32 sum.
 
+Kernels C, E, G and H share one conv3d k3 p1 (``fused_hourglass.
+conv3d_bn_gelu`` in fp32, ``conv3d_bn_gelu_bf16`` in the deploy forms, on
+CUDA tensors only: their callers above take the plain versions on the
+CPU), laid out per shape by ``fused_hourglass.conv_plan``; its wrappers
+(``conv_wrappers``) count their launches too, by form and by shape.
+
 A wrapper runs the plain version when its tensors lie on the CPU and
 launches its kernel when they lie on a CUDA device, raising on anything the
 kernel does not take (a dtype outside the wrapper's list among them); it
@@ -76,6 +82,16 @@ def wrappers() -> dict:
             "fused_stage": fused_stage.fused_stage}
 
 
+def conv_wrappers() -> dict:
+    """``{name: wrapper}`` of the hourglass conv3d k3 p1 that kernels C,
+    E, G and H launch (``fused_hourglass``): each counts its launches, by
+    form, and by shape in ``shape_launches``."""
+    from esmstereo_tpu_torch.ops.kernels import fused_hourglass
+
+    return {"conv3d": fused_hourglass.conv3d_bn_gelu,
+            "conv3d_bf16": fused_hourglass.conv3d_bn_gelu_bf16}
+
+
 def on_cuda(what: str, *tensors: torch.Tensor,
             dtypes: tuple = (torch.float32,)) -> bool:
     """True for CUDA tensors, False for CPU tensors; raises on a dtype
@@ -108,6 +124,10 @@ def reset_launches() -> None:
     for fn in wrappers().values():
         fn.launches = 0
         fn.form_launches = {}
+    for fn in conv_wrappers().values():
+        fn.launches = 0
+        fn.form_launches = {}
+        fn.shape_launches = {}
 
 
 def stream_handle(t: torch.Tensor) -> int:

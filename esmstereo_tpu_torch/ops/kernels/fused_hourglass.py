@@ -28,14 +28,20 @@ On CUDA a down level launches two kernels (k3 s2, then k3 s1) and an up
 level three (the transposed conv, the 1x1x1 conv over ``[up | skip]``, the
 k3 s1 conv), with the intermediates in device memory; each wrapper call
 counts as one launch (``form_launches`` by ``"fp32"`` and ``"bf16"``).
-The kernels tile output channels by 8 and mask the last tile, so any width
-runs (L's 24, 40, 72; M's 16, 24, 40; S's 12, 16, 24); the 1x1x1 conv takes
-at most 128 output channels.
+The k3 convs (``conv3d_bn_gelu``, ``conv3d_bn_gelu_bf16``; kernels C and E
+launch them too) run as ``conv_plan`` lays them out: all of CO in one block
+(up to 72 channels), the largest tile whose grid fills the card's 132 SMs,
+and where none does the input channels split over a thread-block cluster;
+the deploy form on the tensor cores, the fp32 form as FMA. Any width runs
+(L's 24, 40, 72; M's 16, 24, 40; S's 12, 16, 24); the transposed and
+1x1x1 convs tile output channels by 8 and mask the last tile, the 1x1x1
+conv at most 128 output channels.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -158,17 +164,236 @@ def up_pair_plain(src: torch.Tensor, skip: torch.Tensor, consts: dict,
     return _bn_gelu(y, consts, "3", approximate).to(bf16)
 
 
+# --- the launch plan of the conv3d k3 p1 -------------------------------------
+
+SMS = 132                   # streaming multiprocessors of an H100 SXM
+SMEM_MAX = 232448           # dynamic shared memory a block may use (227 KB)
+MAX_CLUSTER = 8             # the portable thread-block cluster size
+# the fp32 kernel's tiles, (h rows, d depths) of 32 columns, largest first,
+# and its most threads a block (32 x rows x channel groups); a tile is large
+# enough when its grid has a wave of blocks and FP32_WARPS warps, and a
+# smaller grid splits its channels until it has FP32_SPLIT_WARPS (fitted
+# to the device times of every tile and split at each L, M and S conv on
+# the H100: ``python3 -m esmstereo_tpu_torch.eval.conv_sweep``)
+FP32_TILES = ((4, 8), (2, 4), (1, 4))
+FP32_MAX_THREADS = 512
+FP32_MAX_GROUPS = 9
+FP32_WARPS = 600
+FP32_SPLIT_WARPS = 2400
+# the MMA kernel's tiles, (h rows, d depths) of 16 columns, largest first;
+# its n-tile instances (8 output channels each), 4 consumer warps, and its
+# chunks of input channels: 16, or 8 where CI <= 8 (up to 3 n-tiles)
+MMA_TILES = ((4, 4), (4, 2), (2, 2))
+MMA_N_TILES = (1, 2, 3, 5, 9)
+MMA_WARPS = 4
+# each form's (input, output) dtype codes at the C entry points and the
+# n-tile instances of its MMA kernel: every one with bf16 in and out, one
+# for C's other deploy forms (the int8 volume, the fp32 output)
+FORMS = {"fp32": (2, 2, None), "bf16": (0, 0, MMA_N_TILES),
+         "bf16_fp32": (0, 1, (1,)), "int8_bf16": (1, 0, (1,)),
+         "int8_fp32": (1, 1, (1,))}
+# the MMA kernel's instances, (form, stride, n-tiles, channels a chunk),
+# each with every tile ``conv_tiles`` gives it: the convs of L, M and S
+# (``models/esmstereo.py::conv3d_shapes``) in the forms their callers
+# launch, and int8 -> fp32 on C's first convs; the same list as
+# ``csrc/fused_hourglass.cu``'s ``MMA_INSTANCES``
+MMA_INSTANCES = frozenset({
+    ("bf16", 1, 1, 8), ("bf16", 1, 1, 16), ("bf16", 1, 2, 16),
+    ("bf16", 1, 3, 16), ("bf16", 1, 5, 16), ("bf16", 1, 9, 16),
+    ("bf16", 2, 2, 8), ("bf16", 2, 3, 8), ("bf16", 2, 2, 16),
+    ("bf16", 2, 3, 16), ("bf16", 2, 5, 16), ("bf16", 2, 9, 16),
+    ("bf16_fp32", 1, 1, 8), ("int8_bf16", 1, 1, 8), ("int8_bf16", 1, 1, 16),
+    ("int8_fp32", 1, 1, 8), ("int8_fp32", 1, 1, 16)})
+# the conv shapes of L, M and S (batch 1, a 544 x 992 frame) whose fastest
+# tile and split on the H100, by at least 5%, is not the rule's (device
+# time of each, ``python3 -m esmstereo_tpu_torch.eval.conv_sweep``), among
+# those that keep a wave of blocks or every split the channels allow:
+# (form, ci, co, d, h, w, stride) -> ((rows, depths), cluster)
+TUNED = {("fp32", 40, 40, 12, 34, 62, 1): ((2, 4), 8),      # L, G2 s1
+         ("fp32", 32, 8, 24, 68, 124, 1): ((4, 8), 4),      # M, group_stem
+         ("fp32", 24, 40, 6, 17, 31, 2): ((1, 4), 8),       # M, G3 s2
+         ("fp32", 40, 40, 3, 9, 16, 1): ((1, 4), 8),        # M, G3 s1
+         ("fp32", 16, 24, 3, 9, 16, 2): ((1, 4), 8),        # S, G3 s2
+         ("fp32", 24, 24, 2, 5, 8, 1): ((1, 4), 8),         # S, G3 s1
+         ("bf16", 8, 24, 48, 136, 248, 2): ((2, 2), 1),     # L, G1 s2
+         ("bf16", 40, 72, 12, 34, 62, 2): ((4, 2), 3),      # L, G3 s2
+         ("bf16", 72, 72, 6, 17, 31, 1): ((4, 2), 4),       # L, G3 s1
+         ("bf16", 32, 8, 12, 34, 62, 1): ((4, 2), 2)}       # S, group_stem
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvPlan:
+    """How one conv3d k3 p1 launches (``csrc/fused_hourglass.cu``).
+
+    ``conv`` is ``(ci, co, d, h, w, stride)``; ``tile`` a block's output
+    voxels (w, h, d); ``groups`` its channel tiles of 8 (the fp32 kernel's
+    warp groups, the MMA kernel's n-tiles), ``co_blocks`` how many blocks
+    share CO; ``cluster`` the blocks of one cluster that split the input
+    channels, in units of ``k_chunk`` (1 for the fp32 kernel, the MMA
+    kernel's chunks of 8 or 16), ``ranks`` each rank's channel range;
+    ``blocks`` the grid's blocks at batch 1, ``threads`` a block's,
+    ``smem`` a block's dynamic shared memory in bytes."""
+
+    form: str
+    conv: tuple
+    tile: tuple
+    groups: int
+    co_blocks: int
+    cluster: int
+    ranks: tuple
+    blocks: int
+    threads: int
+    smem: int
+    k_chunk: int
+
+    def ints(self, batch: int, approximate: bool) -> ctypes.Array:
+        """The C entry points' plan argument: 16 ints (B, CI, CO, D, H, W,
+        stride, in_type, out_type, tile_h, tile_d, groups, cluster, smem,
+        approximate, k_chunk)."""
+        return (ctypes.c_int * 16)(
+            batch, *self.conv, *FORMS[self.form][:2], *self.tile[1:],
+            self.groups, self.cluster, self.smem, int(approximate),
+            self.k_chunk)
+
+
+def _channels(form: str, ci: int, co: int) -> tuple:
+    """A form's channel tiles of 8 a block, its CO blocks and its chunk of
+    input channels."""
+    if form not in FORMS or min(ci, co) < 1:
+        raise ValueError(f"conv_plan: {form}, {ci} -> {co}")
+    if form == "fp32":
+        needed = _cdiv(co, 8)
+        co_blocks = _cdiv(needed, FP32_MAX_GROUPS)
+        return _cdiv(needed, co_blocks), co_blocks, 1
+    n_tiles = FORMS[form][2]
+    need = min(_cdiv(co, 8), max(n_tiles))
+    groups = min(t for t in n_tiles if t >= need)
+    return groups, _cdiv(co, 8 * groups), 8 if ci <= 8 and groups <= 3 else 16
+
+
+def conv_tiles(form: str, ci: int, co: int, stride: int) -> list:
+    """The (rows, depths) tiles, largest first, that the kernels have for a
+    conv: the fp32 kernel's up to its most threads; the MMA kernel's (4, 4)
+    only at stride 1, up to 3 n-tiles and in chunks of 8 channels (with 16
+    it ran 21-26% slower than (4, 2) on the H100), and any tile up to 18
+    m-tile x n-tile products a warp (72 fp32 sums a thread)."""
+    groups, _, k_chunk = _channels(form, ci, co)
+    if form == "fp32":
+        return [t for t in FP32_TILES
+                if 32 * t[0] * groups <= FP32_MAX_THREADS]
+    return [t for t in MMA_TILES
+            if t[0] * t[1] // MMA_WARPS * groups <= 18
+            and (t != (4, 4)
+                 or (stride == 1 and groups <= 3 and k_chunk == 8))]
+
+
+def conv_layout(form: str, ci: int, co: int, d: int, h: int, w: int,
+                stride: int, tile: tuple, cluster: int) -> ConvPlan:
+    """The plan of a conv launched with ``tile`` (rows, depths) and
+    ``cluster`` blocks splitting its input channels."""
+    if stride not in (1, 2):
+        raise ValueError(f"conv_plan: stride {stride}")
+    groups, co_blocks, k_chunk = _channels(form, ci, co)
+    if form != "fp32" and (form, stride, groups,
+                           k_chunk) not in MMA_INSTANCES:
+        raise ValueError(f"conv_plan: no MMA instance for {form} {ci} -> "
+                         f"{co} at stride {stride} ({groups} n-tiles, "
+                         f"chunks of {k_chunk})")
+    th, td = tile
+    tile_w = 32 if form == "fp32" else 16
+    do, ho, wo = ((n - 1) // stride + 1 for n in (d, h, w))
+    blocks = (_cdiv(wo, tile_w) * _cdiv(ho, th) * _cdiv(do, td) * co_blocks
+              * cluster)
+    sd, sh = stride * (td - 1) + 3, stride * (th - 1) + 3
+    sw = stride * (tile_w - 1) + 3
+    voxels = tile_w * th * td
+    np_ = 8 * groups
+    units = _cdiv(ci, k_chunk)
+    if form == "fp32":
+        stage = 4 * (_cdiv(sd * sh * sw, 4) * 4 + 27 * np_)
+        smem = max(2 * stage, 4 * np_ * voxels if cluster > 1 else 0)
+        threads = 32 * th * groups
+    else:
+        # the slab and a tap's np_ weight rows padded by one, k_chunk bf16
+        # values a row
+        row = 2 * k_chunk
+        stage = row * sd * sh * sw + row * 27 * (np_ + 1)
+        nbuf = 2 if _cdiv(units, cluster) > 1 else 1
+        smem = max(nbuf * stage, 4 * np_ * (voxels + 4))
+        threads = 32 * (MMA_WARPS + (8 if groups >= 5 else 4))
+    ranks = tuple((min(ci, k_chunk * (r * units // cluster)),
+                   min(ci, k_chunk * ((r + 1) * units // cluster)))
+                  for r in range(cluster))
+    return ConvPlan(form, (ci, co, d, h, w, stride), (tile_w, th, td),
+                    groups, co_blocks, cluster, ranks, blocks, threads, smem,
+                    k_chunk)
+
+
+@functools.lru_cache(maxsize=None)
+def conv_plan(form: str, ci: int, co: int, d: int, h: int, w: int,
+              stride: int) -> ConvPlan:
+    """The launch plan of a conv3d k3 p1 of ``ci -> co`` channels on a
+    ``(d, h, w)`` input at ``stride`` 1 or 2, in ``form`` (``FORMS``:
+    ``"fp32"``, or a deploy form named by its input and output dtypes).
+    The largest tile whose grid fills the card's SMs (and, in fp32, holds
+    ``FP32_WARPS`` warps); where none does, the input channels split over a
+    cluster of up to ``MAX_CLUSTER`` blocks (at most one rank per channel,
+    or per chunk of the MMA kernel; in fp32 by powers of two until the grid
+    holds ``FP32_SPLIT_WARPS`` warps); ``TUNED``'s where it has the shape."""
+    tiles = conv_tiles(form, ci, co, stride)
+
+    def layout(tile, cluster=1):
+        return conv_layout(form, ci, co, d, h, w, stride, tile, cluster)
+
+    tuned = TUNED.get((form, ci, co, d, h, w, stride))
+    if tuned:
+        return layout(*tuned)
+
+    for tile in tiles:
+        plan = layout(tile)
+        if plan.blocks >= SMS and (form != "fp32" or plan.blocks
+                                   * plan.threads >= 32 * FP32_WARPS):
+            return plan
+    if form == "fp32":
+        plan = layout((2, 4) if (2, 4) in tiles else tiles[-1])
+        cluster = 1
+        while (2 * cluster <= min(MAX_CLUSTER, ci)
+               and (plan.blocks * cluster < SMS or plan.blocks * cluster
+                    * plan.threads < 32 * FP32_SPLIT_WARPS)):
+            cluster *= 2
+        return layout(plan.tile[1:], cluster)
+    plan = layout(tiles[-1])
+    units = _cdiv(ci, plan.k_chunk)
+    return layout(tiles[-1], min(MAX_CLUSTER, units,
+                                 _cdiv(SMS, plan.blocks)))
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_ints(form: str, b: int, ci: int, co: int, d: int, h: int,
+                 w: int, stride: int, approximate: bool):
+    """The C entry points' plan argument for one call signature: the
+    address of ``conv_plan``'s ints, the array itself (kept alive here),
+    and the output's (D, H, W)."""
+    ints = conv_plan(form, ci, co, d, h, w, stride).ints(b, approximate)
+    out = tuple((n - 1) // stride + 1 for n in (d, h, w))
+    return ctypes.addressof(ints), ints, out
+
+
 @functools.cache
 def _fns():
     lib = _build.load("fused_hourglass")
     conv = lib.conv3d_k3_bn_gelu
-    conv.argtypes = [_P, _P, _P, _P] + [_I] * 8 + [_P]
+    conv.argtypes = [_P] * 6
     deconv = lib.hourglass_deconv
     deconv.argtypes = [_P, _P, _P, _P] + [_I] * 10 + [_P]
     cat = lib.hourglass_conv1x1_cat
     cat.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
     lowp = lib.conv3d_k3_bn_gelu_bf16
-    lowp.argtypes = [_P, _P, _P, _P, _P] + [_I] * 10 + [_P]
+    lowp.argtypes = [_P] * 7
     deconv_bf16 = lib.hourglass_deconv_bf16
     deconv_bf16.argtypes = [_P] * 5 + [_I] * 10 + [_P]
     cat_bf16 = lib.hourglass_conv1x1_cat_bf16
@@ -180,59 +405,76 @@ def _fns():
 
 def conv3d_bn_gelu(x: torch.Tensor, w: torch.Tensor, t: torch.Tensor,
                    stride: int, approximate: bool) -> torch.Tensor:
-    """One launch of the direct conv3d k3 p1 (stride 1 or 2) + folded BN +
-    GELU on CUDA tensors: the conv of kernels C, E, G and H. ``w`` is
-    ``(CO, CI, 3, 3, 3)`` with the BN scale folded in, ``t`` the shift."""
+    """One launch of the fp32 conv3d k3 p1 (stride 1 or 2) + folded BN +
+    GELU on CUDA tensors, as ``conv_plan("fp32", ...)`` lays it out: the
+    conv of kernels C, E, G and H. ``w`` is ``(CO, CI, 3, 3, 3)`` with the
+    BN scale folded in, ``t`` the shift."""
     b, ci, d, h, wd = x.shape
     co = w.shape[0]
-    if tuple(w.shape) != (co, ci, 3, 3, 3) or tuple(t.shape) != (co,):
+    if w.shape != (co, ci, 3, 3, 3) or t.shape != (co,):
         raise ValueError(f"conv3d: weight {tuple(w.shape)} for {ci} inputs")
-    out = [(n - 1) // stride + 1 for n in (d, h, wd)]
+    ints, _, out = _launch_ints("fp32", b, ci, co, d, h, wd, stride,
+                                bool(approximate))
     y = torch.empty((b, co, *out), device=x.device, dtype=torch.float32)
     err = _fns()[0](x.data_ptr(), w.data_ptr(), t.data_ptr(), y.data_ptr(),
-                    b, ci, co, d, h, wd, stride, int(approximate),
-                    stream_handle(x))
+                    ints, stream_handle(x))
     _build.check(err, "conv3d")
+    _count_conv(conv3d_bn_gelu, ("fp32", ci, co, d, h, wd, stride))
     return y
 
 
-# the dtype codes of conv3d_k3_bn_gelu_bf16's input and output
-_IN_CODES = {torch.bfloat16: 0, torch.int8: 1}
-_OUT_CODES = {torch.bfloat16: 0, torch.float32: 1}
+# the deploy forms by (input, output) dtype
+_DEPLOY_FORMS = {(torch.bfloat16, torch.bfloat16): "bf16",
+                 (torch.bfloat16, torch.float32): "bf16_fp32",
+                 (torch.int8, torch.bfloat16): "int8_bf16",
+                 (torch.int8, torch.float32): "int8_fp32"}
 
 
 def conv3d_bn_gelu_bf16(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                         shift: torch.Tensor, out_dtype: torch.dtype,
                         approximate: bool, stride: int = 1) -> torch.Tensor:
-    """One launch of the direct conv3d k3 p1 in its deploy form on CUDA
-    tensors (kernels C, E's agg, G and H): ``x`` bf16 or int8, ``w``
+    """One launch of the conv3d k3 p1 in its deploy form on CUDA tensors
+    (kernels C, E's agg, G and H), on the tensor cores as
+    ``conv_plan(form, ...)`` lays it out: ``x`` bf16 or int8, ``w``
     ``(CO, CI, 3, 3, 3)`` bf16 (raw, BN not folded), fp32 sums, then
     ``GELU(sum * scale + shift)`` in fp32, written in ``out_dtype`` (bf16
     or fp32). bf16 -> bf16 takes stride 1 or 2 and any CO; the other forms
     stride 1 and CO a multiple of 8."""
     b, ci, d, h, wd = x.shape
     co = w.shape[0]
-    if (tuple(w.shape) != (co, ci, 3, 3, 3)
-            or tuple(scale.shape) != (co,) or tuple(shift.shape) != (co,)):
+    if (w.shape != (co, ci, 3, 3, 3) or scale.shape != (co,)
+            or shift.shape != (co,)):
         raise ValueError(f"conv3d bf16: weight {tuple(w.shape)} for {ci} "
                          f"inputs")
-    if w.dtype != torch.bfloat16 or x.dtype not in _IN_CODES \
-            or out_dtype not in _OUT_CODES:
+    form = _DEPLOY_FORMS.get((x.dtype, out_dtype))
+    if w.dtype != torch.bfloat16 or form is None:
         raise TypeError(f"conv3d bf16: {x.dtype} in, {w.dtype} weights, "
                         f"{out_dtype} out")
-    if (x.dtype, out_dtype) != (torch.bfloat16, torch.bfloat16) \
-            and (stride != 1 or co % 8):
+    if form != "bf16" and (stride != 1 or co % 8):
         raise ValueError(f"conv3d bf16: {x.dtype} -> {out_dtype} takes "
                          f"stride 1 and CO a multiple of 8; got stride "
                          f"{stride}, CO {co}")
-    out = [(n - 1) // stride + 1 for n in (d, h, wd)]
+    ints, _, out = _launch_ints(form, b, ci, co, d, h, wd, stride,
+                                bool(approximate))
     y = torch.empty((b, co, *out), device=x.device, dtype=out_dtype)
     err = _fns()[3](x.data_ptr(), w.data_ptr(), scale.data_ptr(),
-                    shift.data_ptr(), y.data_ptr(), b, ci, co, d, h, wd,
-                    stride, _IN_CODES[x.dtype], _OUT_CODES[out_dtype],
-                    int(approximate), stream_handle(x))
+                    shift.data_ptr(), y.data_ptr(), ints, stream_handle(x))
     _build.check(err, "conv3d bf16")
+    _count_conv(conv3d_bn_gelu_bf16, (form, ci, co, d, h, wd, stride))
     return y
+
+
+def _count_conv(wrapper, key: tuple) -> None:
+    """One launch of a conv wrapper's kernel: by form, and by ``key``
+    (``conv_plan``'s arguments) in ``wrapper.shape_launches``."""
+    count_launch(wrapper, key[0])
+    wrapper.shape_launches[key] = wrapper.shape_launches.get(key, 0) + 1
+
+
+for _conv in (conv3d_bn_gelu, conv3d_bn_gelu_bf16):
+    _conv.launches = 0
+    _conv.form_launches = {}
+    _conv.shape_launches = {}
 
 
 def down_pair(x: torch.Tensor, consts: dict,
