@@ -131,6 +131,7 @@ import math
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -141,6 +142,7 @@ from esmstereo_tpu_torch.models.esmstereo import (ESMStereo, ESMStereoConfig,
                                                   conv3d_shapes)
 from esmstereo_tpu_torch.ops.kernels import (_build, conv_wrappers,
                                              reset_launches, wrappers)
+from esmstereo_tpu_torch.ops.kernels import activations
 from esmstereo_tpu_torch.ops.kernels import correlation, fused_agg_stem
 from esmstereo_tpu_torch.ops.kernels import fused_head, fused_hourglass
 from esmstereo_tpu_torch.ops.kernels import fused_mixer, fused_stage
@@ -224,6 +226,16 @@ STRICT_DEPLOY = ("L-deploy", "L-deploy-int8")
 # the disparity's at cv8 and cv16, are held on every pair.
 DEPLOY_DRAWS = 3
 CV4_MARGIN = 1.25
+# deploy paths with their bf16 activations per op (nn.blocks.
+# set_bf16_per_op: jax.nn's formulas rounding after every op, one launch
+# of the activations_bf16 kernel each), which the JAX reference computes;
+# held against the CPU in [4] and served in [5]. The served mode rounds
+# once (torch's functions): per op, L-deploy's chaotic cv4 disparity
+# moves past its JAX test on the tests' draw (ROADMAP section 3 item 1).
+# M-deploy reaches the tanh GELU, SiLU and sigmoid, C-deploy those and
+# the softmax.
+PER_OP_PATHS = {"M-deploy per-op": deploy(M),
+                "C-deploy per-op": deploy(S_NORM)}
 # multiply-adds per /4 pixel of kernel I: to_feat, two FMBlocks (two
 # SMLayers of two 8 -> 16 -> 8 MLPs and a dw 7x7 each, expand, project), up
 MIXER_MACS = (32 * 9 * 16
@@ -346,6 +358,18 @@ def deterministic_cudnn():
         yield
     finally:
         torch.backends.cudnn.deterministic = before
+
+
+@contextlib.contextmanager
+def bf16_per_op(enabled: bool = True):
+    """The bf16 activations per op (``nn.blocks.set_bf16_per_op``, a
+    process global), restored after."""
+    before = blocks.BF16_PER_OP
+    blocks.set_bf16_per_op(enabled)
+    try:
+        yield
+    finally:
+        blocks.set_bf16_per_op(before)
 
 
 @contextlib.contextmanager
@@ -543,6 +567,29 @@ def check_stem_agg(model, volume: torch.Tensor, path) -> dict:
             "bound_ms": bms, "bound_by": by, "library_ms": cuda_ms(library)}
 
 
+def require_b_then_c(name: str, got: torch.Tensor, b_c: torch.Tensor,
+                     form: str, g: int, d: int, h: int, w: int,
+                     desc_bytes: int = 4) -> None:
+    """Kernel E's output bit for bit against kernels B then C on the same
+    inputs: E's group_stem runs the chunks and cluster split of C's plan
+    (``fused_agg_stem.volume_plan``, printed beside C's; the bf16 forms may
+    take a larger tile, which does not enter the sums), so it sums the same
+    products in the same order."""
+    plan = fused_agg_stem.volume_plan(form, g, d, h, w, desc_bytes)
+    conv, c_conv = plan.conv, fused_hourglass.conv_plan(form, g, 8, d, h, w,
+                                                        1)
+    producers = (f"{plan.load_warps} producer warps" if form != "fp32"
+                 else f"units of {plan.sub} channels")
+    print(f"  {name}: plan tile {conv.tile}, cluster {conv.cluster}, "
+          f"{conv.blocks} blocks of {plan.threads} threads, {producers}, "
+          f"{plan.smem} bytes of shared memory (C's group_stem: tile "
+          f"{c_conv.tile}, cluster {c_conv.cluster}, {c_conv.smem} bytes); "
+          f"{apart(got, b_c):.3e} of the outputs differ from kernels B + C")
+    require((conv.cluster, conv.ranks) == (c_conv.cluster, c_conv.ranks)
+            and torch.equal(got, b_c),
+            f"{name}: differs from kernels B then C in its split or bits")
+
+
 def check_volume_stem_agg(model, gen, path) -> dict:
     """Kernel E at the main path's shapes of ``model``: (1, 64, H/v, W/v)
     descriptors, ``model.num_bins`` bins, the gwc volume (32 groups) or the
@@ -610,6 +657,8 @@ def check_volume_stem_agg(model, gen, path) -> dict:
     err = compare(f"volume_stem_agg {variant(model)} {tuple(got.shape)}",
                   got, want, 1e-4, floor=0.0 if norm else 1.0,
                   min_peak=0.01)
+    require_b_then_c(f"volume_stem_agg {variant(model)}", got, b_plus_c(),
+                     "fp32", g, d, *shape[2:])
     if norm:
         require_seen("the volume", plain(dict(
             consts, w1=torch.zeros_like(consts["w1"]))), want, 1e-4, 0.0)
@@ -1220,7 +1269,8 @@ def check_volume_stem_agg_bf16(net, gen, path: str) -> dict:
         ref.float(), tgt.float(), fp, d, g, approx, norm).to(bf16)
     err = compare_deploy(f"{name} {tuple(got.shape)}", got, plain(),
                          unrounded)
-    compare_deploy(f"{name} against kernels B + C", got, b_plus_c())
+    require_b_then_c(name, got, b_plus_c(), "bf16", g, d, *shape[2:],
+                     4 if norm else 2)
     vox = got.numel() // got.shape[1]
     co = got.shape[1]
     flops = volume_flops(vox * g, g, ref, norm) + 2 * vox * 27 * (g * co
@@ -1236,6 +1286,80 @@ def check_volume_stem_agg_bf16(net, gen, path: str) -> dict:
             "plain_ms": cuda_ms(plain), "bound_ms": bms, "bound_by": by,
             "library_ms": None, "b_plus_c_ms": cuda_ms(b_plus_c),
             "peak_mb": peak / 1e6}
+
+
+# operations a value of each bf16 activation (jax.nn's formula; a
+# function such as tanh counted as one)
+ACTIVATION_OPS = {"gelu_tanh": 9, "gelu_erf": 4, "silu": 5, "sigmoid": 4,
+                  "softmax": 5}
+
+
+def activation_shapes(nets: dict) -> dict:
+    """``{name: (path, shape)}``: the largest tensor each bf16 activation
+    runs on, per op, in one forward of the per-op paths' models ``nets``
+    (``{path: model}``) at the padded frame of the path; the erf GELU,
+    which no deploy path runs (they take tanh), at the tanh GELU's."""
+    seen = {}
+
+    def record(path):
+        def fn(x, name, dim=None):
+            if x.numel() > math.prod(seen.get(name, (None, (0,)))[1]):
+                seen[name] = (path, x.shape)
+            return activations.activation_bf16(x, name, dim)
+        return fn
+
+    for path, net in nets.items():
+        frame = KITTI_PADDED if path.startswith("C-") else PADDED
+        pair = torch.zeros((2, *frame, 3), device="cuda")
+        # the model's blocks reach the kernel through their module's
+        # ``activations``; a stand-in there records each call's shape
+        blocks.activations = types.SimpleNamespace(
+            activation_bf16=record(path), gelu=activations.gelu)
+        try:
+            with bf16_per_op(), tanh_gelu():
+                net(pair[:1], pair[1:])
+        finally:
+            blocks.activations = activations
+    seen["gelu_erf"] = (None, seen["gelu_tanh"][1])
+    return {k: (p, tuple(shape)) for k, (p, shape) in seen.items()}
+
+
+def check_activation(name: str, path: str | None, shape: tuple,
+                     gen) -> dict:
+    """The bf16 activation ``name`` (``activations_bf16.cu``) at ``shape``,
+    a served shape of ``path``: unit-normal values times 4, against its
+    plain version on the card by ``compare_deploy`` (1 bf16 ulp, at most 1%
+    of the values off); the share of values not bit-exact against the
+    plain version on the CPU stated (CUDA's tanhf, expf and erfcf may
+    differ from the CPU's by an fp32 ulp at a bf16 midpoint). Beside its
+    time, torch's own function, which rounds once (``torch_ms``)."""
+    bf16 = torch.bfloat16
+    x = (torch.randn(shape, generator=gen) * 4.0).to(bf16).cuda()
+    dim = 1 if name == "softmax" else None
+    got = activations.activation_bf16(x, name, dim)
+    want = activations.activation_bf16_plain(x, name, dim)
+    label = f"activation_bf16 {name} {tuple(shape)}"
+    err = compare_deploy(label, got, want)
+    cpu = activations.activation_bf16_plain(x.cpu(), name, dim)
+    print(f"    against the plain version on the CPU: "
+          f"{apart(got.cpu(), cpu):.3e} of the values not bit-exact")
+    once = {"gelu_tanh": lambda: torch.nn.functional.gelu(
+                x, approximate="tanh"),
+            "gelu_erf": lambda: torch.nn.functional.gelu(x),
+            "silu": lambda: torch.nn.functional.silu(x),
+            "sigmoid": lambda: torch.sigmoid(x),
+            "softmax": lambda: torch.softmax(x, 1)}[name]
+    bms, by = bound(2 * nbytes(x), ACTIVATION_OPS[name] * x.numel())
+    return {"name": "activation_bf16", "form": name, "model": path or "none",
+            "path": path, "form_key": name, "route": "cuda",
+            "source": "esmstereo_tpu_torch/csrc/activations_bf16.cu",
+            "replaces": "none (XLA's per-op bf16 roundings of jax.nn)",
+            "max_abs_err": err,
+            "ms": cuda_ms(lambda: activations.activation_bf16(x, name, dim)),
+            "plain_ms": cuda_ms(
+                lambda: activations.activation_bf16_plain(x, name, dim)),
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "torch_ms": cuda_ms(once)}
 
 
 def check_down_pairs_bf16(net, gen, path: str) -> tuple[dict, list]:
@@ -1721,12 +1845,14 @@ def check_ragged_stages(model, s_gwc, gen) -> None:
 
 def check_ragged_switches_deploy(model, m_norm, s_gwc, gen) -> None:
     """The switches' deploy forms at small shapes with ragged tiles on
-    every axis and batch 2, by ``compare_deploy``: E's gwc (``model``'s
-    group_stem) and normalised G = 1 (``m_norm``'s corr_stem) forms at 13
-    and 48 bins; G at L's, M's and S's widths, each conv on its own input
-    (the k3 s1 conv's plain version on the kernel's intermediate) and the
-    chain against the plain chain by ``compare_ulps``; H there; F at (32,
-    48) and (16, 24); I."""
+    every axis and batch 2, by ``compare_deploy``, each step on its own
+    input and the chain against the plain chain by ``compare_ulps``: E's
+    gwc (``model``'s group_stem) and normalised G = 1 (``m_norm``'s
+    corr_stem) forms at 13 and 48 bins (its volume + group_stem against the
+    plain group_stem of the plain bf16 volume, its agg on its own
+    group_stem output); G at L's, M's and S's widths (the k3 s1 conv's
+    plain version on the kernel's intermediate); H there; F at (32, 48)
+    and (16, 24); I's seven launches (``check_mixer_steps``)."""
     dev = torch.device("cuda")
     bf16 = torch.bfloat16
     for shape, d in (((2, 64, 7, 37), 13), ((2, 64, 5, 70), 48)):
@@ -1737,13 +1863,23 @@ def check_ragged_switches_deploy(model, m_norm, s_gwc, gen) -> None:
                                                 low_precision=True)
             if norm:
                 low = dict(low, w1=(low["w1"].float() * 64.0).to(bf16))
-            compare_deploy(
-                f"volume_stem_agg {'norm' if norm else 'gwc'} bf16 {shape}, "
-                f"D={d}",
-                fused_agg_stem.volume_stem_agg(ref, tgt, low, d, g, True,
-                                               normalize=norm),
-                fused_agg_stem.volume_stem_agg_plain(ref, tgt, low, d, g,
-                                                     True, norm))
+            name = (f"volume_stem_agg bf16 {'norm' if norm else 'gwc'} "
+                    f"{shape}, D={d}")
+            # each step on its own input, as G's convs below: an
+            # intermediate at a bf16 midpoint rounds either way in the
+            # kernel's and the plain version's summation orders
+            mid, got = fused_agg_stem.volume_stem_agg(
+                ref, tgt, low, d, g, True, normalize=norm, steps=True)
+            vol = correlation.correlation_volume_plain(ref, tgt, d, g, norm)
+            compare_deploy(f"{name}: its volume + group_stem", mid,
+                           conv_bf16_plain(vol, low["w1"], low["s1"],
+                                           low["t1"], 1))
+            compare_deploy(f"{name}: its agg on its own group_stem", got,
+                           conv_bf16_plain(mid, low["w2"], low["s2"],
+                                           low["t2"], 1))
+            compare_ulps(f"{name}: the chain", got,
+                         fused_agg_stem.volume_stem_agg_plain(
+                             ref, tgt, low, d, g, True, norm))
     for net, (c1, c2, c3) in ((model, (24, 40, 72)), (m_norm, (16, 24, 40)),
                               (s_gwc, (12, 16, 24))):
         agg = net.aggregation_out
@@ -1794,11 +1930,33 @@ def check_ragged_switches_deploy(model, m_norm, s_gwc, gen) -> None:
     x = torch.randn((2, 32, 11, 25), generator=gen).to(dev).to(bf16)
     low = fused_mixer.prepare_consts(model.upsample_module.stage2x,
                                      low_precision=True)
+    check_mixer_steps("mixer bf16 (2, 32, 11, 25)", x, low)
+
+
+def check_mixer_steps(name: str, x: torch.Tensor, low: dict) -> None:
+    """Kernel I's bf16 form launch by launch (``fused_mixer.STEPS``): each
+    of its seven launches against the plain step on the kernel's own
+    earlier launches' outputs, by ``compare_deploy`` at ``MIXER_ULPS`` and
+    ``MIXER_SHARE`` (the workspace's fp32 maps rounded to bf16, as the next
+    layer reads them); the chain against ``mixer_plain`` by
+    ``compare_ulps``; and each rounding step seen
+    (``require_each_rounding_seen``)."""
+    outs = fused_mixer.mixer(x, low, steps=True)
+    for step, (reads, writes) in enumerate(fused_mixer.STEPS, 1):
+        args = {"x": x} if step == 1 else {
+            n: outs[k - 1][n] for n, k in reads}
+        want = fused_mixer.mixer_step_plain(step, low, True, **args)
+        for n in writes:
+            compare_deploy(f"{name}: launch {step} ({n})",
+                           outs[step - 1][n].to(torch.bfloat16),
+                           want[n].to(torch.bfloat16), ulps=MIXER_ULPS,
+                           share=MIXER_SHARE)
     got = fused_mixer.mixer(x, low)
-    compare_deploy("mixer bf16 (2, 32, 11, 25)", got,
-                   fused_mixer.mixer_plain(x, low), ulps=MIXER_ULPS,
-                   share=MIXER_SHARE)
-    require_each_rounding_seen("mixer bf16 (2, 32, 11, 25)", x, got, low)
+    require(torch.equal(got, outs[-1]["y"]),
+            f"{name}: the launches one by one differ from the whole call")
+    compare_ulps(f"{name}: the chain", got, fused_mixer.mixer_plain(x, low),
+                 MIXER_ULPS)
+    require_each_rounding_seen(name, x, got, low)
 
 
 def check_ragged_deploy(model, m_norm, s_gwc, gen) -> None:
@@ -2400,6 +2558,15 @@ def main() -> int:
             row_g, downs = check_down_pairs_bf16(s_gwc, gen, "S-deploy-all")
             rows += [row_g, check_up_pairs_bf16(s_gwc, gen, downs,
                                                 "S-deploy-all")]
+        # the bf16 activations per op, at the largest tensor each runs on
+        # in the per-op paths
+        per_op = {path: (ESMStereoConfidence if path.startswith("C-")
+                         else ESMStereo)(config, device="cuda", seed=SEED)
+                  for path, config in PER_OP_PATHS.items()}
+        rows += [check_activation(name, path, shape, gen)
+                 for name, (path, shape) in sorted(activation_shapes(
+                     per_op).items())]
+        del per_op
         # kernel J over stages 1-5 of L's and S's backbones (on no path)
         rows += [check_fused_stages(net, gen, None) for net in (model, s_gwc)]
         # the conv3d k3 p1 that C, E's agg, G and H share, conv by conv
@@ -2467,6 +2634,13 @@ def main() -> int:
         print(f"[4] {name} (bf16, tanh GELU) on the card against the CPU, "
               f"beside the CPU's own distance from fp32, 128x256")
         check_deploy_against_cpu(gen, config)
+    for name, config in PER_OP_PATHS.items():
+        print(f"[4] {name} (bf16, tanh GELU, the activations per op on both) "
+              f"on the card against the CPU, beside the CPU's own distance "
+              f"from fp32, 128x256")
+        with bf16_per_op():
+            check_deploy_against_cpu(gen, config,
+                                     confidence=name.startswith("C-"))
 
     nets = {"default": model, "M": m_gwc, "M-norm": m_norm, "S": s_gwc,
             "S-norm": s_norm}
@@ -2481,20 +2655,21 @@ def main() -> int:
                "S-norm-deploy": s_norm, "C-deploy": conf,
                "L-deploy-all": model, "M-norm-deploy-all": m_norm,
                "S-deploy-all": s_gwc}
-    served_deploy = {**DEPLOY_PATHS, **SWITCHED_PATHS}
+    sources.update({"M-deploy per-op": m_gwc, "C-deploy per-op": conf})
+    served_deploy = {**DEPLOY_PATHS, **SWITCHED_PATHS, **PER_OP_PATHS}
     for name, config in served_deploy.items():
         cls = ESMStereoConfidence if name.startswith("C-") else ESMStereo
         nets[name] = cls(config, device="cuda", seed=SEED)
         nets[name].load_state_dict(sources[name].state_dict())
     kernels = wrappers()
     convs = conv_wrappers()
-    launches, forms = {}, {}
+    launches, forms, act_forms = {}, {}, {}
     conv_launches, conv_forms, conv_shapes = {}, {}, {}
     for name, net in nets.items():
         frame = KITTI_FRAME if name.split("-")[0] == "C" else FRAME
         padded = [(n // 32 + 1) * 32 for n in frame]
         with tanh_gelu() if name in served_deploy else \
-                contextlib.nullcontext():
+                contextlib.nullcontext(), bf16_per_op(name in PER_OP_PATHS):
             print(f"[5] {name} path: {REQUESTS} requests through "
                   f"InferenceRunner, {frame[0]}x{frame[1]} padded to "
                   f"{padded[0]}x{padded[1]}, {precision(net)}")
@@ -2532,7 +2707,25 @@ def main() -> int:
             "M-norm-deploy": default_want, "S-deploy": default_want,
             "S-norm-deploy": s_norm_want, "C-deploy": s_norm_want,
             "L-deploy-all": all_want, "M-norm-deploy-all": m_norm_all_want,
-            "S-deploy-all": s_all_want}
+            "S-deploy-all": s_all_want, "M-deploy per-op": default_want,
+            "C-deploy per-op": s_norm_want}
+    # the bf16 activations' kernel: as many launches on each request of a
+    # per-op path, at least one of each activation that path reaches, and
+    # none on any other path (the served mode rounds once, in torch)
+    reached = {"M-deploy per-op": {"gelu_tanh", "silu", "sigmoid"},
+               "C-deploy per-op": {"gelu_tanh", "silu", "softmax",
+                                   "sigmoid"}}
+    for path, names in reached.items():
+        n = launches[path].pop("activation_bf16")
+        by_name = forms[path].pop("activation_bf16")
+        require(n > 0 and n % REQUESTS == 0 and set(by_name) == names
+                and sum(by_name.values()) == n,
+                f"activation_bf16 launched {by_name} in {REQUESTS} requests "
+                f"on the {path} path (want each of {sorted(names)}, as "
+                f"often on each request)")
+        forms[path]["activation_bf16"] = {}
+        launches[path]["activation_bf16"] = 0
+        act_forms[path] = by_name
     for path, per_request in want.items():
         for k, n in launches[path].items():
             require(n == per_request.get(k, 0) * REQUESTS,
@@ -2567,7 +2760,8 @@ def main() -> int:
                     "L-deploy-int8": dict(gwc_bf16, stem_agg="int8"),
                     "M-deploy": gwc_bf16, "M-norm-deploy": norm_bf16,
                     "S-deploy": gwc_bf16, "S-norm-deploy": norm_bf16,
-                    "C-deploy": norm_bf16,
+                    "C-deploy": norm_bf16, "M-deploy per-op": gwc_bf16,
+                    "C-deploy per-op": norm_bf16,
                     **{path: dict.fromkeys(kernels, "bf16") for path in (
                         "L-deploy-all", "M-norm-deploy-all",
                         "S-deploy-all")}}
@@ -2591,6 +2785,8 @@ def main() -> int:
                     f"time on the {r['path']} path")
         elif not r["path"]:
             r["launches"] = None
+        elif r["name"] == "activation_bf16":
+            r["launches"] = act_forms[r["path"]][key]
         elif key:
             r["launches"] = forms[r["path"]][r["name"]][key]
         else:

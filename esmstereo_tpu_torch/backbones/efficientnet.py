@@ -21,7 +21,8 @@ import torch
 from torch import nn
 
 from esmstereo_tpu_torch.backbones import fused
-from esmstereo_tpu_torch.nn.blocks import TorchConv, apply_act, batch_norm
+from esmstereo_tpu_torch.nn.blocks import (TorchConv, apply_act, batch_norm,
+                                           sigmoid)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,7 +100,7 @@ class SqueezeExcite(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         gate = x.mean(dim=(2, 3), keepdim=True)
         gate = apply_act(self.conv_reduce(gate), self.act)
-        return x * torch.sigmoid(self.conv_expand(gate))
+        return x * sigmoid(self.conv_expand(gate))
 
 
 class DepthwiseSeparable(nn.Module):

@@ -95,21 +95,25 @@
 // (esmstereo_tpu/ops/pallas/fused_agg_stem.py:141-155,189-192) take a bf16
 // or int8 volume and write bf16, or fp32 after an int8 volume.
 //
+// The conv kernels' helpers (the tiles, the swizzle, the fragments,
+// mma_chunk, the cluster launch) live in csrc/conv3d.cuh, which kernel E
+// (csrc/fused_volume_agg.cu) shares. Its kernel bodies there follow these
+// two line for line over a slab producer; these keep their own text: run
+// through the producer template, C's bf16 group_stem took 6-21% longer on
+// the H100 (eval/conv_repeat.py at L: 0.5596-0.5630 ms against
+// 0.5207-0.5228 in one call).
+//
 // The transposed conv is written in gather form (each output sums the
 // 2 x 2 x 2 input taps that reach it), so it needs no atomics and repeats
 // bit for bit; it and the 1x1x1 conv keep the direct fp32 FMA design of a
 // 32 x 4 (w, h) tile, kDc depths and kCot output channels a block.
-#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 #include <type_traits>
-#include <unordered_map>
 
-#include "activations.cuh"
-
-namespace cg = cooperative_groups;
+#include "conv3d.cuh"
 
 namespace {
 
@@ -119,38 +123,6 @@ constexpr int kDc = 8;     // output depths per thread
 constexpr int kCot = 8;    // output channels per block
 constexpr int kThreads = kTw * kTh;
 constexpr int kMaxCat = 256;   // input channels of the 1x1x1 conv, at most
-constexpr int kMaxCluster = 8;
-
-__device__ __forceinline__ bool inside(int d, int h, int w, int D, int H,
-                                       int W) {
-    return d >= 0 && d < D && h >= 0 && h < H && w >= 0 && w < W;
-}
-
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) {
-    return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T narrow(float v);
-template <>
-__device__ __forceinline__ float narrow<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
-    return __float2bfloat16_rn(v);
-}
-
-// The BN and GELU of one sum: the folded shift, or with kScaled the scale
-// then the shift, each rounded, as the plain version's two ops.
-template <bool kScaled, typename Tout>
-__device__ __forceinline__ Tout finish(float acc,
-                                       const float* __restrict__ scale,
-                                       const float* __restrict__ shift,
-                                       int co, bool approx) {
-    const float v = kScaled ? __fadd_rn(__fmul_rn(acc, scale[co]), shift[co])
-                            : acc + shift[co];
-    return narrow<Tout>(gelu(v, approx));
-}
 
 // Writes a thread's kDc x kCot sums through the BN and GELU (finish);
 // kMasked skips the channels past CO.
@@ -177,136 +149,7 @@ __device__ __forceinline__ void store_tile(
     }
 }
 
-// --- asynchronous copies and tensor-core fragments --------------------------
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-    return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 4 bytes, or 4 zero bytes when !valid (src is then not read).
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-                 :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0)
-                 : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], unsigned a) {
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a)
-        : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x2(uint32_t& r0, uint32_t& r1,
-                                            unsigned a) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-                 : "=r"(r0), "=r"(r1) : "r"(a) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x1(uint32_t& r0, unsigned a) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x1.shared.b16 {%0}, [%1];\n"
-                 : "=r"(r0) : "r"(a) : "memory");
-}
-
-// d += a * b on one m16n8k8 tile: bf16 operands, fp32 sums.
-__device__ __forceinline__ void mma_bf16_k8(float (&d)[4], uint32_t a0,
-                                            uint32_t a1, uint32_t b0) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a0), "r"(a1), "r"(b0));
-}
-
-// d += a * b on one m16n8k16 tile: bf16 operands, fp32 sums.
-__device__ __forceinline__ void mma_bf16(float (&d)[4],
-                                         const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Byte offset of the 16-byte half `half` (channels 8 half .. 8 half + 7) of
-// 32-byte row `row` (a slab voxel, or a (tap, n) weight row): the halves
-// swap on every other group of 4 rows, so any 8 consecutive rows' same
-// half fall in 8 distinct 16-byte bank groups (ldmatrix reads 8 rows a
-// phase).
-__device__ __host__ __forceinline__ int swz(int row, int half) {
-    return row * 32 + ((half ^ ((row >> 2) & 1)) << 4);
-}
-
-__device__ __forceinline__ uint32_t bits16(__nv_bfloat16 v) {
-    return __bfloat16_as_ushort(v);
-}
-__device__ __forceinline__ uint32_t bits16(int8_t v) {
-    return __bfloat16_as_ushort(__float2bfloat16_rn((float)v));
-}
-
 // --- the deploy form: implicit GEMM on the tensor cores ---------------------
-
-constexpr int kMmaWarps = 4;   // consumer warps, the MMAs
-
-// Producer warps: 4, or 8 where 5 or more n-tiles make the weights of a
-// chunk (27 x NP x KC values) the larger part of its copies; and the items
-// (8 loads each) a producer keeps in flight: 2 at one n-tile, where the
-// registers bound the blocks an SM holds, else 4 (the faster of 2, 4 and 8
-// on the H100 at each).
-__host__ __device__ constexpr int load_warps(int NT) {
-    return NT >= 5 ? 8 : 4;
-}
-__host__ __device__ constexpr int load_batch(int NT) {
-    return NT == 1 ? 2 : 4;
-}
-__host__ __device__ constexpr int mma_threads(int NT) {
-    return 32 * (kMmaWarps + load_warps(NT));
-}
-
-// A block's tile of 16 x TH x TD output voxels (w, h, d) at stride S with
-// input channels in chunks of KC (16, or 8 where CI <= 8): the input slab
-// it reads, in shared memory [sd][sh][column][KC ci], beside a chunk's
-// weights [tap][NP + 1][KC ci] (a tap's rows padded by one, so that a
-// producer's 8 consecutive taps hit 8 distinct bank groups).
-template <int S, int TH, int TD, int NT, int KC>
-struct MmaTile {
-    static constexpr int sd = S * (TD - 1) + 3;
-    static constexpr int sh = S * (TH - 1) + 3;
-    static constexpr int sw = S * 15 + 3;            // 18 or 33 columns
-    static constexpr int row = 2 * KC;     // bytes a voxel or (tap, n)
-    static constexpr int halves = KC / 8;            // 16-byte units a row
-    static constexpr int voxels = 16 * TH * TD;
-    static constexpr int slab_bytes = sd * sh * sw * row;
-    static constexpr int mtiles = TH * TD;           // one per (d, h) row
-    static constexpr int wrow = 8 * NT + 1;          // weight rows a tap
-    static constexpr int stage = slab_bytes + 27 * wrow * row;
-};
-
-// Byte offset of 16-byte unit `half` of row `row` in a layout of KC
-// channels a row: swz at 16; at 8 the rows are single units, and any 8
-// consecutive ones are 8 distinct bank groups as they stand.
-template <int KC>
-__device__ __forceinline__ int unit(int row, int half) {
-    return KC == 16 ? swz(row, half) : row * 16;
-}
-
-// Shared-memory column of slab column sw: itself at stride 1; at stride 2
-// the 17 even columns first, then the 16 odd ones, so that output column
-// ww at tap kw reads column wcol<S>(kw) + ww at either stride.
-template <int S>
-__device__ __forceinline__ int wcol(int sw) {
-    return S == 1 ? sw : ((sw & 1) ? 17 : 0) + (sw >> 1);
-}
 
 // One chunk of KC input channels (from c0) into buf: the tile's slab,
 // widened to bf16 and zero outside the input or past CI, and the chunk's
@@ -375,92 +218,6 @@ __device__ __forceinline__ void stage_chunk(
             if (dst[u] >= 0)
                 *reinterpret_cast<uint4*>(buf + dst[u]) =
                     make_uint4(v[u][0], v[u][1], v[u][2], v[u][3]);
-    }
-}
-
-// One chunk's 27 taps for one consumer warp: MT m-tiles x NT n-tiles, each
-// tap an m16n8k16 (KC 16) or m16n8k8 (KC 8) from zero, added to the sums.
-template <int S, int NT, int TH, int TD, int KC, int MT>
-__device__ __forceinline__ void mma_chunk(const char* buf,
-                                          float (&acc)[MT][NT][4], int warp,
-                                          int lane) {
-    using T = MmaTile<S, TH, TD, NT, KC>;
-    const unsigned slab = smem_u32(buf);
-    const unsigned wsh = slab + T::slab_bytes;
-    // KC 16, ldmatrix.x4 of A: lane l addresses row (l & 7) + 8 ((l >> 3)
-    // & 1) of the 16 voxels, channel half l >> 4 (a0..a3 of the fragment);
-    // of B (two n-tiles): n (l & 7) + 8 (l >> 4), half (l >> 3) & 1. KC 8,
-    // ldmatrix.x2 of A: row l & 15 (a0, a1); of B (two n-tiles): n l & 15.
-    const int a_row = KC == 16 ? (lane & 7) + ((lane >> 3) & 1) * 8
-                               : lane & 15;
-    const int a_half = KC == 16 ? lane >> 4 : 0;
-    const int b_n = KC == 16 ? (lane & 7) + ((lane >> 4) << 3) : lane & 15;
-    const int b_half = KC == 16 ? (lane >> 3) & 1 : 0;
-    int row0[MT];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-        const int mg = warp * MT + mt;
-        const int td = mg / TH, th = mg % TH;
-        row0[mt] = (S * td * T::sh + S * th) * T::sw + a_row;
-    }
-#pragma unroll 1
-    for (int kd = 0; kd < 3; ++kd) {
-#pragma unroll
-        for (int kh = 0; kh < 3; ++kh) {
-#pragma unroll
-            for (int kw = 0; kw < 3; ++kw) {
-                const int tap = (kd * 3 + kh) * 3 + kw;
-                uint32_t bf[NT][2];
-#pragma unroll
-                for (int j = 0; j + 1 < NT; j += 2) {
-                    const unsigned at = wsh + unit<KC>(tap * T::wrow + j * 8
-                                                       + b_n, b_half);
-                    if constexpr (KC == 16) {
-                        uint32_t r[4];
-                        ldmatrix_x4(r, at);
-                        bf[j][0] = r[0];
-                        bf[j][1] = r[1];
-                        bf[j + 1][0] = r[2];
-                        bf[j + 1][1] = r[3];
-                    } else {
-                        ldmatrix_x2(bf[j][0], bf[j + 1][0], at);
-                    }
-                }
-                if (NT % 2) {
-                    const unsigned at = wsh + unit<KC>(
-                        tap * T::wrow + (NT - 1) * 8 + (lane & 7), b_half);
-                    if constexpr (KC == 16)
-                        ldmatrix_x2(bf[NT - 1][0], bf[NT - 1][1], at);
-                    else
-                        ldmatrix_x1(bf[NT - 1][0], at);
-                }
-                const int toff = (kd * T::sh + kh) * T::sw + wcol<S>(kw);
-#pragma unroll
-                for (int mt = 0; mt < MT; ++mt) {
-                    uint32_t a[4];
-                    const unsigned at = slab + unit<KC>(row0[mt] + toff,
-                                                        a_half);
-                    if constexpr (KC == 16)
-                        ldmatrix_x4(a, at);
-                    else
-                        ldmatrix_x2(a[0], a[1], at);
-#pragma unroll
-                    for (int nt = 0; nt < NT; ++nt) {
-                        // the tap's products summed from 0, then added to
-                        // the running sum with one rounded fp32 add
-                        float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-                        if constexpr (KC == 16)
-                            mma_bf16(part, a, bf[nt][0], bf[nt][1]);
-                        else
-                            mma_bf16_k8(part, a[0], a[1], bf[nt][0]);
-#pragma unroll
-                        for (int j = 0; j < 4; ++j)
-                            acc[mt][nt][j] = __fadd_rn(acc[mt][nt][j],
-                                                       part[j]);
-                    }
-                }
-            }
-        }
     }
 }
 
@@ -565,19 +322,6 @@ conv3d_mma_kernel(const Tin* __restrict__ x,
 }
 
 // --- the fp32 form: direct FMA, channels double-buffered with cp.async ------
-
-constexpr int kFp32MaxThreads = 512;
-
-// A block's tile of 32 x TH x KDC output voxels (w, h, d) at stride S and
-// the input slab of one channel, in floats (padded to 16 bytes).
-template <int S, int TH, int KDC>
-struct Fp32Tile {
-    static constexpr int sd = S * (KDC - 1) + 3;
-    static constexpr int sh = S * (TH - 1) + 3;
-    static constexpr int sw = S * 31 + 3;
-    static constexpr int slab = (sd * sh * sw + 3) / 4 * 4;
-    static constexpr int voxels = 32 * TH * KDC;
-};
 
 // x (B, CI, D, H, W) -> y (B, CO, Do, Ho, Wo), fp32. wgt: (CO, CI, 3, 3, 3)
 // with the BN scale folded in, shift (CO,). 32 TH NG threads: warp
@@ -890,40 +634,6 @@ conv1x1_cat_kernel(const T* __restrict__ up, const T* __restrict__ skip,
 namespace {
 
 int channel_tiles(int CO) { return (CO + kCot - 1) / kCot; }
-
-// Launches kernel on grid x block with smem bytes of dynamic shared memory,
-// as a cluster of R blocks along x when R > 1.
-template <typename... Params, typename... Args>
-int launch(void (*kernel)(Params...), dim3 grid, dim3 block, int smem, int R,
-           cudaStream_t stream, Args... args) {
-    if (smem > 48 * 1024) {
-        // the most each kernel was allowed so far (one card a process)
-        static std::unordered_map<const void*, int> allowed;
-        int& most = allowed[reinterpret_cast<const void*>(kernel)];
-        if (smem > most) {
-            const cudaError_t err = cudaFuncSetAttribute(
-                reinterpret_cast<const void*>(kernel),
-                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-            if (err != cudaSuccess) return (int)err;
-            most = smem;
-        }
-    }
-    cudaLaunchConfig_t config = {};
-    config.gridDim = grid;
-    config.blockDim = block;
-    config.dynamicSmemBytes = smem;
-    config.stream = stream;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = R;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    config.attrs = attr;
-    config.numAttrs = R > 1 ? 1 : 0;
-    const cudaError_t err = cudaLaunchKernelEx(&config, kernel, args...);
-    if (err != cudaSuccess) return (int)err;
-    return (int)cudaGetLastError();
-}
 
 // The plan's ints, as conv_plan lays them out (fused_hourglass.py::
 // _launch_ints): the shape, the stride, the deploy forms' dtype codes, the

@@ -397,10 +397,12 @@ int smem_limit(const void* fn, int floats) {
         floats * (int)sizeof(float));
 }
 
-// The seven launches in one form: Tin and Tout fp32 (kLow false) or bf16.
+// The seven launches in one form (Tin and Tout fp32 with kLow false, or
+// bf16), the first `stop` of them: all seven in the model, fewer for a
+// check that reads the workspace after each.
 template <bool kLow, typename Tin, typename Tout>
 int launch_mixer(const void* xv, const float* params, void* yv, float* ws,
-                 int B, int H, int W, cudaStream_t stream) {
+                 int B, int H, int W, int stop, cudaStream_t stream) {
     auto head = mixer_head_kernel<kLow, Tin>;
     auto dwk = mixer_dw_kernel<kLow>;
     auto expk = mixer_expand_kernel<kLow, Tout>;
@@ -420,10 +422,12 @@ int launch_mixer(const void* xv, const float* params, void* yv, float* ws,
     const size_t hsm = kHeadSmem * sizeof(float);
     const size_t dsm = kDwSmem * sizeof(float);
     const size_t esm = kExpSmem * sizeof(float);
+    int done = 0;
 #define MIXER_CHECK()                              \
     do {                                           \
         const int e = (int)cudaGetLastError();     \
         if (e) return e;                           \
+        if (++done == stop) return 0;              \
     } while (0)
     head<<<grid, kThreads, hsm, stream>>>(x, params, V, T, H, W);
     MIXER_CHECK();
@@ -461,14 +465,17 @@ extern "C" long long mixer_workspace_floats(int B, int H, int W) {
 // the packed layout (kParams floats, fp32); y: (B, 16, 2H, 2W); ws:
 // mixer_workspace_floats(B, H, W) floats. With low_precision 0, x and y are
 // fp32; with 1 (the bf16 form, its packed weights rounded to bf16) they are
-// bf16.
+// bf16. stop: the launches to run, 7 (all) in the model, 1-6 to read the
+// workspace after each (y is then not written).
 extern "C" int fused_mixer(const void* x, const float* params, void* y,
                            float* ws, int B, int H, int W, int low_precision,
-                           cudaStream_t stream) {
-    if (B < 1 || H < 1 || W < 1) return (int)cudaErrorInvalidValue;
+                           int stop, cudaStream_t stream) {
+    if (B < 1 || H < 1 || W < 1 || stop < 1 || stop > 7)
+        return (int)cudaErrorInvalidValue;
     using bf16 = __nv_bfloat16;
     return low_precision
-        ? launch_mixer<true, bf16, bf16>(x, params, y, ws, B, H, W, stream)
-        : launch_mixer<false, float, float>(x, params, y, ws, B, H, W,
+        ? launch_mixer<true, bf16, bf16>(x, params, y, ws, B, H, W, stop,
+                                         stream)
+        : launch_mixer<false, float, float>(x, params, y, ws, B, H, W, stop,
                                             stream);
 }

@@ -14,7 +14,8 @@ it prints the card's mean distance from the CPU over the deploy numerics'
 own (the CPU in bf16 against the CPU in fp32), pooled over the pairs the
 check ran, the same ratio on each pair and of the maxima, and whether the
 check passed; then per path and map the range of the pooled and of the
-single-pair mean ratios and how many exceed 1. It reads the figures from
+single-pair mean ratios and how many exceed 1, and the range of the
+worst pair's max ratio. It reads the figures from
 the lines the check prints for each pair, so it also runs in an earlier
 checkout whose check prints the same lines (one pair per check there):
 copy this file there and run it from that checkout's root, to hold two
@@ -22,11 +23,12 @@ trees to the same draws.
 
 ``--ragged`` runs ``chip_smoke``'s ragged check of the switches' deploy
 forms (``check_ragged_switches_deploy``, at L's, M-norm's and S's widths)
-once per draw instead, and prints, for kernels G and H, how the share of
-outputs that differ by any bit falls over the draws for each comparison
-(a conv on its own input, or the whole level against its plain version):
-the largest and how many exceed 1%; and how many draws failed the check
-(a draw stops at its first failure).
+once per draw instead, and prints, for kernels E, G, H and I, how the
+share of outputs that differ by any bit falls over the draws for each
+comparison (a step on its own input, or the whole chain against its plain
+version): the largest and how many exceed E's, G's and H's 1% (I's limit
+is ``chip_smoke.MIXER_SHARE``); and how many draws failed the check, by
+the kernel that failed (a draw stops at its first failure).
 """
 
 from __future__ import annotations
@@ -45,11 +47,12 @@ from esmstereo_tpu_torch.models.esmstereo import ESMStereo, ESMStereoConfig
 
 LINE = re.compile(r"draw \d+ (\w+): card against CPU bf16 max (\S+) mean "
                   r"(\S+); CPU bf16 against CPU fp32 max (\S+) mean (\S+)")
-# a ragged G or H comparison: its name, the part it holds (none for the
-# whole level, as in earlier checkouts) and the share of outputs differing
-RAGGED = re.compile(r"^  ((?:down_pair|up_pair) bf16 [^:\n]*): "
-                    r"(?:([^:\n]*): )?max abs err .*; (\S+) of the outputs "
-                    r"differ$", re.M)
+# a ragged E, G, H or I comparison: its name, the part it holds (none for
+# the whole level, as in earlier checkouts) and the share of outputs
+# differing
+RAGGED = re.compile(r"^  ((?:volume_stem_agg|down_pair|up_pair|mixer) bf16 "
+                    r"[^:\n]*): (?:([^:\n]*): )?max abs err .*; (\S+) of the "
+                    r"outputs differ$", re.M)
 FIRST_SEED = 1000
 
 
@@ -80,13 +83,13 @@ def one_draw(name: str, config, seed: int) -> tuple[dict, str | None]:
 
 
 def ragged(draws: int) -> int:
-    """``--ragged``: G's and H's shares of differing outputs per comparison
-    over ``draws`` draws of the ragged check."""
+    """``--ragged``: E's, G's, H's and I's shares of differing outputs per
+    comparison over ``draws`` draws of the ragged check."""
     nets = [ESMStereo(ESMStereoConfig(**kw), device="cuda",
                       seed=chip_smoke.SEED)
             for kw in ({}, {"cv_scale": 8, "cost_volume": "norm_correlation"},
                        {"cv_scale": 16, "backbone": "mobilenetv2_100"})]
-    shares, failed = {}, 0
+    shares, failed = {}, {}
     for draw in range(draws):
         out = io.StringIO()
         with contextlib.redirect_stdout(out):
@@ -94,16 +97,19 @@ def ragged(draws: int) -> int:
                 chip_smoke.check_ragged_switches_deploy(
                     *nets, torch.Generator().manual_seed(FIRST_SEED + draw))
             except RuntimeError as err:
-                failed += 1
+                kernel = str(err).removeprefix("chip_smoke: ").split()[0]
+                failed[kernel] = failed.get(kernel, 0) + 1
                 print(f"seed {FIRST_SEED + draw}: {err}", file=sys.stderr)
         for name, part, share in RAGGED.findall(out.getvalue()):
-            shares.setdefault((name.split()[0], part or "the level"),
+            # the comparison without its shape: kernel, form, level
+            shares.setdefault((name.split(" (")[0], part or "the level"),
                               []).append(float(share))
     for (kernel, part), r in shares.items():
         print(f"SUMMARY ragged {kernel} {part}: {len(r)} comparisons, "
               f"largest share {max(r):.4%}, {sum(x > 0.01 for x in r)} above "
               f"1%")
-    print(f"SUMMARY ragged: {failed} of {draws} draws failed the check")
+    print(f"SUMMARY ragged: {sum(failed.values())} of {draws} draws failed "
+          f"the check ({', '.join(f'{k} {n}' for k, n in failed.items())})")
     return 0
 
 
@@ -132,7 +138,7 @@ def main() -> int:
           f"draws {args.draws} from seed {FIRST_SEED}")
     for name in names:
         t0 = time.perf_counter()
-        pooled, single, failed = {}, {}, 0
+        pooled, single, tops, failed = {}, {}, {}, 0
         for draw in range(args.draws):
             seed = FIRST_SEED + draw
             maps, failure = one_draw(name, table[name], seed)
@@ -144,6 +150,7 @@ def main() -> int:
                 top = max(c / o for c, o in zip(cmax, omax))
                 pooled.setdefault(key, []).append(card / own)
                 single.setdefault(key, []).extend(each)
+                tops.setdefault(key, []).append(top)
                 print(f"{name} seed {seed} {key}: mean {card:.4e} / own "
                       f"{own:.4e} = {card / own:.4f} over {len(pairs)} "
                       f"pair(s) ({', '.join(f'{x:.4f}' for x in each)}); "
@@ -153,6 +160,10 @@ def main() -> int:
         for key in pooled:
             print(spread(name, key, "pooled", pooled[key]))
             print(spread(name, key, "single-pair", single[key]))
+            print(f"SUMMARY {name} {key}: max ratio (the card's max "
+                  f"distance over the own, worst pair of a draw) "
+                  f"{min(tops[key]):.4f}-{max(tops[key]):.4f} over "
+                  f"{len(tops[key])} draws")
         print(f"SUMMARY {name}: {failed} of {args.draws} draws failed the "
               f"check ({time.perf_counter() - t0:.1f} s)")
     return 0

@@ -7,6 +7,7 @@ confidence model.
         [--confidence] [--fuse-volume-agg] [--fuse-hourglass]
         [--fuse-hourglass-up] [--fuse-stems] [--fuse-mixer]
         [--dtype {float32,bfloat16}] [--fast-gelu] [--volume-int8]
+        [--bf16-per-op]
 
 Builds the model (L at ``--cv-scale 4``, the default; M at 8; S at 16,
 which implies mobilenetv2_100; ``--confidence`` builds the confidence
@@ -25,7 +26,9 @@ The deploy numerics of ``bench.py``: ``--dtype bfloat16 --fast-gelu``
 every ``--cv-scale`` and ``--cost-volume``, with ``--confidence`` and with
 any ``--fuse-*`` switches (their kernels then run their bf16 forms).
 ``--fast-gelu`` sets the package's GELU switch, a process global, for the
-run.
+run; ``--bf16-per-op`` sets ``nn.blocks.set_bf16_per_op`` (the bf16
+activations per op, as the JAX reference rounds them, one launch of the
+``activations_bf16`` kernel each) the same way.
 
 The switches select the configuration's opt-in kernel paths, as
 ``bench.py``'s ``BENCH_FUSE_VOLUME_AGG``, ``BENCH_FUSE_HOURGLASS`` and
@@ -104,6 +107,9 @@ def main() -> None:
     ap.add_argument("--volume-int8", action="store_true",
                     help="the volume stored as int8 between kernels B "
                          "and C")
+    ap.add_argument("--bf16-per-op", action="store_true",
+                    help="the bf16 activations per op (the package's "
+                         "global switch)")
     args = ap.parse_args()
     cv_scale = 16 if args.confidence else args.cv_scale
     config = ESMStereoConfig(cv_scale=cv_scale,
@@ -118,13 +124,15 @@ def main() -> None:
                              volume_int8=args.volume_int8)
     if not torch.cuda.is_available():
         raise SystemExit("profile: no CUDA device")
-    gelu_before = blocks.GELU_APPROXIMATE
+    gelu_before, per_op_before = blocks.GELU_APPROXIMATE, blocks.BF16_PER_OP
     blocks.set_gelu_approximate(args.fast_gelu)
+    blocks.set_bf16_per_op(args.bf16_per_op)
     try:
         with fp32_precision():
             run(args, config)
     finally:
         blocks.set_gelu_approximate(gelu_before)
+        blocks.set_bf16_per_op(per_op_before)
 
 
 def run(args, config: ESMStereoConfig) -> None:

@@ -128,7 +128,7 @@ class ConfUpsample(nn.Module):
         f = self.cm3(self.cm2(self.cm1(self.cm0(init_conf))))
         fused = self.spx4_0(torch.cat([f, feat], dim=1))
         fused = F.relu(self.spx4_bn(self.spx4_1(fused)))
-        sfm = torch.softmax(self.spx(fused), dim=1)
+        sfm = blocks.softmax(self.spx(fused), 1)
         conf1 = context_upsample(init_conf, sfm, 4)
         conf = self.conv1_up(self.conv2(self.conv1(conf1)))
         return conf + conf1
@@ -172,21 +172,21 @@ class LAFNetHead(nn.Module):
     def forward(self, cost, disp, imag, f1, f2):
         # top-7 of the softmax of the sharpened, L2-normalised (over D) cost
         norm = torch.sqrt(torch.sum(cost ** 2, dim=1, keepdim=True) + 1e-6)
-        x = torch.softmax(-(cost / norm) * 100.0, dim=1)
+        x = blocks.softmax(-(cost / norm) * 100.0, 1)
         topv = torch.topk(x, 7, dim=1).values
         cost_x = self.cost_feat(topv)
         disp_x = self.disp_feat(disp)
         imag_x = self.imag_feat(imag)
-        atts = torch.softmax(torch.cat([self.cost_att(cost_x),
-                                        self.disp_att(disp_x),
-                                        self.imag_att(imag_x)], dim=1), dim=1)
+        atts = blocks.softmax(torch.cat([self.cost_att(cost_x),
+                                         self.disp_att(disp_x),
+                                         self.imag_att(imag_x)], dim=1), 1)
         x = torch.cat([cost_x * atts[:, 0:1], disp_x * atts[:, 1:2],
                        imag_x * atts[:, 2:3]], dim=1)
         feat = F.relu(self.embed_bn1(self.embed_conv1(x)))
 
         s = F.relu(self.scale_bn1(self.scale_conv1(feat)))
         s = F.relu(self.scale_bn2(self.scale_conv2(s)))
-        scale = 2.0 * torch.sigmoid(self.scale_bn3(self.scale_conv3(s)))
+        scale = 2.0 * blocks.sigmoid(self.scale_bn3(self.scale_conv3(s)))
         grid = build_enlarged_grid(scale[:, 0])
         feat = grid_sample_bilinear(feat, grid, align_corners=True)
         feat = F.relu(self.embed_bn2(self.embed_conv2(feat)))
@@ -200,7 +200,7 @@ class LAFNetHead(nn.Module):
             x = F.relu(bn2(self.fusion_conv2(x)))
             out = F.relu(bn3(self.fusion_conv3(x)))
         out4 = self.conf_up4(f1, out)
-        return torch.sigmoid(self.conf_up1(f2, out4))
+        return blocks.sigmoid(self.conf_up1(f2, out4))
 
 
 CONFIDENCE_CONFIG = ESMStereoConfig(cv_scale=16, backbone="mobilenetv2_100")

@@ -16,11 +16,17 @@ BatchNorm follows flax 0.12.3's ``linen/normalization.py::_normalize``:
 ``y *= rsqrt(var + eps) * scale`` and ``y += bias`` run in fp32, and only
 the result is cast to the compute dtype. torch's eval BatchNorm on a bf16
 input with fp32 parameters computes the same in fp32 and returns bf16, so
-the module needs no cast of its own. Activations run on the tensor they
-get (torch evaluates them in fp32 and rounds once, as XLA's fusions may
-with their default excess precision; ``jax.nn``'s formulas compiled
-without it round after each op, which
-tests/test_torch_deploy_variants.py measures against this).
+the module needs no cast of its own. Activations (``gelu``, ``silu``,
+``sigmoid``, ``softmax``) run on the tensor they get, in torch's
+functions, which evaluate a bf16 tensor in fp32 and round once (as XLA's
+fusions may with their default excess precision). With
+``set_bf16_per_op(True)`` a bf16 tensor's activation follows ``jax.nn``'s
+formula instead, rounding after every op as the JAX reference compiled
+with ``xla_allow_excess_precision=False`` does, in one launch of
+``ops.kernels.activations.activation_bf16`` (its plain version on the
+CPU). The served mode stays torch's: per op, L-deploy's chaotic cv4
+disparity moved past its JAX test on the tests' draw (ROADMAP §3 item 1);
+tests/test_torch_deploy_variants.py holds both modes against JAX.
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from esmstereo_tpu_torch.nn import init as tinit
-from esmstereo_tpu_torch.ops.kernels.activations import gelu
+from esmstereo_tpu_torch.ops.kernels import activations
 from esmstereo_tpu_torch.ops.sampling import resize_nearest
 
 # Global numerics switch, as in the JAX package: exact-erf GELU (the
@@ -42,6 +48,16 @@ GELU_APPROXIMATE = False
 def set_gelu_approximate(enabled: bool) -> None:
     global GELU_APPROXIMATE
     GELU_APPROXIMATE = bool(enabled)
+
+
+# Off: bf16 activations in torch's functions, rounding once (the served
+# mode); on: per op, as jax.nn compiled without excess precision.
+BF16_PER_OP = False
+
+
+def set_bf16_per_op(enabled: bool) -> None:
+    global BF16_PER_OP
+    BF16_PER_OP = bool(enabled)
 
 
 def set_compute_dtype(model: nn.Module, dtype: torch.dtype | None) -> None:
@@ -63,6 +79,39 @@ def computes_bf16(module: nn.Module) -> bool:
                for m in module.modules())
 
 
+def _per_op(x: torch.Tensor) -> bool:
+    return BF16_PER_OP and x.dtype == torch.bfloat16
+
+
+def gelu(x: torch.Tensor, approximate: bool) -> torch.Tensor:
+    """GELU, tanh form with ``approximate``."""
+    if _per_op(x):
+        return activations.activation_bf16(
+            x.contiguous(), "gelu_tanh" if approximate else "gelu_erf")
+    return activations.gelu(x, approximate)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """SiLU."""
+    if _per_op(x):
+        return activations.activation_bf16(x.contiguous(), "silu")
+    return F.silu(x)
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """The logistic function."""
+    if _per_op(x):
+        return activations.activation_bf16(x.contiguous(), "sigmoid")
+    return torch.sigmoid(x)
+
+
+def softmax(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Softmax over ``dim``."""
+    if _per_op(x):
+        return activations.activation_bf16(x.contiguous(), "softmax", dim)
+    return torch.softmax(x, dim=dim)
+
+
 def apply_act(x: torch.Tensor, act: str | None) -> torch.Tensor:
     if act is None:
         return x
@@ -73,9 +122,9 @@ def apply_act(x: torch.Tensor, act: str | None) -> torch.Tensor:
     if act == "relu6":
         return torch.clamp(x, 0.0, 6.0)
     if act == "silu":
-        return F.silu(x)
+        return silu(x)
     if act == "sigmoid":
-        return torch.sigmoid(x)
+        return sigmoid(x)
     raise ValueError(f"unknown activation {act!r}")
 
 

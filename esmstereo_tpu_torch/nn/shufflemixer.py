@@ -11,10 +11,9 @@ computes the plain conv and depth-to-space.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from esmstereo_tpu_torch.nn.blocks import TorchConv
+from esmstereo_tpu_torch.nn.blocks import TorchConv, silu
 from esmstereo_tpu_torch.ops.sampling import pixel_shuffle
 
 
@@ -57,7 +56,7 @@ class SplitPointMlp(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x1, x2 = x[:, :self.half], x[:, self.half:]
-        x1 = self.fc2(F.silu(self.fc1(x1)))
+        x1 = self.fc2(silu(self.fc1(x1)))
         return channel_shuffle(torch.cat([x1, x2], dim=1), 8)
 
 
@@ -96,7 +95,7 @@ class FMBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.sm2(self.sm1(x)) + x
-        return self.conv_project(F.silu(self.conv_expand(x))) + x
+        return self.conv_project(silu(self.conv_expand(x))) + x
 
 
 class PixelShuffleUp(nn.Module):
@@ -109,4 +108,4 @@ class PixelShuffleUp(nn.Module):
                               use_bias=True, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.silu(pixel_shuffle(self.conv(x), self.factor))
+        return silu(pixel_shuffle(self.conv(x), self.factor))

@@ -36,6 +36,11 @@ the forms each wrapper takes:
     none, project, residual) of either backbone; fp32. No model path runs
     it: ``backbones.fused_stage.run_stage`` drives it stage by stage, as
     the JAX package drives its kernel
+  * ``activations.activation_bf16``     no TPU kernel: a bf16 tensor's
+    GELU (tanh, erf), SiLU, sigmoid or softmax as ``jax.nn`` writes it,
+    rounding after every op (XLA's roundings without excess precision), in
+    one launch; the model takes it under ``nn.blocks.set_bf16_per_op(True)``
+    (forms by activation name)
 
 Each deploy form rounds its operands to bf16 where the TPU kernel does,
 sums in fp32 and applies BN after the fp32 sum.
@@ -66,6 +71,7 @@ import torch
 
 def wrappers() -> dict:
     """``{kernel name: wrapper}`` for the port's kernels."""
+    from esmstereo_tpu_torch.ops.kernels import activations
     from esmstereo_tpu_torch.ops.kernels import correlation, fused_agg_stem
     from esmstereo_tpu_torch.ops.kernels import fused_head, fused_hourglass
     from esmstereo_tpu_torch.ops.kernels import fused_mixer, fused_stage
@@ -79,7 +85,8 @@ def wrappers() -> dict:
             "up_pair": fused_hourglass.up_pair,
             "stems": fused_stems.stems,
             "mixer": fused_mixer.mixer,
-            "fused_stage": fused_stage.fused_stage}
+            "fused_stage": fused_stage.fused_stage,
+            "activation_bf16": activations.activation_bf16}
 
 
 def conv_wrappers() -> dict:

@@ -23,7 +23,7 @@ PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("fused_head", "correlation", "fused_volume_agg", "fused_hourglass",
-           "fused_stems", "fused_mixer", "fused_stage")
+           "fused_stems", "fused_mixer", "fused_stage", "activations_bf16")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -140,22 +140,32 @@ def prepare_consts(stage, low_precision: bool = False) -> dict:
 ROUNDINGS = ("fc1", "pass_through", "fc2", "dw", "expand", "project", "up")
 
 
-def mixer_plain(x: torch.Tensor, consts: dict,
-                exact: tuple = ()) -> torch.Tensor:
-    """Plain PyTorch version: (B, 32, H, W) -> (B, 16, 2H, 2W); in the bf16
-    form each conv's and linear layer's input rounded to bf16, the rest in
-    fp32, and the output in bf16. The steps of ``ROUNDINGS`` named in
-    ``exact`` keep their operand in fp32 (a check that the comparison sees
-    each rounding)."""
-    p = unpack(consts["packed"])
-    low = x.dtype == torch.bfloat16
+# the kernel's seven launches (csrc/fused_mixer.cu): the tensors each reads
+# (x, or a name and the launch that wrote it) and writes, by name
+STEPS = ((("x",), ("v", "t")),
+         ((("t", 1),), ("u",)),
+         ((("u", 2), ("v", 1)), ("x2",)),
+         ((("x2", 3),), ("v", "u")),
+         ((("u", 4),), ("t",)),
+         ((("t", 5), ("v", 4)), ("x2",)),
+         ((("x2", 6),), ("y",)))
 
-    def operand(t, step):
-        return t.to(torch.bfloat16).float() if low and step not in exact \
+
+def mixer_step_plain(step: int, consts: dict, low: bool,
+                     exact: tuple = (), **inputs) -> dict:
+    """Plain version of the kernel's launch ``step`` (1-7, ``STEPS``) on
+    the tensors it reads (fp32, ``x`` in its own dtype): ``{name: fp32
+    tensor}`` of what it writes, the last launch's ``y`` in bf16 with
+    ``low``. ``low`` is the bf16 form (each conv's and linear layer's input
+    rounded to bf16); ``exact`` as in ``mixer_plain``."""
+    p = unpack(consts["packed"])
+
+    def operand(t, step_):
+        return t.to(torch.bfloat16).float() if low and step_ not in exact \
             else t
 
-    def conv(v, step, w, b=None, groups=1):
-        return F.conv2d(operand(v, step), w, b, padding=w.shape[-1] // 2,
+    def conv(v, step_, w, b=None, groups=1):
+        return F.conv2d(operand(v, step_), w, b, padding=w.shape[-1] // 2,
                         groups=groups)
 
     def mlp_residual(v, pre):
@@ -173,29 +183,65 @@ def mixer_plain(x: torch.Tensor, consts: dict,
     def taps(w):            # (I, 9, O) -> (O, I, 3, 3)
         return w.permute(2, 0, 1).reshape(w.shape[2], w.shape[0], 3, 3)
 
-    v = conv(x.to(p["to_feat"].dtype), "to_feat", taps(p["to_feat"]))
-    for b in ("block0", "block1"):
-        y = v
-        for s in ("sm1", "sm2"):
-            pre = f"{b}.{s}."
-            y = mlp_residual(y, pre + "1.")
-            y = conv(y, "dw", p[pre + "dw_w"].view(_C, 1, 7, 7),
-                     p[pre + "dw_b"], groups=_C)
-            y = mlp_residual(y, pre + "2.")
-        x2 = y + v
+    def dw_half(y, pre):    # an SMLayer's dw 7x7 and its post-norm MLP
+        y = conv(y, "dw", p[pre + "dw_w"].view(_C, 1, 7, 7),
+                 p[pre + "dw_b"], groups=_C)
+        return mlp_residual(y, pre + "2.")
+
+    def expand(x2, b):      # an FMBlock's bottleneck and its residual
         z = F.silu(conv(x2, "expand", taps(p[b + ".expand_w"]),
                         p[b + ".expand_b"]))
-        v = conv(z, "project", p[b + ".project_w"][..., None, None],
-                 p[b + ".project_b"]) + x2
-    y = conv(v, "up", p["up_w"][..., None, None], p["up_b"])
-    y = F.silu(pixel_shuffle(y, 2))
-    return y.to(torch.bfloat16) if low else y
+        return conv(z, "project", p[b + ".project_w"][..., None, None],
+                    p[b + ".project_b"]) + x2
+
+    blk = "block0" if step <= 3 else "block1"
+    if step == 1:
+        v = conv(inputs["x"].to(p["to_feat"].dtype), "to_feat",
+                 taps(p["to_feat"]))
+        return {"v": v, "t": mlp_residual(v, "block0.sm1.1.")}
+    if step in (2, 5):
+        return {"u" if step == 2 else "t": mlp_residual(
+            dw_half(inputs["t" if step == 2 else "u"], f"{blk}.sm1."),
+            f"{blk}.sm2.1.")}
+    if step in (3, 6):
+        return {"x2": dw_half(inputs["u" if step == 3 else "t"],
+                              f"{blk}.sm2.") + inputs["v"]}
+    if step == 4:
+        v = expand(inputs["x2"], "block0")
+        return {"v": v, "u": mlp_residual(v, "block1.sm1.1.")}
+    if step == 7:
+        y = conv(expand(inputs["x2"], "block1"), "up",
+                 p["up_w"][..., None, None], p["up_b"])
+        y = F.silu(pixel_shuffle(y, 2))
+        return {"y": y.to(torch.bfloat16) if low else y}
+    raise ValueError(f"mixer: no launch {step}")
+
+
+def mixer_plain(x: torch.Tensor, consts: dict,
+                exact: tuple = ()) -> torch.Tensor:
+    """Plain PyTorch version: (B, 32, H, W) -> (B, 16, 2H, 2W); in the bf16
+    form each conv's and linear layer's input rounded to bf16, the rest in
+    fp32, and the output in bf16: the kernel's seven launches
+    (``mixer_step_plain``) one after the other. The steps of ``ROUNDINGS``
+    named in ``exact`` keep their operand in fp32 (a check that the
+    comparison sees each rounding)."""
+    return _steps_plain(x, consts, exact)[-1]["y"]
+
+
+def _steps_plain(x: torch.Tensor, consts: dict, exact: tuple = ()) -> list:
+    low = x.dtype == torch.bfloat16
+    outs = []
+    for step, (reads, _) in enumerate(STEPS, 1):
+        args = {"x": x} if step == 1 else {
+            name: outs[k - 1][name] for name, k in reads}
+        outs.append(mixer_step_plain(step, consts, low, exact, **args))
+    return outs
 
 
 @functools.cache
 def _lib():
     lib = _build.load("fused_mixer")
-    lib.fused_mixer.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
+    lib.fused_mixer.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
     lib.fused_mixer.restype = _I
     lib.mixer_params_size.argtypes = []
     lib.mixer_params_size.restype = _I
@@ -204,11 +250,15 @@ def _lib():
     return lib
 
 
-def mixer(x: torch.Tensor, consts: dict) -> torch.Tensor:
+def mixer(x: torch.Tensor, consts: dict, steps: bool = False):
     """(B, 32, H, W) -> (B, 16, 2H, 2W), fp32 or, in the bf16 form (a bf16
     ``x``, its consts from ``prepare_consts(..., low_precision=True)``),
     bf16: the kernel on CUDA tensors, the plain version on CPU tensors.
-    The form follows ``x``'s dtype, as in the other wrappers."""
+    The form follows ``x``'s dtype, as in the other wrappers. With
+    ``steps`` (for a check; the model never asks) the list of what each of
+    the kernel's seven launches writes (``STEPS``: ``{name: tensor}``, the
+    workspace's in fp32), each launch run on the kernel's own earlier
+    ones."""
     if x.ndim != 4 or x.shape[1] != _CIN or x.shape[2] == 0 \
             or x.shape[3] == 0:
         raise ValueError(f"mixer: input {tuple(x.shape)}; the kernel takes "
@@ -217,7 +267,8 @@ def mixer(x: torch.Tensor, consts: dict) -> torch.Tensor:
     packed = consts["packed"]
     if not on_cuda("mixer", x, packed,
                    dtypes=(torch.float32, torch.bfloat16)):
-        return mixer_plain(x, consts)      # unpack raises on another width
+        # unpack raises on another width
+        return _steps_plain(x, consts) if steps else mixer_plain(x, consts)
     lib = _lib()
     if packed.shape != (lib.mixer_params_size(),):
         raise ValueError(f"mixer: packed parameters {tuple(packed.shape)}, "
@@ -228,12 +279,29 @@ def mixer(x: torch.Tensor, consts: dict) -> torch.Tensor:
     ws = torch.empty(lib.mixer_workspace_floats(b, h, w), device=x.device,
                      dtype=torch.float32)
     out = torch.empty((b, _C, 2 * h, 2 * w), device=x.device, dtype=x.dtype)
-    err = lib.fused_mixer(x.data_ptr(), packed.data_ptr(), out.data_ptr(),
-                          ws.data_ptr(), b, h, w, int(form == "bf16"),
-                          stream_handle(x))
-    _build.check(err, "mixer")
+
+    def run(stop):
+        err = lib.fused_mixer(x.data_ptr(), packed.data_ptr(), out.data_ptr(),
+                              ws.data_ptr(), b, h, w, int(form == "bf16"),
+                              stop, stream_handle(x))
+        _build.check(err, "mixer")
+
+    if not steps:
+        run(len(STEPS))
+        count_launch(mixer, form)
+        return out
+    # the workspace's three maps (csrc/fused_mixer.cu: V, T, U), and where
+    # each launch writes its outputs
+    maps = dict(zip("VTU", ws.view(3, b, _C, h, w)))
+    where = ({"v": "V", "t": "T"}, {"u": "U"}, {"x2": "T"},
+             {"v": "V", "u": "U"}, {"t": "T"}, {"x2": "U"}, {})
+    outs = []
+    for stop, names in enumerate(where, 1):
+        run(stop)
+        outs.append({n: maps[m].clone() for n, m in names.items()}
+                    if names else {"y": out.clone()})
     count_launch(mixer, form)
-    return out
+    return outs
 
 
 mixer.launches = 0

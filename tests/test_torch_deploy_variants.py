@@ -9,8 +9,9 @@ The kernel forms first: B's normalised bf16 forms against
 entry with the bit-exact share stated, and each form's rounding told from
 the other's; C's bf16 and int8 forms at CI = 1 (corr_stem) at M's 24 and
 S's 12 bins against ``folded_stem_agg_apply`` in interpret mode, within 2
-bf16 ulps (the bound of tests/test_torch_deploy.py). Then the test's
-emulation of ``jax.nn``'s bf16 activations op by op (``op_by_op_bf16``)
+bf16 ulps (the bound of tests/test_torch_deploy.py). Then the port's bf16
+activations op by op (``op_by_op_bf16``: ``nn.blocks.set_bf16_per_op``,
+whose CPU form is the plain version of the ``activations_bf16`` kernel)
 against ``jax.nn``, the configuration's guards, the parameter counts of
 M-, M-norm- and S-deploy against the JAX ``eval_shape``, and M-deploy as a
 whole model against the JAX bf16 model of its config, both as served and
@@ -247,73 +248,39 @@ def test_stem_agg_deploy_forms_match_pallas(ci, d, form):
 
 # --- the bf16 activations ----------------------------------------------------
 
-def _as_bf16(v: float) -> float:
-    return float(torch.tensor(v, dtype=torch.bfloat16))
-
-
-# jax.nn.gelu's constants as a bf16 array meets them (weak-typed floats)
-_SQRT_2_OVER_PI = _as_bf16(0.7978845608028654)
-_GELU_CUBIC = _as_bf16(0.044715)
-_SQRT_HALF = _as_bf16(0.7071067811865476)
-
-
 @contextlib.contextmanager
 def op_by_op_bf16():
-    """torch's GELU, SiLU, sigmoid and softmax, on a bf16 tensor, computed
-    as ``jax.nn``'s formulas op by op in bf16, each op rounding, as XLA
-    computes them with ``xla_allow_excess_precision=False`` (XLA expands
-    ``lax.logistic`` into four ops); other dtypes reach torch's own. The
-    port's modules call these functions, so inside the context they compute
-    the JAX reference's program as written; outside it they round once
-    (torch evaluates in fp32)."""
-    gelu, silu, sigmoid, softmax = F.gelu, F.silu, torch.sigmoid, \
-        torch.softmax
-
-    def sigmoid_(x, *args, **kw):
-        if x.dtype != torch.bfloat16:
-            return sigmoid(x, *args, **kw)
-        return 1.0 / (1.0 + torch.exp(-x))
-
-    def silu_(x, *args, **kw):
-        if x.dtype != torch.bfloat16:
-            return silu(x, *args, **kw)
-        return x * sigmoid_(x)
-
-    def gelu_(x, approximate="none"):
-        if x.dtype != torch.bfloat16:
-            return gelu(x, approximate=approximate)
-        if approximate == "tanh":
-            inner = _SQRT_2_OVER_PI * (x + _GELU_CUBIC * (x * x * x))
-            return x * (0.5 * (1.0 + torch.tanh(inner)))
-        return 0.5 * x * torch.special.erfc(-x * _SQRT_HALF)
-
-    def softmax_(x, dim, *args, **kw):
-        if x.dtype != torch.bfloat16:
-            return softmax(x, dim, *args, **kw)
-        e = torch.exp(x - x.amax(dim=dim, keepdim=True))
-        return e / e.sum(dim=dim, keepdim=True)
-
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(F, "gelu", gelu_)
-        mp.setattr(F, "silu", silu_)
-        mp.setattr(torch, "sigmoid", sigmoid_)
-        mp.setattr(torch, "softmax", softmax_)
+    """The port's GELU, SiLU, sigmoid and softmax on a bf16 tensor
+    computed as ``jax.nn``'s formulas op by op in bf16, each op rounding,
+    as XLA computes them with ``xla_allow_excess_precision=False`` (XLA
+    expands ``lax.logistic`` into four ops): ``nn.blocks.set_bf16_per_op``,
+    whose CPU form is ``ops.kernels.activations.activation_bf16_plain``
+    (constants rounded to bf16 as weak-typed floats are); other dtypes
+    reach torch's own. Inside the context the port's modules compute the
+    JAX reference's program as written; outside it, as served, they round
+    once (torch evaluates in fp32)."""
+    before = blocks.BF16_PER_OP
+    blocks.set_bf16_per_op(True)
+    try:
         yield
+    finally:
+        blocks.set_bf16_per_op(before)
 
 
 @pytest.mark.parametrize("name", ["gelu_tanh", "gelu_erf", "silu", "sigmoid",
                                   "softmax"])
 def test_bf16_activations_match_jax(name):
     """50,000 bf16 values in [-12, 12] through the port's activations
-    (``nn.blocks.apply_act`` and the softmax the confidence head calls):
-    inside ``op_by_op_bf16`` they give the bits of ``jax.nn``'s on a bf16
-    array, compiled with ``xla_allow_excess_precision=False`` (all of them
-    for every form but the erf GELU, whose ``erfc`` differs on 1 value in
-    200,000: at most 1e-4 of the values, by 1 ulp); as the port serves them
-    (torch's fp32 function rounded once) they differ from those bits on at
-    least 10% of the values (softmax over rows of 8), so the emulation
-    reaches the port's calls and the whole-model tests below can tell the
-    two apart."""
+    (``nn.blocks.apply_act`` and ``nn.blocks.softmax``, which the
+    confidence head calls): inside ``op_by_op_bf16`` (the plain version of
+    the ``activations_bf16`` kernel) they give the bits of ``jax.nn``'s on
+    a bf16 array, compiled with ``xla_allow_excess_precision=False`` (all
+    of them for every form but the erf GELU, whose ``erfc`` differs on 1
+    value in 200,000: at most 1e-4 of the values, by 1 ulp); as the port
+    serves them (torch's fp32 function rounded once) they differ from
+    those bits on at least 10% of the values (softmax over rows of 8), so
+    the per-op mode reaches the port's calls and the whole-model tests
+    below can tell the two apart."""
     x = np.random.default_rng(5).uniform(-12, 12, 50_000).astype(np.float32)
     xb = jnp.asarray(x, jnp.bfloat16)
     jfns = {"gelu_tanh": lambda a: jax.nn.gelu(a, approximate=True),
@@ -325,7 +292,7 @@ def test_bf16_activations_match_jax(name):
 
     def port(t):
         if name == "softmax":
-            return torch.softmax(t.view(-1, 8), dim=1)
+            return blocks.softmax(t.view(-1, 8), 1)
         before = blocks.GELU_APPROXIMATE
         blocks.set_gelu_approximate(name == "gelu_tanh")
         try:

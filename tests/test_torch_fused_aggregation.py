@@ -164,7 +164,8 @@ def test_fused_wrappers_guard_and_launch_nothing_on_cpu():
     assert set(wrappers()) == {"fused_stage0", "correlation_volume",
                                "stem_agg",
                                "volume_stem_agg", "down_pair", "up_pair",
-                               "stems", "mixer", "fused_stage"}
+                               "stems", "mixer", "fused_stage",
+                               "activation_bf16"}
     # cv16 (S) takes the switches; fuse_volume_agg reaches nothing there
     ESMStereoConfig(cv_scale=16, backbone="mobilenetv2_100", **FUSED)
     with pytest.raises(ValueError):

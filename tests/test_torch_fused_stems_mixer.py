@@ -234,5 +234,6 @@ def test_stems_mixer_wrappers_guard_and_launch_nothing_on_cpu():
     assert set(wrappers()) == {"fused_stage0", "correlation_volume",
                                "stem_agg",
                                "volume_stem_agg", "down_pair", "up_pair",
-                               "stems", "mixer", "fused_stage"}
+                               "stems", "mixer", "fused_stage",
+                               "activation_bf16"}
     assert all(fn.launches == 0 for fn in wrappers().values())

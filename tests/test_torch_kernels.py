@@ -253,7 +253,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     assert set(wrappers()) == {"fused_stage0", "correlation_volume",
                                "stem_agg",
                                "volume_stem_agg", "down_pair", "up_pair",
-                               "stems", "mixer", "fused_stage"}
+                               "stems", "mixer", "fused_stage",
+                               "activation_bf16"}
     # CPU calls run the plain versions and launch nothing, in any form:
     # every wrapper counts its launches by form too ("fp32", "bf16", ...)
     correlation.correlation_volume(x, x, 4, 32)
