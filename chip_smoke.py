@@ -61,7 +61,8 @@ version:
      operands moving more than 1% and 5 times that share, I's plain
      version without any one of its rounding steps differing from the
      kernel on more than 15%, and the masked channel tile, H's transposed
-     conv and I's dw 7x7 each moving the plain version by 10 tolerances.
+     conv, H's 1x1x1 conv's skip half and I's dw 7x7 each moving the plain
+     version by 10 tolerances.
      Kernel J, on no served path, over stages 1-5 of L's and S's backbones
      (``check_fused_stages``): from kernel A's output on a seeded image of
      both eyes at 544x992, on a copy of each backbone with weights redrawn
@@ -100,7 +101,10 @@ version:
      disparity (at cv4 its mean and flip share held within 1.25 times the
      own figures, and no max); then the three switched paths and each
      switch alone at L-deploy the same way. Every check draws from one
-     generator;
+     generator; last among them, F's deploy kernel and H's fused
+     transposed + 1x1x1 conv at ragged tiles, each step on its own input
+     (``check_ragged_stem_up_tiles``, a [3] check placed here so that no
+     earlier draw moves);
   5. for each path, launch counters set to 0, then 3 requests served
      through ``InferenceRunner`` (uint8 540x960 pairs; 375x1242 for C):
      shape, finiteness and time of each; every kernel of the path must
@@ -109,7 +113,8 @@ version:
      switched ones, fp32 elsewhere), and no kernel of another path (J on
      none); the shared conv as often as those kernels run it (2 a C, 1
      an E, 2 a G level, 1 an H level), in the path's form, and each conv
-     row's shape at least once on its path;
+     row's shape at least once on its path; H's fused transposed + 1x1x1
+     launch (``up_cat_bf16``) once a bf16 H level, never in fp32;
   6. a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and last
      ``{"ok": true, "device": {...}}``.
 
@@ -141,7 +146,8 @@ from esmstereo_tpu_torch.models.confidence import ESMStereoConfidence
 from esmstereo_tpu_torch.models.esmstereo import (ESMStereo, ESMStereoConfig,
                                                   conv3d_shapes)
 from esmstereo_tpu_torch.ops.kernels import (_build, conv_wrappers,
-                                             reset_launches, wrappers)
+                                             reset_launches, step_wrappers,
+                                             wrappers)
 from esmstereo_tpu_torch.ops.kernels import activations
 from esmstereo_tpu_torch.ops.kernels import correlation, fused_agg_stem
 from esmstereo_tpu_torch.ops.kernels import fused_head, fused_hourglass
@@ -1445,6 +1451,12 @@ def check_up_pairs_bf16(net, gen, downs: list, path: str) -> dict:
         require_seen_bf16("the transposed conv", fused_hourglass.up_pair_plain(
             src, skip, tail_zeroed(low, ("wu", "su", "tu"), 0), True), want)
         ci, co = src.shape[1], got.shape[1]
+        # the 1x1x1 conv's skip half, which the fused launch stages apart
+        blind = dict(low, wc=low["wc"].clone())
+        blind["wc"][:, co:] = 0.0
+        require_seen_bf16("the 1x1x1 conv's skip half",
+                          fused_hourglass.up_pair_plain(src, skip, blind,
+                                                        True), want)
         if co % 8:
             tail = co - co % 8
             require_seen_bf16(f"channels {tail}..{co - 1}",
@@ -1931,6 +1943,63 @@ def check_ragged_switches_deploy(model, m_norm, s_gwc, gen) -> None:
     low = fused_mixer.prepare_consts(model.upsample_module.stage2x,
                                      low_precision=True)
     check_mixer_steps("mixer bf16 (2, 32, 11, 25)", x, low)
+
+
+def check_ragged_stem_up_tiles(model, m_norm, s_gwc, gen) -> None:
+    """F's deploy kernel and H's fused transposed + 1x1x1 conv at shapes
+    that fill none of their tiles, by ``compare_deploy``, each step on its
+    own input and each chain by its max only (``compare_ulps``): H's crops
+    not a multiple of its 32-column output tile, nor of its 2 or 4 rows
+    and depths (L's widths at both tiles, M's and S's), its fused launch
+    against ``up_cat_plain`` and its k3 conv on the launch's own z; F's
+    StemBlocks at widths not a multiple of 16 (stem_4 at an odd one too),
+    stem_4 against its plain version on the kernel's stem_2. The kernels
+    repeat bit for bit, so the fused launch's own z is the one the level's
+    k3 conv took."""
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    for net, up_levels in (
+            (model, ((("conv3_up", "agg_0_0", "agg_0_1"), (2, 72, 3, 6, 13),
+                      (2, 40, 5, 11, 25)),
+                     (("conv2_up", "agg_1_0", "agg_1_1"), (1, 40, 9, 18, 35),
+                      (1, 24, 17, 35, 70)))),
+            (m_norm, ((("conv2_up", "agg_1_0", "agg_1_1"), (1, 24, 7, 11, 35),
+                       (1, 16, 13, 21, 70)),)),
+            (s_gwc, ((("conv2_up", "agg_1_0", "agg_1_1"), (2, 16, 4, 6, 13),
+                      (2, 12, 7, 11, 25)),))):
+        agg = net.aggregation_out
+        for names, src_shape, skip_shape in up_levels:
+            low = fused_hourglass.prepare_up_consts(
+                *(getattr(agg, n) for n in names), low_precision=True)
+            src = torch.randn(src_shape, generator=gen).to(dev).to(bf16)
+            skip = torch.randn(skip_shape, generator=gen).to(dev).to(bf16)
+            plan = fused_hourglass.up_plan(*src_shape[1:2],
+                                           *skip_shape[1:2], *src_shape[2:],
+                                           *skip_shape[2:])
+            name = (f"up_pair bf16 src {src_shape} skip {skip_shape}, tile "
+                    f"{plan.tile}")
+            z = fused_hourglass.up_cat_bf16(src, skip, low, True)
+            got = fused_hourglass.up_pair(src, skip, low, True)
+            compare_deploy(f"{name}: its transposed + 1x1x1 conv", z,
+                           fused_hourglass.up_cat_plain(src, skip, low, True))
+            compare_deploy(f"{name}: its k3 conv on its own z", got,
+                           conv_bf16_plain(z, low["w3"], low["s3"],
+                                           low["t3"], 1))
+            compare_ulps(f"{name}: the chain", got,
+                         fused_hourglass.up_pair_plain(src, skip, low, True))
+    for net in (model, s_gwc):
+        low = fused_stems.prepare_consts(net.stem_2, net.stem_4,
+                                         low_precision=True)
+        for shape in ((2, 3, 36, 88), (1, 3, 52, 60)):
+            img = torch.randn(shape, generator=gen).to(dev)
+            s2, s4 = fused_stems.stems(img, low, True)
+            want2, want4 = fused_stems.stems_plain(img, low, True)
+            name = f"stems deploy {shape}"
+            compare_deploy(f"{name}: stem_2 {tuple(s2.shape)}", s2, want2)
+            compare_deploy(f"{name}: stem_4 {tuple(s4.shape)} on its own "
+                           f"stem_2", s4,
+                           fused_stems.stem_block_plain(s2, low, "4", True))
+            compare_ulps(f"{name}: the chain", s4, want4)
 
 
 def check_mixer_steps(name: str, x: torch.Tensor, low: dict) -> None:
@@ -2642,6 +2711,13 @@ def main() -> int:
             check_deploy_against_cpu(gen, config,
                                      confidence=name.startswith("C-"))
 
+    # last among the checks that draw from gen, so that no earlier draw
+    # moves
+    print("[3] ragged tiles of F's deploy kernel and H's fused transposed "
+          "+ 1x1x1 conv")
+    with torch.inference_mode():
+        check_ragged_stem_up_tiles(model, m_norm, s_gwc, gen)
+
     nets = {"default": model, "M": m_gwc, "M-norm": m_norm, "S": s_gwc,
             "S-norm": s_norm}
     for name, source in (("fused", model), ("all", model),
@@ -2663,7 +2739,8 @@ def main() -> int:
         nets[name].load_state_dict(sources[name].state_dict())
     kernels = wrappers()
     convs = conv_wrappers()
-    launches, forms, act_forms = {}, {}, {}
+    steps = step_wrappers()
+    launches, forms, act_forms, step_launches = {}, {}, {}, {}
     conv_launches, conv_forms, conv_shapes = {}, {}, {}
     for name, net in nets.items():
         frame = KITTI_FRAME if name.split("-")[0] == "C" else FRAME
@@ -2679,6 +2756,8 @@ def main() -> int:
         launches[name] = {k: fn.launches for k, fn in kernels.items()}
         forms[name] = {k: dict(fn.form_launches) for k, fn in kernels.items()}
         conv_launches[name] = {k: fn.launches for k, fn in convs.items()}
+        step_launches[name] = {k: dict(fn.form_launches)
+                               for k, fn in steps.items()}
         conv_forms[name], conv_shapes[name] = {}, {}
         for fn in convs.values():
             for mine, theirs in ((conv_forms[name], fn.form_launches),
@@ -2751,6 +2830,14 @@ def main() -> int:
                 f"the shared conv launched {conv_launches[path]} in the forms "
                 f"{conv_forms[path]} in {REQUESTS} requests on the {path} "
                 f"path (want {want_forms})")
+    # H's deploy form: its fused transposed + 1x1x1 conv once a bf16
+    # up_pair call (then the shared conv, counted above), never in fp32
+    for path in want:
+        n = forms[path]["up_pair"].get("bf16", 0)
+        require(step_launches[path] == {"up_cat_bf16": {"bf16": n} if n
+                                        else {}},
+                f"up_cat_bf16 launched {step_launches[path]} on the {path} "
+                f"path (want {n} in bf16, one a bf16 up_pair call)")
     # the forms each path launched: the deploy forms on the deploy paths
     # only, and nothing but fp32 elsewhere
     gwc_bf16 = {"fused_stage0": "bf16", "correlation_volume": "bf16",

@@ -4,7 +4,9 @@
 // descriptors (kernel E's group_stem). Each kernel's design is described in
 // the header of csrc/fused_hourglass.cu. Both sources use the helpers here
 // (the tiles, the swizzle, ldmatrix and mma fragments, mma_chunk, the
-// cluster launch). Kernel E's bodies are here too: conv3d_mma_body, the
+// cluster launch), and so do kernels F's and H's deploy forms
+// (csrc/fused_stems.cu, csrc/fused_hourglass.cu: pack_bf16, load_b_rows,
+// mma_add_rows). Kernel E's bodies are here too: conv3d_mma_body, the
 // MMA kernel's body line for line over a slab producer (BuildVolume in
 // fused_volume_agg.cu), and fp32_channel / fp32_epilogue, the fp32
 // kernel's channel loop and epilogue. The hourglass's own kernels keep
@@ -134,6 +136,49 @@ __device__ __forceinline__ uint32_t bits16(__nv_bfloat16 v) {
 }
 __device__ __forceinline__ uint32_t bits16(int8_t v) {
     return __bfloat16_as_ushort(__float2bfloat16_rn((float)v));
+}
+
+// Two values rounded to bf16, the first in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+    return bits16(__float2bfloat16_rn(lo))
+           | (bits16(__float2bfloat16_rn(hi)) << 16);
+}
+
+// The B fragments (KC 16) of NT n-tiles from rows row0 + n of a swizzled
+// [row][16] layout: ldmatrix.x4 a pair of n-tiles, .x2 the last of an odd
+// NT (kernels F's and H's deploy forms).
+template <int NT>
+__device__ __forceinline__ void load_b_rows(unsigned base, int row0,
+                                            int lane, uint32_t (&bf)[NT][2]) {
+    const int b_n = (lane & 7) + ((lane >> 4) << 3);
+    const int b_half = (lane >> 3) & 1;
+#pragma unroll
+    for (int j = 0; j + 1 < NT; j += 2) {
+        uint32_t r[4];
+        ldmatrix_x4(r, base + swz(row0 + j * 8 + b_n, b_half));
+        bf[j][0] = r[0];
+        bf[j][1] = r[1];
+        bf[j + 1][0] = r[2];
+        bf[j + 1][1] = r[3];
+    }
+    if (NT % 2)
+        ldmatrix_x2(bf[NT - 1][0], bf[NT - 1][1],
+                    base + swz(row0 + (NT - 1) * 8 + (lane & 7), b_half));
+}
+
+// acc[nt] += a x b[nt] on m16n8k16 tiles, each product summed from zero and
+// added to the running sum with one rounded fp32 add, as mma_chunk does.
+template <int NT>
+__device__ __forceinline__ void mma_add_rows(float (&acc)[NT][4],
+                                             const uint32_t (&a)[4],
+                                             const uint32_t (&bf)[NT][2]) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+        float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        mma_bf16(part, a, bf[nt][0], bf[nt][1]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[nt][j] = __fadd_rn(acc[nt][j], part[j]);
+    }
 }
 
 // --- the deploy form: implicit GEMM on the tensor cores ---------------------

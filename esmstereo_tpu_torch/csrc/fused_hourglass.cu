@@ -12,7 +12,8 @@
 //   H (up):   ConvTranspose3d k4 s2 p1 (CI -> CO), computed only on the
 //             skip's (D, H, W) grid (the crop); a 1x1x1 conv over
 //             [up | skip], read through two pointers so the concat never
-//             exists; then conv3d k3 s1 p1 (CO -> CO).
+//             exists (in the deploy form both in one launch); then conv3d
+//             k3 s1 p1 (CO -> CO).
 //
 // What bounds them on an H100: operations in fp32 (C at L is about 28
 // GFLOP against 207 MB read and 52 MB written); bytes for the deploy forms
@@ -103,10 +104,40 @@
 // the H100 (eval/conv_repeat.py at L: 0.5596-0.5630 ms against
 // 0.5207-0.5228 in one call).
 //
-// The transposed conv is written in gather form (each output sums the
+// H's transposed conv is written in gather form (each output sums the
 // 2 x 2 x 2 input taps that reach it), so it needs no atomics and repeats
-// bit for bit; it and the 1x1x1 conv keep the direct fp32 FMA design of a
-// 32 x 4 (w, h) tile, kDc depths and kCot output channels a block.
+// bit for bit. In fp32 it and the 1x1x1 conv are direct FMA kernels (a
+// 32 x 4 (w, h) tile, kDc depths and kCot output channels a block), with
+// up in device memory between them.
+//
+// up_cat_mma_kernel, H's deploy form of both (hourglass_up_cat_bf16), one
+// launch on the tensor cores (mma.sync.m16n8k16, bf16 operands, fp32
+// sums). Each of the 8 output parity classes (pd, ph, pw) is a 2 x 2 x 2
+// conv of src, an implicit GEMM with M = that class's voxels of the
+// block's tile, N = all of CO (n-tiles of 8: 40 -> 5, 24 -> 3, 16 and
+// 12 -> 2) and K = (chunk of 16 input channels, zero-padded past CI; the
+// class's 8 taps). A block owns a tile of 16 x TH x TD voxels of the
+// half-resolution grid in all 8 classes (32 x 2 TH x 2 TD output voxels,
+// cropped to skip's grid), one warp a class, so one staged slab of src
+// (the tile plus a 1-voxel halo, channel-innermost, swizzled as the k3
+// conv's) feeds all 8; a chunk's weights sit beside it as [64 taps][n][16
+// ci], 8 taps of one (ci, n) loaded 16 bytes at a time and transposed in
+// registers. What bounds it at L: bytes (src, skip and z, 21 MB at the
+// second level, against 3.6 GFLOP), and the weights every block stages
+// (123-369 KB a level). Epilogue 1: the BN scale then shift in fp32
+// (__fmul_rn, __fadd_rn), GELU, rounded to bf16, straight from the
+// accumulators into the A fragments of the 1x1x1 conv (the m16n8k16 C
+// layout of n-tiles 2 k and 2 k + 1 is the A layout of K chunk k): up
+// never leaves the registers, as the TPU kernel keeps it on chip
+// (attic/fused_hourglass.py:585,616-622 there). The 1x1x1 conv over
+// [up | skip] then takes skip's chunks from a staged tile [chunk][voxel]
+// [16 co] with ldmatrix; BN, GELU, z stored in bf16 from the registers,
+// every other column of a row a parity class (staging z through shared
+// memory to store along w made L's second level no faster on the H100).
+// Its sums: up's chunks then skip's, each summed from zero and added with
+// one rounded add, as every (chunk, tap) of the transposed conv. The plan
+// (tile, shared memory) comes from fused_hourglass.py::up_plan; the entry
+// point checks it. The k3 conv runs after it on conv3d_mma_kernel.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -124,18 +155,18 @@ constexpr int kCot = 8;    // output channels per block
 constexpr int kThreads = kTw * kTh;
 constexpr int kMaxCat = 256;   // input channels of the 1x1x1 conv, at most
 
-// Writes a thread's kDc x kCot sums through the BN and GELU (finish);
-// kMasked skips the channels past CO.
-template <bool kMasked, typename Tout = float, bool kScaled = false>
+// Writes a thread's kDc x kCot sums through the folded BN's shift and GELU
+// (finish); kMasked skips the channels past CO.
+template <bool kMasked>
 __device__ __forceinline__ void store_tile(
-        const float (&acc)[kDc][kCot], const float* __restrict__ scale,
-        const float* __restrict__ shift, Tout* __restrict__ y, int b, int CO,
-        int co0, int d0, int h, int w, int D, int H, int W, int approximate) {
+        const float (&acc)[kDc][kCot], const float* __restrict__ shift,
+        float* __restrict__ y, int b, int CO, int co0, int d0, int h, int w,
+        int D, int H, int W, int approximate) {
     if (h >= H || w >= W) return;
     const bool approx = approximate != 0;
     const size_t plane = (size_t)H * W;
     const size_t vol = (size_t)D * plane;
-    Tout* yb = y + ((size_t)b * CO + co0) * vol + (size_t)h * W + w;
+    float* yb = y + ((size_t)b * CO + co0) * vol + (size_t)h * W + w;
 #pragma unroll
     for (int dd = 0; dd < kDc; ++dd) {
         const int d = d0 + dd;
@@ -144,8 +175,8 @@ __device__ __forceinline__ void store_tile(
         for (int o = 0; o < kCot; ++o)
             if (!kMasked || co0 + o < CO)
                 yb[(size_t)o * vol + (size_t)d * plane] =
-                    finish<kScaled, Tout>(acc[dd][o], scale, shift, co0 + o,
-                                          approx);
+                    finish<false, float>(acc[dd][o], nullptr, shift, co0 + o,
+                                         approx);
     }
 }
 
@@ -481,14 +512,10 @@ constexpr int kUd = kDc / 2 + 2;
 // x (B, CI, Ds, Hs, Ws) -> y (B, CO, D2, H2, W2), the transposed conv's
 // (2 Ds, 2 Hs, 2 Ws) output cropped to its leading D2 x H2 x W2 corner.
 // wgt: (CI, CO, 4, 4, 4) with the BN scale folded in; shift: (CO,).
-// The deploy form (Tin, Tw, Tout bf16, kScaled): the raw weight, the BN's
-// scale and shift (CO,) each.
-template <bool kMasked, typename Tin = float, typename Tw = float,
-          typename Tout = float, bool kScaled = false>
+template <bool kMasked>
 __global__ void __launch_bounds__(kThreads)
-deconv3d_k4s2_kernel(const Tin* __restrict__ x, const Tw* __restrict__ wgt,
-                     const float* __restrict__ scale,
-                     const float* __restrict__ shift, Tout* __restrict__ y,
+deconv3d_k4s2_kernel(const float* __restrict__ x, const float* __restrict__ wgt,
+                     const float* __restrict__ shift, float* __restrict__ y,
                      int CI, int CO, int Ds, int Hs, int Ws, int D2, int H2,
                      int W2, int approximate) {
     __shared__ float xsh[kUd * kUh * kUw];
@@ -514,24 +541,23 @@ deconv3d_k4s2_kernel(const Tin* __restrict__ x, const Tw* __restrict__ wgt,
 
     const size_t plane = (size_t)Hs * Ws;
     const size_t vol = (size_t)Ds * plane;
-    const Tin* xb = x + (size_t)b * CI * vol;
+    const float* xb = x + (size_t)b * CI * vol;
 
     for (int ci = 0; ci < CI; ++ci) {
         __syncthreads();
-        const Tin* xc = xb + (size_t)ci * vol;
+        const float* xc = xb + (size_t)ci * vol;
         for (int i = tid; i < kUd * kUh * kUw; i += kThreads) {
             const int sw = i % kUw;
             const int sh = (i / kUw) % kUh;
             const int sd = i / (kUw * kUh);
             const int gd = di0 + sd, gh = hi0 + sh, gw = wi0 + sw;
             xsh[i] = inside(gd, gh, gw, Ds, Hs, Ws)
-                ? widen(xc[(size_t)gd * plane + (size_t)gh * Ws + gw])
-                : 0.0f;
+                ? xc[(size_t)gd * plane + (size_t)gh * Ws + gw] : 0.0f;
         }
         for (int i = tid; i < 64 * kCot; i += kThreads) {
             const int k = i % 64, o = i / 64;
             wsh[k * kCot + o] = !kMasked || co0 + o < CO
-                ? widen(wgt[((size_t)ci * CO + co0 + o) * 64 + k]) : 0.0f;
+                ? wgt[((size_t)ci * CO + co0 + o) * 64 + k] : 0.0f;
         }
         __syncthreads();
 #pragma unroll
@@ -566,24 +592,19 @@ deconv3d_k4s2_kernel(const Tin* __restrict__ x, const Tw* __restrict__ wgt,
             }
         }
     }
-    store_tile<kMasked, Tout, kScaled>(acc, scale, shift, y, b, CO, co0, do0,
-                                       ho0 + ty, wo0 + tx, D2, H2, W2,
-                                       approximate);
+    store_tile<kMasked>(acc, shift, y, b, CO, co0, do0, ho0 + ty, wo0 + tx,
+                        D2, H2, W2, approximate);
 }
 
 // 1x1x1 conv over the channel concat [up | skip], each (B, CO, N) with N
 // voxels: y = GELU(wgt[:, :CO] up + wgt[:, CO:] skip + shift). wgt: (CO, 2 CO)
 // with the BN scale folded in. One thread per voxel and kCot outputs; the
 // loads of a warp are 32 neighbouring voxels of one channel.
-// The deploy form (T, Tw bf16, kScaled): the raw weight, the BN's scale and
-// shift.
-template <bool kMasked, typename T = float, typename Tw = float,
-          bool kScaled = false>
+template <bool kMasked>
 __global__ void __launch_bounds__(256)
-conv1x1_cat_kernel(const T* __restrict__ up, const T* __restrict__ skip,
-                   const Tw* __restrict__ wgt,
-                   const float* __restrict__ scale,
-                   const float* __restrict__ shift, T* __restrict__ y,
+conv1x1_cat_kernel(const float* __restrict__ up, const float* __restrict__ skip,
+                   const float* __restrict__ wgt,
+                   const float* __restrict__ shift, float* __restrict__ y,
                    int CO, int N, int approximate) {
     __shared__ float wsh[kMaxCat * kCot];   // [input channel][o]
     const int co0 = blockIdx.y * kCot;
@@ -592,7 +613,7 @@ conv1x1_cat_kernel(const T* __restrict__ up, const T* __restrict__ skip,
     for (int i = threadIdx.x; i < cin * kCot; i += blockDim.x) {
         const int c = i % cin, o = i / cin;
         wsh[c * kCot + o] = !kMasked || co0 + o < CO
-            ? widen(wgt[(size_t)(co0 + o) * cin + c]) : 0.0f;
+            ? wgt[(size_t)(co0 + o) * cin + c] : 0.0f;
     }
     __syncthreads();
     const int v = blockIdx.x * blockDim.x + threadIdx.x;
@@ -601,29 +622,329 @@ conv1x1_cat_kernel(const T* __restrict__ up, const T* __restrict__ skip,
     float acc[kCot];
 #pragma unroll
     for (int o = 0; o < kCot; ++o) acc[o] = 0.0f;
-    const T* halves[2] = {up + (size_t)b * CO * N + v,
-                          skip + (size_t)b * CO * N + v};
+    const float* halves[2] = {up + (size_t)b * CO * N + v,
+                              skip + (size_t)b * CO * N + v};
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-        const T* src = halves[half];
+        const float* src = halves[half];
         const float* wh = wsh + half * CO * kCot;
         for (int c = 0; c < CO; ++c) {
-            const float a = widen(src[(size_t)c * N]);
+            const float a = src[(size_t)c * N];
 #pragma unroll
             for (int o = 0; o < kCot; ++o)
                 acc[o] = fmaf(a, wh[c * kCot + o], acc[o]);
         }
     }
     const bool approx = approximate != 0;
-    T* yb = y + ((size_t)b * CO + co0) * N + v;
+    float* yb = y + ((size_t)b * CO + co0) * N + v;
 #pragma unroll
     for (int o = 0; o < kCot; ++o)
-        if (!kMasked || co0 + o < CO) {
-            const float s = kScaled
-                ? __fadd_rn(__fmul_rn(acc[o], scale[co0 + o]), shift[co0 + o])
-                : acc[o] + shift[co0 + o];
-            yb[(size_t)o * N] = narrow<T>(gelu(s, approx));
+        if (!kMasked || co0 + o < CO)
+            yb[(size_t)o * N] = gelu(acc[o] + shift[co0 + o], approx);
+}
+
+// --- H's deploy form: the transposed conv and the 1x1x1 conv in one launch -
+
+constexpr int kUpThreads = 256;   // 8 warps, one an output parity class
+
+// A block's tile: 16 x TH x TD voxels (w, h, d) of the half-resolution grid
+// t (output voxel q = 2 t + parity on each axis), of all 8 parity classes,
+// so 32 x 2 TH x 2 TD output voxels; NT n-tiles of output channels. The
+// shared memory: the loop's [slab | a chunk's weights], then the
+// epilogue's [skip tile | the 1x1x1 conv's weights] in the same bytes.
+template <int NT, int TH, int TD>
+struct UpTile {
+    static constexpr int NP = 8 * NT;
+    static constexpr int CK = (NT + 1) / 2;      // chunks of 16 of CO
+    static constexpr int MT = TH * TD;           // m-tiles a warp (parity)
+    static constexpr int sd = TD + 2, sh = TH + 2, sw = 18;
+    static constexpr int slab_bytes = sd * sh * sw * 32;
+    static constexpr int w_bytes = 64 * NP * 32;  // [tap][n][16 ci]
+    static constexpr int voxels = 8 * MT * 16;
+    static constexpr int skip_bytes = CK * voxels * 32;
+    static constexpr int wc_bytes = 2 * CK * NP * 32;
+    static constexpr int a1 = slab_bytes + w_bytes;
+    static constexpr int a2 = skip_bytes + wc_bytes;
+    static constexpr int smem = a1 > a2 ? a1 : a2;
+};
+
+// 16-bit element e of the 8 in q.
+__device__ __forceinline__ uint32_t half_of(const uint4& q, int e) {
+    const uint32_t w = e < 2 ? q.x : e < 4 ? q.y : e < 6 ? q.z : q.w;
+    return (e & 1) ? w >> 16 : w & 0xffffu;
+}
+
+// src (B, CI, Ds, Hs, Ws) bf16 -> z (B, CO, D2, H2, W2) bf16:
+//   up = GELU(BN_u(ConvTranspose3d k4 s2 p1 (src)))  cropped, bf16,
+//   z  = GELU(BN_c(wc [up | skip])).
+// Gather form: output parity class (pd, ph, pw) (warp 4 pd + 2 ph + pw)
+// is a 2 x 2 x 2 conv of src, tap (jd, jh, jw) reading src at t + par - j
+// with kernel tap k = 2 j + 1 - par on each axis. K = (chunk of 16 input
+// channels, tap), each (chunk, tap) product summed from zero and added to
+// the running fp32 sum with one rounded add. up stays in registers: the
+// accumulators of n-tiles 2 k and 2 k + 1, BN'd, GELU'd and rounded, are
+// the A fragment of the 1x1x1 conv's chunk k (the m16n8k16 C and A
+// layouts share their rows and pair their columns). That conv's K is up's
+// chunks, then skip's (staged from the tile's voxels), each chunk summed
+// from zero and added with one rounded add. Grid: (tiles, 1, B).
+template <int NT, int TH, int TD>
+__global__ void __launch_bounds__(kUpThreads, 2)
+up_cat_mma_kernel(const __nv_bfloat16* __restrict__ src,
+                  const __nv_bfloat16* __restrict__ skip,
+                  const __nv_bfloat16* __restrict__ wu,
+                  const float* __restrict__ su, const float* __restrict__ tu,
+                  const __nv_bfloat16* __restrict__ wc,
+                  const float* __restrict__ sc, const float* __restrict__ tc,
+                  __nv_bfloat16* __restrict__ z, int CI, int CO, int Ds,
+                  int Hs, int Ws, int D2, int H2, int W2, int approximate) {
+    using T = UpTile<NT, TH, TD>;
+    constexpr int NP = T::NP, MT = T::MT, CK = T::CK;
+    extern __shared__ uint4 smem_u4[];
+    char* smem = reinterpret_cast<char*>(smem_u4);
+    char* slab = smem;                          // [sd][sh][sw][16 ci]
+    char* wsh = smem + T::slab_bytes;           // [64 taps][NP][16 ci]
+    char* ssh = smem;                           // [CK][voxel][16 co]
+    char* csh = smem + T::skip_bytes;           // [2 CK][NP][16 ci]
+    const unsigned slab_u = smem_u32(slab), w_u = smem_u32(wsh);
+    const unsigned s_u = smem_u32(ssh), c_u = smem_u32(csh);
+
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int pd = warp >> 2, ph = (warp >> 1) & 1, pw = warp & 1;
+    const int tilesW = (W2 + 31) / 32, tilesH = (H2 + 2 * TH - 1) / (2 * TH);
+    const int tw0 = (blockIdx.x % tilesW) * 16;
+    const int th0 = (blockIdx.x / tilesW % tilesH) * TH;
+    const int td0 = blockIdx.x / (tilesW * tilesH) * TD;
+    const int b = blockIdx.z;
+    const bool approx = approximate != 0;
+    const size_t splane = (size_t)Hs * Ws, svol = (size_t)Ds * splane;
+    const size_t plane = (size_t)H2 * W2, vol = (size_t)D2 * plane;
+    const __nv_bfloat16* xb = src + (size_t)b * CI * svol;
+    const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8;
+    const int a_half = lane >> 4;
+    const int g = lane >> 2, t = lane & 3;
+
+    // this lane's A row of each m-tile (td, th), tap (0, 0, 0): slab
+    // (td + 1 + pd, th + 1 + ph, a_row + 1 + pw); tap j steps back j
+    int arow[MT];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+        arow[m] = ((m / TH + 1 + pd) * T::sh + m % TH + 1 + ph) * T::sw
+                  + a_row + 1 + pw;
+    float acc[MT][NT][4];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[m][nt][j] = 0.0f;
+
+    const int nch = (CI + 15) / 16;
+    for (int c = 0; c < nch; ++c) {
+        const int c0 = 16 * c;
+        if (c) __syncthreads();   // the previous chunk consumed
+        // the slab of channels c0 .. c0 + 15, channel-innermost: items
+        // (column, row, depth, half); 8 loads a volume apart each
+        constexpr int kVox = T::sd * T::sh * T::sw;
+        for (int i0 = tid; i0 < 2 * kVox; i0 += 4 * kUpThreads) {
+            uint32_t v[4][4];
+            int dst[4];
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+                const int i = i0 + u * kUpThreads;
+#pragma unroll
+                for (int q = 0; q < 4; ++q) v[u][q] = 0;
+                dst[u] = -1;
+                if (i < 2 * kVox) {
+                    const int half = i / kVox, vox = i % kVox;
+                    const int sw = vox % T::sw, sh = vox / T::sw % T::sh;
+                    const int sd = vox / (T::sw * T::sh);
+                    const int gd = td0 - 1 + sd, gh = th0 - 1 + sh;
+                    const int gw = tw0 - 1 + sw;
+                    dst[u] = swz(vox, half);
+                    if (inside(gd, gh, gw, Ds, Hs, Ws)) {
+                        const int ci = c0 + 8 * half;
+                        const __nv_bfloat16* p = xb + (size_t)ci * svol
+                            + (size_t)gd * splane + (size_t)gh * Ws + gw;
+#pragma unroll
+                        for (int j = 0; j < 8; ++j)
+                            if (ci + j < CI)
+                                v[u][j / 2] |= bits16(p[(size_t)j * svol])
+                                               << (16 * (j & 1));
+                    }
+                }
+            }
+#pragma unroll
+            for (int u = 0; u < 4; ++u)
+                if (dst[u] >= 0)
+                    *reinterpret_cast<uint4*>(slab + dst[u]) =
+                        make_uint4(v[u][0], v[u][1], v[u][2], v[u][3]);
         }
+        // the chunk's weights [tap][n][16 ci]: items (tap group of 8, n,
+        // half), 8 16-byte loads of 8 taps (one an input channel),
+        // transposed in registers to 8 stores of 8 channels (one a tap)
+        for (int i = tid; i < 8 * NP * 2; i += kUpThreads) {
+            const int grp = i % 8, n = i / 8 % NP, half = i / (8 * NP);
+            const int ci = c0 + 8 * half;
+            uint4 in[8];
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+                in[j] = ci + j < CI && n < CO
+                    ? *reinterpret_cast<const uint4*>(
+                          wu + ((size_t)(ci + j) * CO + n) * 64 + 8 * grp)
+                    : make_uint4(0, 0, 0, 0);
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+                uint32_t o[4];
+#pragma unroll
+                for (int w = 0; w < 4; ++w)
+                    o[w] = half_of(in[2 * w], e)
+                           | (half_of(in[2 * w + 1], e) << 16);
+                *reinterpret_cast<uint4*>(
+                    wsh + swz((8 * grp + e) * NP + n, half)) =
+                    make_uint4(o[0], o[1], o[2], o[3]);
+            }
+        }
+        __syncthreads();
+#pragma unroll
+        for (int jd = 0; jd < 2; ++jd) {
+#pragma unroll
+            for (int jh = 0; jh < 2; ++jh) {
+#pragma unroll
+                for (int jw = 0; jw < 2; ++jw) {
+                    const int tap = ((2 * jd + 1 - pd) * 4 + 2 * jh + 1 - ph)
+                                    * 4 + 2 * jw + 1 - pw;
+                    uint32_t bf[NT][2];
+                    load_b_rows<NT>(w_u, tap * NP, lane, bf);
+                    const int back = (jd * T::sh + jh) * T::sw + jw;
+#pragma unroll
+                    for (int m = 0; m < MT; ++m) {
+                        uint32_t a[4];
+                        ldmatrix_x4(a, slab_u + swz(arow[m] - back, a_half));
+                        mma_add_rows<NT>(acc[m], a, bf);
+                    }
+                }
+            }
+        }
+    }
+    __syncthreads();   // the slab and the weights consumed
+
+    // skip's tile [chunk][voxel][16 co], voxel = (parity, td, th, tw) as
+    // the m-tiles; items (w, h, d, unit) so that a warp reads along w
+    constexpr int kTile = 32 * 2 * TH * 2 * TD;
+    for (int i0 = tid; i0 < 2 * CK * kTile; i0 += 4 * kUpThreads) {
+        uint32_t v[4][4];
+        int dst[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+            const int i = i0 + u * kUpThreads;
+#pragma unroll
+            for (int q = 0; q < 4; ++q) v[u][q] = 0;
+            dst[u] = -1;
+            if (i < 2 * CK * kTile) {
+                const int ww = i % 32, hh = i / 32 % (2 * TH);
+                const int dd = i / (64 * TH) % (2 * TD);
+                const int unit = i / kTile;
+                const int par = (dd & 1) * 4 + (hh & 1) * 2 + (ww & 1);
+                const int row = (par * MT + (dd >> 1) * TH + (hh >> 1)) * 16
+                                + (ww >> 1);
+                dst[u] = (unit >> 1) * T::voxels * 32 + swz(row, unit & 1);
+                const int gd = 2 * td0 + dd, gh = 2 * th0 + hh;
+                const int gw = 2 * tw0 + ww;
+                if (gd < D2 && gh < H2 && gw < W2) {
+                    const int co = 8 * unit;
+                    const __nv_bfloat16* p = skip + ((size_t)b * CO + co) * vol
+                        + (size_t)gd * plane + (size_t)gh * W2 + gw;
+#pragma unroll
+                    for (int j = 0; j < 8; ++j)
+                        if (co + j < CO)
+                            v[u][j / 2] |= bits16(p[(size_t)j * vol])
+                                           << (16 * (j & 1));
+                }
+            }
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+            if (dst[u] >= 0)
+                *reinterpret_cast<uint4*>(ssh + dst[u]) =
+                    make_uint4(v[u][0], v[u][1], v[u][2], v[u][3]);
+    }
+    // the 1x1x1 conv's weights [chunk: up's CK, then skip's CK][n][16]
+    for (int i = tid; i < 4 * CK * NP; i += kUpThreads) {
+        const int n = i % NP, unit = i / NP;
+        const int k = unit >> 1, half = unit & 1;
+        const int c = (k < CK ? 16 * k : 16 * (k - CK)) + 8 * half;
+        const int off = k < CK ? 0 : CO;
+        uint32_t v[4] = {0, 0, 0, 0};
+        if (n < CO) {
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+                if (c + j < CO)
+                    v[j / 2] |= bits16(wc[(size_t)n * 2 * CO + off + c + j])
+                                << (16 * (j & 1));
+        }
+        *reinterpret_cast<uint4*>(csh + swz(k * NP + n, half)) =
+            make_uint4(v[0], v[1], v[2], v[3]);
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+        float zs[NT][4];
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) zs[nt][j] = 0.0f;
+        // up's chunks from the accumulators
+#pragma unroll
+        for (int k = 0; k < CK; ++k) {
+            uint32_t a[4] = {0, 0, 0, 0};
+#pragma unroll
+            for (int s = 0; s < 2; ++s) {
+                const int nt = 2 * k + s;
+                if (nt >= NT) break;
+                const int n = nt * 8 + 2 * t;
+                float u[4];
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                    const int co = n + (j & 1);
+                    u[j] = co < CO
+                        ? gelu(__fadd_rn(__fmul_rn(acc[m][nt][j], su[co]),
+                                         tu[co]), approx)
+                        : 0.0f;
+                }
+                a[2 * s] = pack_bf16(u[0], u[1]);        // row g
+                a[2 * s + 1] = pack_bf16(u[2], u[3]);    // row g + 8
+            }
+            uint32_t bf[NT][2];
+            load_b_rows<NT>(c_u, k * NP, lane, bf);
+            mma_add_rows<NT>(zs, a, bf);
+        }
+        // skip's chunks from shared memory
+        const int row = (warp * MT + m) * 16 + a_row;
+#pragma unroll
+        for (int k = 0; k < CK; ++k) {
+            uint32_t a[4];
+            ldmatrix_x4(a, s_u + k * T::voxels * 32 + swz(row, a_half));
+            uint32_t bf[NT][2];
+            load_b_rows<NT>(c_u, (CK + k) * NP, lane, bf);
+            mma_add_rows<NT>(zs, a, bf);
+        }
+        const int d = 2 * (td0 + m / TH) + pd, h = 2 * (th0 + m % TH) + ph;
+        if (d >= D2 || h >= H2) continue;
+        __nv_bfloat16* zb = z + (size_t)b * CO * vol + (size_t)d * plane
+                            + (size_t)h * W2;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                const int co = nt * 8 + 2 * t + (j & 1);
+                const int w = 2 * (tw0 + g + 8 * (j >> 1)) + pw;
+                if (co < CO && w < W2)
+                    zb[(size_t)co * vol + w] = __float2bfloat16_rn(gelu(
+                        __fadd_rn(__fmul_rn(zs[nt][j], sc[co]), tc[co]),
+                        approx));
+            }
+    }
 }
 
 }  // namespace
@@ -837,30 +1158,8 @@ extern "C" int hourglass_deconv(const float* x, const float* wgt,
     const dim3 block(kTw, kTh);
     auto kernel = CO % kCot ? deconv3d_k4s2_kernel<true>
                             : deconv3d_k4s2_kernel<false>;
-    kernel<<<grid, block, 0, stream>>>(x, wgt, nullptr, shift, y, CI, CO, Ds,
-                                       Hs, Ws, D2, H2, W2, approximate);
-    return (int)cudaGetLastError();
-}
-
-// H's deploy form of the transposed conv: x bf16, wgt (CI, CO, 4, 4, 4) bf16
-// raw, scale and shift (CO,) fp32, y bf16; shapes as hourglass_deconv.
-extern "C" int hourglass_deconv_bf16(const void* x, const void* wgt,
-                                     const float* scale, const float* shift,
-                                     void* y, int B, int CI, int CO, int Ds,
-                                     int Hs, int Ws, int D2, int H2, int W2,
-                                     int approximate, cudaStream_t stream) {
-    if (CO < 1 || CI < 1 || D2 > 2 * Ds || H2 > 2 * Hs || W2 > 2 * Ws)
-        return (int)cudaErrorInvalidValue;
-    using bf16 = __nv_bfloat16;
-    const dim3 grid(((W2 + kTw - 1) / kTw) * ((H2 + kTh - 1) / kTh),
-                    ((D2 + kDc - 1) / kDc) * channel_tiles(CO), B);
-    const dim3 block(kTw, kTh);
-    auto kernel = CO % kCot ? deconv3d_k4s2_kernel<true, bf16, bf16, bf16, true>
-                            : deconv3d_k4s2_kernel<false, bf16, bf16, bf16, true>;
-    kernel<<<grid, block, 0, stream>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(wgt), scale,
-        shift, static_cast<bf16*>(y), CI, CO, Ds, Hs, Ws, D2, H2, W2,
-        approximate);
+    kernel<<<grid, block, 0, stream>>>(x, wgt, shift, y, CI, CO, Ds, Hs, Ws,
+                                       D2, H2, W2, approximate);
     return (int)cudaGetLastError();
 }
 
@@ -874,27 +1173,82 @@ extern "C" int hourglass_conv1x1_cat(const float* up, const float* skip,
     const dim3 grid((N + 255) / 256, channel_tiles(CO), B);
     auto kernel = CO % kCot ? conv1x1_cat_kernel<true>
                             : conv1x1_cat_kernel<false>;
-    kernel<<<grid, 256, 0, stream>>>(up, skip, wgt, nullptr, shift, y, CO, N,
+    kernel<<<grid, 256, 0, stream>>>(up, skip, wgt, shift, y, CO, N,
                                      approximate);
     return (int)cudaGetLastError();
 }
 
-// H's deploy form of the 1x1x1 conv: up, skip, y bf16; wgt (CO, 2 CO) bf16
-// raw; scale and shift (CO,) fp32.
-extern "C" int hourglass_conv1x1_cat_bf16(const void* up, const void* skip,
-                                          const void* wgt, const float* scale,
-                                          const float* shift, void* y, int B,
-                                          int CO, int N, int approximate,
-                                          cudaStream_t stream) {
-    if (CO < 1 || 2 * CO > kMaxCat || N < 1)
+namespace {
+
+// The instances of H's fused deploy kernel, X(n-tiles, tile_h, tile_d):
+// CO 12 and 16 (2 n-tiles), 24 (3) and 40 (5), at every tile whose sums
+// fit a warp (m-tiles x n-tiles <= 12). The same list as
+// fused_hourglass.py::UP_INSTANCES (tests/test_torch_stem_up_plans.py
+// holds the two to each other and to the plans of L's, M's and S's up
+// levels).
+#define UP_INSTANCES(X) \
+    X(2, 2, 2)          \
+    X(2, 2, 1)          \
+    X(2, 1, 1)          \
+    X(3, 2, 2)          \
+    X(3, 2, 1)          \
+    X(3, 1, 1)          \
+    X(5, 2, 1)          \
+    X(5, 1, 1)
+
+struct UpCall {
+    const void *src, *skip, *wu, *wc;
+    const float *su, *tu, *sc, *tc;
+    void* z;
+    int B, CI, CO, Ds, Hs, Ws, D2, H2, W2, n_tiles, tile_h, tile_d, smem,
+        approximate;
+    cudaStream_t stream;
+};
+
+template <int NT, int TH, int TD>
+int launch_up(const UpCall& u) {
+    using T = UpTile<NT, TH, TD>;
+    if (u.smem != T::smem || u.CO > 8 * NT || u.CO <= 8 * (NT - 1))
         return (int)cudaErrorInvalidValue;
+    const int tiles = ((u.W2 + 31) / 32) * ((u.H2 + 2 * TH - 1) / (2 * TH))
+                      * ((u.D2 + 2 * TD - 1) / (2 * TD));
     using bf16 = __nv_bfloat16;
-    const dim3 grid((N + 255) / 256, channel_tiles(CO), B);
-    auto kernel = CO % kCot ? conv1x1_cat_kernel<true, bf16, bf16, true>
-                            : conv1x1_cat_kernel<false, bf16, bf16, true>;
-    kernel<<<grid, 256, 0, stream>>>(
-        static_cast<const bf16*>(up), static_cast<const bf16*>(skip),
-        static_cast<const bf16*>(wgt), scale, shift, static_cast<bf16*>(y),
-        CO, N, approximate);
-    return (int)cudaGetLastError();
+    return launch(up_cat_mma_kernel<NT, TH, TD>, dim3(tiles, 1, u.B),
+                  dim3(kUpThreads), u.smem, 1, u.stream,
+                  static_cast<const bf16*>(u.src),
+                  static_cast<const bf16*>(u.skip),
+                  static_cast<const bf16*>(u.wu), u.su, u.tu,
+                  static_cast<const bf16*>(u.wc), u.sc, u.tc,
+                  static_cast<bf16*>(u.z), u.CI, u.CO, u.Ds, u.Hs, u.Ws,
+                  u.D2, u.H2, u.W2, u.approximate);
+}
+
+}  // namespace
+
+// H's deploy form of the transposed conv and the 1x1x1 conv, one launch:
+// src (B, CI, Ds, Hs, Ws), skip and z (B, CO, D2, H2, W2), bf16, with
+// D2 <= 2 Ds, H2 <= 2 Hs, W2 <= 2 Ws; wu (CI, CO, 4, 4, 4) and wc (CO,
+// 2 CO) bf16, raw; su, tu, sc, tc (CO,) fp32, the two eval BNs. plan: 14
+// ints, B, CI, CO, Ds, Hs, Ws, D2, H2, W2, n_tiles, tile_h, tile_d, smem,
+// approximate (fused_hourglass.py::up_plan); any plan not in UP_INSTANCES,
+// or a shared-memory count other than the kernel's own, is refused.
+extern "C" int hourglass_up_cat_bf16(const void* src, const void* skip,
+                                     const void* wu, const float* su,
+                                     const float* tu, const void* wc,
+                                     const float* sc, const float* tc,
+                                     void* z, const int* plan,
+                                     cudaStream_t stream) {
+    const UpCall u = {src, skip, wu, wc, su, tu, sc, tc, z, plan[0],
+                      plan[1], plan[2], plan[3], plan[4], plan[5], plan[6],
+                      plan[7], plan[8], plan[9], plan[10], plan[11],
+                      plan[12], plan[13], stream};
+    if (u.B < 1 || u.CI < 1 || u.CO < 1 || u.D2 < 1 || u.H2 < 1 || u.W2 < 1
+            || u.D2 > 2 * u.Ds || u.H2 > 2 * u.Hs || u.W2 > 2 * u.Ws)
+        return (int)cudaErrorInvalidValue;
+#define UP_DISPATCH(NT, TH, TD)                                             \
+    if (u.n_tiles == NT && u.tile_h == TH && u.tile_d == TD)                \
+        return launch_up<NT, TH, TD>(u);
+    UP_INSTANCES(UP_DISPATCH)
+#undef UP_DISPATCH
+    return (int)cudaErrorInvalidValue;
 }

@@ -23,8 +23,8 @@ the forms each wrapper takes:
     last tile masked: L's 24/40/72, M's 16/24/40, S's 12/16/24); fp32 and
     bf16
   * ``fused_hourglass.up_pair``         kernel H, one hourglass up level
-    (``fuse_hourglass_up``), the same channel rule, at most 128; fp32 and
-    bf16
+    (``fuse_hourglass_up``): fp32 by the same channel rule, at most 128;
+    bf16 at the up levels' widths of L, M and S (``up_plan``)
   * ``fused_stems.stems``               kernel F, stem_2 + stem_4
     (``fuse_stems``), at the widths ``fused_stems.WIDTHS``: (32, 48) for L
     and M, (16, 24) for S; fp32, and the deploy form (bf16 operands, bf16
@@ -49,7 +49,10 @@ Kernels C, E, G and H share one conv3d k3 p1 (``fused_hourglass.
 conv3d_bn_gelu`` in fp32, ``conv3d_bn_gelu_bf16`` in the deploy forms, on
 CUDA tensors only: their callers above take the plain versions on the
 CPU), laid out per shape by ``fused_hourglass.conv_plan``; its wrappers
-(``conv_wrappers``) count their launches too, by form and by shape.
+(``conv_wrappers``) count their launches too, by form and by shape. Kernel
+H's deploy form launches two kernels a call, ``fused_hourglass.up_cat_bf16``
+(its transposed and 1x1x1 convs, on CUDA tensors only) and then the shared
+conv; ``step_wrappers`` counts the first.
 
 A wrapper runs the plain version when its tensors lie on the CPU and
 launches its kernel when they lie on a CUDA device, raising on anything the
@@ -99,6 +102,15 @@ def conv_wrappers() -> dict:
             "conv3d_bf16": fused_hourglass.conv3d_bn_gelu_bf16}
 
 
+def step_wrappers() -> dict:
+    """``{name: wrapper}`` of the launches inside another wrapper's call
+    that count on their own: kernel H's fused transposed + 1x1x1 conv in
+    its deploy form, one a bf16 ``up_pair`` call."""
+    from esmstereo_tpu_torch.ops.kernels import fused_hourglass
+
+    return {"up_cat_bf16": fused_hourglass.up_cat_bf16}
+
+
 def on_cuda(what: str, *tensors: torch.Tensor,
             dtypes: tuple = (torch.float32,)) -> bool:
     """True for CUDA tensors, False for CPU tensors; raises on a dtype
@@ -135,6 +147,9 @@ def reset_launches() -> None:
         fn.launches = 0
         fn.form_launches = {}
         fn.shape_launches = {}
+    for fn in step_wrappers().values():
+        fn.launches = 0
+        fn.form_launches = {}
 
 
 def stream_handle(t: torch.Tensor) -> int:

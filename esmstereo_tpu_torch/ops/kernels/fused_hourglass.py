@@ -24,18 +24,24 @@ On the CPU nothing reproduces the TPU's operand rounding (interpret mode
 runs fp32 operands), so the plain forms are held against interpret mode at
 a stated number of bf16 ulps.
 
-On CUDA a down level launches two kernels (k3 s2, then k3 s1) and an up
-level three (the transposed conv, the 1x1x1 conv over ``[up | skip]``, the
-k3 s1 conv), with the intermediates in device memory; each wrapper call
-counts as one launch (``form_launches`` by ``"fp32"`` and ``"bf16"``).
+On CUDA a down level launches two kernels (k3 s2, then k3 s1). An up
+level launches three in fp32 (the transposed conv, the 1x1x1 conv over
+``[up | skip]``, the k3 s1 conv) with the intermediates in device memory,
+and two in its deploy form: ``up_cat_bf16``, the transposed conv and the
+1x1x1 conv in one launch on the tensor cores, whose ``up`` never leaves
+the chip (as the TPU kernel keeps it, ``:585,616-622`` there), then the k3
+conv. Each wrapper call counts as one launch (``form_launches`` by
+``"fp32"`` and ``"bf16"``); ``up_cat_bf16`` counts its own.
 The k3 convs (``conv3d_bn_gelu``, ``conv3d_bn_gelu_bf16``; kernels C and E
 launch them too) run as ``conv_plan`` lays them out: all of CO in one block
 (up to 72 channels), the largest tile whose grid fills the card's 132 SMs,
 and where none does the input channels split over a thread-block cluster;
 the deploy form on the tensor cores, the fp32 form as FMA. Any width runs
-(L's 24, 40, 72; M's 16, 24, 40; S's 12, 16, 24); the transposed and
+(L's 24, 40, 72; M's 16, 24, 40; S's 12, 16, 24); the fp32 transposed and
 1x1x1 convs tile output channels by 8 and mask the last tile, the 1x1x1
-conv at most 128 output channels.
+conv at most 128 output channels; ``up_cat_bf16`` takes the up levels'
+widths of L, M and S (``UP_N_TILES``: 9 to 16, 17 to 24 and 33 to 40
+output channels) as ``up_plan`` lays them out.
 """
 
 from __future__ import annotations
@@ -154,14 +160,23 @@ def up_pair_plain(src: torch.Tensor, skip: torch.Tensor, consts: dict,
                           consts["tc"]), approximate)
         return gelu(F.conv3d(z, consts["w3"], consts["t3"], padding=1),
                     approximate)
-    bf16 = torch.bfloat16
+    z = up_cat_plain(src, skip, consts, approximate)
+    y = F.conv3d(z.float(), consts["w3"].float(), padding=1)
+    return _bn_gelu(y, consts, "3", approximate).to(torch.bfloat16)
+
+
+def up_cat_plain(src: torch.Tensor, skip: torch.Tensor, consts: dict,
+                 approximate: bool) -> torch.Tensor:
+    """Plain PyTorch version of an up level's deploy form's first step
+    (``up_cat_bf16``): the transposed conv cropped to the skip's (D, H, W),
+    BN, GELU, bf16; then the 1x1x1 conv over ``[up | skip]``, BN, GELU,
+    bf16."""
+    d2, h2, w2 = skip.shape[2:]
     up = F.conv_transpose3d(src.float(), consts["wu"].float(), stride=2,
                             padding=1)[:, :, :d2, :h2, :w2]
-    up = _bn_gelu(up, consts, "u", approximate).to(bf16)
+    up = _bn_gelu(up, consts, "u", approximate).to(torch.bfloat16)
     z = F.conv3d(torch.cat([up, skip], dim=1).float(), consts["wc"].float())
-    z = _bn_gelu(z, consts, "c", approximate).to(bf16)
-    y = F.conv3d(z.float(), consts["w3"].float(), padding=1)
-    return _bn_gelu(y, consts, "3", approximate).to(bf16)
+    return _bn_gelu(z, consts, "c", approximate).to(torch.bfloat16)
 
 
 # --- the launch plan of the conv3d k3 p1 -------------------------------------
@@ -383,6 +398,105 @@ def _launch_ints(form: str, b: int, ci: int, co: int, d: int, h: int,
     return ctypes.addressof(ints), ints, out
 
 
+# --- the launch plan of H's fused deploy kernel ------------------------------
+
+# its tiles, (rows, depths) of 16 columns of the half-resolution grid (all
+# 8 output parity classes: 32 x 2 rows x 2 depths output voxels), largest
+# first; its n-tile instances (L's up levels 40 and 24 output channels,
+# M's 24 and 16, S's 16 and 12); the most m-tile x n-tile products a warp
+# keeps (48 fp32 sums a thread)
+UP_TILES = ((2, 2), (2, 1), (1, 1))
+UP_N_TILES = (2, 3, 5)
+UP_MAX_SUMS = 12
+# a tile is large enough when its grid holds this many blocks, 3/4 of the
+# card's SMs (on the H100 the larger tile won where its grid held 108
+# blocks, 82% of the SMs: L's first up level, M's second)
+UP_FILL = 3 * SMS // 4
+# the kernel's instances, (n-tiles, rows, depths): every tile of
+# ``UP_TILES`` within ``UP_MAX_SUMS`` for each n-tile count; the same list
+# as ``csrc/fused_hourglass.cu``'s ``UP_INSTANCES``
+UP_INSTANCES = frozenset((nt, th, td) for nt in UP_N_TILES
+                         for th, td in UP_TILES if th * td * nt <= UP_MAX_SUMS)
+
+
+def up_smem(n_tiles: int, th: int, td: int) -> int:
+    """Bytes of shared memory of H's fused kernel (``UpTile`` in the
+    source): the larger of the loop's slab of one chunk of 16 input
+    channels plus its weights [64 taps][8 n-tiles][16], and the
+    epilogue's skip tile plus the 1x1x1 conv's weights."""
+    np_, ck = 8 * n_tiles, _cdiv(n_tiles, 2)
+    loop = (td + 2) * (th + 2) * 18 * 32 + 64 * np_ * 32
+    epilogue = ck * 8 * th * td * 16 * 32 + 2 * ck * np_ * 32
+    return max(loop, epilogue)
+
+
+@dataclasses.dataclass(frozen=True)
+class UpPlan:
+    """How ``up_cat_bf16`` launches (``csrc/fused_hourglass.cu``).
+
+    ``shape`` is ``(ci, co, ds, hs, ws, d2, h2, w2)``; ``tile`` a block's
+    (rows, depths) of 16 columns of the half-resolution grid;
+    ``n_tiles`` its output channels' n-tiles of 8; ``blocks`` the grid's
+    blocks at batch 1; ``smem`` a block's dynamic shared memory in
+    bytes."""
+
+    shape: tuple
+    n_tiles: int
+    tile: tuple
+    blocks: int
+    smem: int
+
+    def ints(self, batch: int, approximate: bool) -> ctypes.Array:
+        """The C entry point's plan argument: 14 ints (B, CI, CO, Ds, Hs,
+        Ws, D2, H2, W2, n_tiles, tile_h, tile_d, smem, approximate)."""
+        return (ctypes.c_int * 14)(batch, *self.shape, self.n_tiles,
+                                   *self.tile, self.smem, int(approximate))
+
+
+def up_layout(ci: int, co: int, ds: int, hs: int, ws: int, d2: int, h2: int,
+              w2: int, tile: tuple) -> UpPlan:
+    """The plan of ``up_cat_bf16`` launched with ``tile``."""
+    n_tiles = _cdiv(co, 8)
+    th, td = tile
+    if (n_tiles, th, td) not in UP_INSTANCES or min(ci, co) < 1:
+        raise ValueError(f"up_plan: no instance for {ci} -> {co} at tile "
+                         f"{tile} ({n_tiles} n-tiles)")
+    if not (0 < d2 <= 2 * ds and 0 < h2 <= 2 * hs and 0 < w2 <= 2 * ws):
+        raise ValueError(f"up_plan: skip {(d2, h2, w2)} against src "
+                         f"{(ds, hs, ws)}")
+    blocks = _cdiv(w2, 32) * _cdiv(h2, 2 * th) * _cdiv(d2, 2 * td)
+    return UpPlan((ci, co, ds, hs, ws, d2, h2, w2), n_tiles, tile, blocks,
+                  up_smem(n_tiles, th, td))
+
+
+@functools.lru_cache(maxsize=None)
+def up_plan(ci: int, co: int, ds: int, hs: int, ws: int, d2: int, h2: int,
+            w2: int) -> UpPlan:
+    """The launch plan of H's fused transposed + 1x1x1 conv: ``ci`` input
+    channels at ``(ds, hs, ws)`` to ``co`` at the skip's ``(d2, h2, w2)``.
+    The largest tile of ``UP_TILES`` within ``UP_MAX_SUMS`` whose grid
+    holds ``UP_FILL`` blocks, else the smallest; raises ``ValueError`` for
+    a width without an instance."""
+    n_tiles = _cdiv(co, 8)
+    if n_tiles not in UP_N_TILES:
+        raise ValueError(f"up_plan: {co} output channels ({n_tiles} "
+                         f"n-tiles); the kernel has {UP_N_TILES}")
+    tiles = [t for t in UP_TILES if t[0] * t[1] * n_tiles <= UP_MAX_SUMS]
+    for tile in tiles:
+        plan = up_layout(ci, co, ds, hs, ws, d2, h2, w2, tile)
+        if plan.blocks >= UP_FILL:
+            return plan
+    return up_layout(ci, co, ds, hs, ws, d2, h2, w2, tiles[-1])
+
+
+@functools.lru_cache(maxsize=None)
+def _up_ints(b: int, shape: tuple, approximate: bool):
+    """``up_plan``'s ints for one call signature: their address and the
+    array (kept alive here)."""
+    ints = up_plan(*shape).ints(b, approximate)
+    return ctypes.addressof(ints), ints
+
+
 @functools.cache
 def _fns():
     lib = _build.load("fused_hourglass")
@@ -394,13 +508,11 @@ def _fns():
     cat.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
     lowp = lib.conv3d_k3_bn_gelu_bf16
     lowp.argtypes = [_P] * 7
-    deconv_bf16 = lib.hourglass_deconv_bf16
-    deconv_bf16.argtypes = [_P] * 5 + [_I] * 10 + [_P]
-    cat_bf16 = lib.hourglass_conv1x1_cat_bf16
-    cat_bf16.argtypes = [_P] * 6 + [_I] * 4 + [_P]
-    for fn in (conv, deconv, cat, lowp, deconv_bf16, cat_bf16):
+    up_cat = lib.hourglass_up_cat_bf16
+    up_cat.argtypes = [_P] * 11
+    for fn in (conv, deconv, cat, lowp, up_cat):
         fn.restype = _I
-    return conv, deconv, cat, lowp, deconv_bf16, cat_bf16
+    return conv, deconv, cat, lowp, up_cat
 
 
 def conv3d_bn_gelu(x: torch.Tensor, w: torch.Tensor, t: torch.Tensor,
@@ -471,6 +583,33 @@ def _count_conv(wrapper, key: tuple) -> None:
     wrapper.shape_launches[key] = wrapper.shape_launches.get(key, 0) + 1
 
 
+def up_cat_bf16(src: torch.Tensor, skip: torch.Tensor, consts: dict,
+                approximate: bool) -> torch.Tensor:
+    """One launch of H's deploy form's transposed conv and 1x1x1 conv on
+    CUDA tensors (``up_cat_plain``'s function), on the tensor cores as
+    ``up_plan`` lays it out: bf16 src and skip, the deploy form's consts
+    (raw bf16 weights, fp32 BN scales and shifts); returns z, bf16, the
+    skip's shape. ``up_pair`` runs it, then the k3 conv."""
+    b, ci, ds, hs, ws = src.shape
+    co, d2, h2, w2 = skip.shape[1:]
+    ints, _ = _up_ints(b, (ci, co, ds, hs, ws, d2, h2, w2), bool(approximate))
+    for k in ("wu", "wc"):
+        if consts[k].data_ptr() % 16:
+            raise ValueError(f"up_cat_bf16: {k} is not 16-byte aligned")
+    z = torch.empty_like(skip)
+    err = _fns()[4](src.data_ptr(), skip.data_ptr(), consts["wu"].data_ptr(),
+                    consts["su"].data_ptr(), consts["tu"].data_ptr(),
+                    consts["wc"].data_ptr(), consts["sc"].data_ptr(),
+                    consts["tc"].data_ptr(), z.data_ptr(), ints,
+                    stream_handle(src))
+    _build.check(err, "up_pair transposed + 1x1x1 conv bf16")
+    count_launch(up_cat_bf16, "bf16")
+    return z
+
+
+up_cat_bf16.launches = 0
+up_cat_bf16.form_launches = {}
+
 for _conv in (conv3d_bn_gelu, conv3d_bn_gelu_bf16):
     _conv.launches = 0
     _conv.form_launches = {}
@@ -526,37 +665,29 @@ def up_pair(src: torch.Tensor, skip: torch.Tensor, consts: dict,
     if not on_cuda("up_pair", src, skip, *consts.values(),
                    dtypes=(torch.float32, torch.bfloat16)):
         return up_pair_plain(src, skip, consts, approximate)
+    if form == "bf16":
+        z = up_cat_bf16(src, skip, consts, approximate)
+        y = conv3d_bn_gelu_bf16(z, consts["w3"], consts["s3"], consts["t3"],
+                                torch.bfloat16, approximate)
+        count_launch(up_pair, form)
+        return y
     if co > _MAX_CAT_CO:
         raise NotImplementedError(f"up_pair kernel takes at most "
                                   f"{_MAX_CAT_CO} channels; got {co}")
-    _, deconv, cat, _, deconv_bf16, cat_bf16 = _fns()
+    _, deconv, cat, _, _ = _fns()
     approx = int(approximate)
     stream = stream_handle(src)
     up = torch.empty_like(skip)
     z = torch.empty_like(skip)
-    if form == "fp32":
-        err = deconv(src.data_ptr(), wu.data_ptr(), consts["tu"].data_ptr(),
-                     up.data_ptr(), b, ci, co, ds, hs, ws, d2, h2, w2,
-                     approx, stream)
-        _build.check(err, "up_pair transposed conv")
-        err = cat(up.data_ptr(), skip.data_ptr(), consts["wc"].data_ptr(),
-                  consts["tc"].data_ptr(), z.data_ptr(), b, co,
-                  d2 * h2 * w2, approx, stream)
-        _build.check(err, "up_pair 1x1x1 conv")
-        y = conv3d_bn_gelu(z, consts["w3"], consts["t3"], 1, approximate)
-    else:
-        err = deconv_bf16(src.data_ptr(), wu.data_ptr(),
-                          consts["su"].data_ptr(), consts["tu"].data_ptr(),
-                          up.data_ptr(), b, ci, co, ds, hs, ws, d2, h2, w2,
-                          approx, stream)
-        _build.check(err, "up_pair transposed conv bf16")
-        err = cat_bf16(up.data_ptr(), skip.data_ptr(),
-                       consts["wc"].data_ptr(), consts["sc"].data_ptr(),
-                       consts["tc"].data_ptr(), z.data_ptr(), b, co,
-                       d2 * h2 * w2, approx, stream)
-        _build.check(err, "up_pair 1x1x1 conv bf16")
-        y = conv3d_bn_gelu_bf16(z, consts["w3"], consts["s3"], consts["t3"],
-                                torch.bfloat16, approximate)
+    err = deconv(src.data_ptr(), wu.data_ptr(), consts["tu"].data_ptr(),
+                 up.data_ptr(), b, ci, co, ds, hs, ws, d2, h2, w2, approx,
+                 stream)
+    _build.check(err, "up_pair transposed conv")
+    err = cat(up.data_ptr(), skip.data_ptr(), consts["wc"].data_ptr(),
+              consts["tc"].data_ptr(), z.data_ptr(), b, co, d2 * h2 * w2,
+              approx, stream)
+    _build.check(err, "up_pair 1x1x1 conv")
+    y = conv3d_bn_gelu(z, consts["w3"], consts["t3"], 1, approximate)
     count_launch(up_pair, form)
     return y
 

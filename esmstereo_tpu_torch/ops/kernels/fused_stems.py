@@ -21,13 +21,18 @@ image stays fp32 in both forms.
 
 On CUDA a call launches two kernels, one per StemBlock, each with its
 conv_down map in shared memory only; it counts as one launch, by form in
-``form_launches``. H and W must be multiples of 4 (the model pads to
-/32); anything else raises.
+``form_launches``. The fp32 form runs fp32 FMA loops; the deploy form runs
+both convs of a StemBlock as implicit GEMMs on the tensor cores
+(``mma.sync``, bf16 operands, fp32 sums), each StemBlock as ``stem_plan``
+lays it out (its tile of output pixels, its shared memory), which the C
+entry point checks against its own count. H and W must be multiples of 4
+(the model pads to /32); anything else raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -43,6 +48,68 @@ _I = ctypes.c_int
 _KEYS = ("wd2", "td2", "wc2", "tc2", "wd4", "td4", "wc4", "tc4")
 # (C2, C4): the stems' widths the kernel has an instance for
 WIDTHS = frozenset({(32, 48), (16, 24)})
+# the deploy form's tile of output pixels (rows, columns) of each StemBlock
+# (CI -> C) of ``WIDTHS``: of (8, 32) and (8, 16), the faster on the H100
+# at 544 x 992 (device time, both eyes: L's stem_2 0.1210 against 0.1291
+# ms, its stem_4 0.0862 against 0.0893; S's 0.0565 against 0.0736 and
+# 0.0275 against 0.0331), and the kernel's instances (CI, C, rows,
+# columns), the same list as ``csrc/fused_stems.cu``'s ``STEM_INSTANCES``.
+STEM_TILES = {(3, 32): (8, 32), (32, 48): (8, 16), (3, 16): (8, 16),
+              (16, 24): (8, 16)}
+STEM_INSTANCES = frozenset((ci, c, *tile)
+                           for (ci, c), tile in STEM_TILES.items())
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def stem_smem(ci: int, c: int, th: int, tw: int) -> int:
+    """Bytes of shared memory of one StemBlock's deploy kernel
+    (``StemTile`` in the source): the conv_down map of the tile's
+    (th + 2) x (tw + 2) halo pixels in chunks of 16 bf16 channels; the
+    larger of conv_down's input with its weights of one chunk and the
+    output tile; the conv's weights."""
+    np_, ck = 8 * _cdiv(c, 8), _cdiv(c, 16)
+    mp = (th + 2) * (tw + 2)
+    if ci == 3:     # the im2col rows and all the weights, 2 chunks of 16
+        down = 2 * mp * 32 + 2 * np_ * 32
+    else:           # the stride-2 window of a chunk, its weights
+        down = (2 * (th + 2) + 1) * (2 * (tw + 2) + 1) * 32 + 9 * np_ * 32
+    out = np_ * (th * tw + 8) * 2
+    return ck * mp * 32 + max(down, out) + ck * 9 * np_ * 32
+
+
+@dataclasses.dataclass(frozen=True)
+class StemPlan:
+    """How one StemBlock's deploy form launches: ``ci`` -> ``c`` channels,
+    ``tile`` (rows, columns) of output pixels a block, ``smem`` its bytes
+    of dynamic shared memory."""
+
+    ci: int
+    c: int
+    tile: tuple
+    smem: int
+
+
+def stem_plan(ci: int, c: int) -> StemPlan:
+    """The deploy form's plan of a StemBlock ``ci`` -> ``c`` at its tile
+    of ``STEM_TILES``; raises ``ValueError`` for another StemBlock."""
+    if (ci, c) not in STEM_TILES:
+        raise ValueError(f"stem_plan: no instance for {ci} -> {c}")
+    tile = STEM_TILES[(ci, c)]
+    return StemPlan(ci, c, tile, stem_smem(ci, c, *tile))
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_ints(c2: int, c4: int):
+    """The deploy entry point's plan argument for widths (c2, c4): its
+    address and the array (kept alive here), stem_2's (rows, columns,
+    smem) then stem_4's."""
+    ints = (ctypes.c_int * 6)(*(v for plan in (stem_plan(3, c2),
+                                                stem_plan(c2, c4))
+                                for v in (*plan.tile, plan.smem)))
+    return ctypes.addressof(ints), ints
 
 
 def prepare_consts(stem_2, stem_4, low_precision: bool = False) -> dict:
@@ -74,26 +141,29 @@ def _conv(x: torch.Tensor, k: torch.Tensor, t: torch.Tensor,
                     padding=1)
 
 
-def stems_plain(img: torch.Tensor, consts: dict, approximate: bool
-                ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version: (B, 3, H, W) -> (stem_2 out (B, C2, H/2, W/2),
-    stem_4 out (B, C4, H/4, W/4)); in the deploy form each conv's input
-    rounded to bf16, fp32 sums, and both outputs in bf16."""
+def stem_block_plain(x: torch.Tensor, consts: dict, s: str,
+                     approximate: bool) -> torch.Tensor:
+    """Plain PyTorch version of StemBlock ``s`` (``"2"`` or ``"4"``) of
+    ``consts``: (B, CI, H, W) -> (B, C, H/2, W/2); in the deploy form each
+    conv's input rounded to bf16, fp32 sums, and the output in bf16."""
     low = low_precision(consts)
 
     def operand(t):
         return t.to(torch.bfloat16).float() if low else t
 
-    outs = []
-    x = img
-    for s in ("2", "4"):
-        x = gelu(_conv(operand(x), consts[f"wd{s}"], consts[f"td{s}"], 2),
-                 approximate)
-        x = F.relu(_conv(operand(x), consts[f"wc{s}"], consts[f"tc{s}"], 1))
-        if low:
-            x = x.to(torch.bfloat16)
-        outs.append(x)
-    return outs[0], outs[1]
+    x = gelu(_conv(operand(x), consts[f"wd{s}"], consts[f"td{s}"], 2),
+             approximate)
+    x = F.relu(_conv(operand(x), consts[f"wc{s}"], consts[f"tc{s}"], 1))
+    return x.to(torch.bfloat16) if low else x
+
+
+def stems_plain(img: torch.Tensor, consts: dict, approximate: bool
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version: (B, 3, H, W) -> (stem_2 out (B, C2, H/2, W/2),
+    stem_4 out (B, C4, H/4, W/4)); in the deploy form each conv's input
+    rounded to bf16, fp32 sums, and both outputs in bf16."""
+    s2 = stem_block_plain(img, consts, "2", approximate)
+    return s2, stem_block_plain(s2, consts, "4", approximate)
 
 
 def widths(consts: dict) -> tuple[int, int]:
@@ -122,11 +192,13 @@ def _check(img: torch.Tensor, consts: dict) -> tuple[int, int]:
 
 
 @functools.cache
-def _fn():
-    fn = _build.load("fused_stems").fused_stems
-    fn.argtypes = [_P] * 11 + [_I] * 7 + [_P]
-    fn.restype = _I
-    return fn
+def _fns():
+    lib = _build.load("fused_stems")
+    fp32, low = lib.fused_stems, lib.fused_stems_bf16
+    fp32.argtypes = [_P] * 11 + [_I] * 6 + [_P]
+    low.argtypes = [_P] * 11 + [_I] * 5 + [_P, _I, _P]
+    fp32.restype = low.restype = _I
+    return fp32, low
 
 
 def stems(img: torch.Tensor, consts: dict, approximate: bool
@@ -152,9 +224,13 @@ def stems(img: torch.Tensor, consts: dict, approximate: bool
     out = torch.bfloat16 if low else torch.float32
     s2 = torch.empty((b, c2, h // 2, w // 2), device=img.device, dtype=out)
     s4 = torch.empty((b, c4, h // 4, w // 4), device=img.device, dtype=out)
-    err = _fn()(img.data_ptr(), *(consts[k].data_ptr() for k in _KEYS),
-                s2.data_ptr(), s4.data_ptr(), b, h, w, c2, c4, int(low),
-                int(approximate), stream_handle(img))
+    ptrs = (img.data_ptr(), *(consts[k].data_ptr() for k in _KEYS),
+            s2.data_ptr(), s4.data_ptr(), b, h, w, c2, c4)
+    if low:
+        err = _fns()[1](*ptrs, _plan_ints(c2, c4)[0], int(approximate),
+                        stream_handle(img))
+    else:
+        err = _fns()[0](*ptrs, int(approximate), stream_handle(img))
     _build.check(err, "stems")
     count_launch(stems, "bf16" if low else "fp32")
     return s2, s4
