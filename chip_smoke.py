@@ -1863,8 +1863,10 @@ def check_ragged_switches_deploy(model, m_norm, s_gwc, gen) -> None:
     corr_stem) forms at 13 and 48 bins (its volume + group_stem against the
     plain group_stem of the plain bf16 volume, its agg on its own
     group_stem output); G at L's, M's and S's widths (the k3 s1 conv's
-    plain version on the kernel's intermediate); H there; F at (32, 48)
-    and (16, 24); I's seven launches (``check_mixer_steps``)."""
+    plain version on the kernel's intermediate); H there (its fused
+    transposed + 1x1x1 launch against its plain steps, its k3 conv on that
+    launch's own z); F at (32, 48) and (16, 24) (stem_4 on the kernel's
+    own stem_2); I's seven phases (``check_mixer_steps``)."""
     dev = torch.device("cuda")
     bf16 = torch.bfloat16
     for shape, d in (((2, 64, 7, 37), 13), ((2, 64, 5, 70), 48)):
@@ -1927,18 +1929,32 @@ def check_ragged_switches_deploy(model, m_norm, s_gwc, gen) -> None:
                 *(getattr(agg, n) for n in names), low_precision=True)
             src = torch.randn(src_shape, generator=gen).to(dev).to(bf16)
             skip = torch.randn(skip_shape, generator=gen).to(dev).to(bf16)
-            compare_deploy(f"up_pair bf16 src {src_shape} skip {skip_shape}",
-                           fused_hourglass.up_pair(src, skip, low, True),
-                           fused_hourglass.up_pair_plain(src, skip, low,
-                                                         True))
+            name = f"up_pair bf16 src {src_shape} skip {skip_shape}"
+            # each step on its own input, as G's above: the fused
+            # transposed + 1x1x1 launch against its plain steps, the k3
+            # conv on the launch's own z (the kernels repeat bit for bit)
+            z = fused_hourglass.up_cat_bf16(src, skip, low, True)
+            got = fused_hourglass.up_pair(src, skip, low, True)
+            compare_deploy(f"{name}: its transposed + 1x1x1 conv", z,
+                           fused_hourglass.up_cat_plain(src, skip, low, True))
+            compare_deploy(f"{name}: its k3 conv on its own z", got,
+                           conv_bf16_plain(z, low["w3"], low["s3"],
+                                           low["t3"], 1))
+            compare_ulps(f"{name}: the chain", got,
+                         fused_hourglass.up_pair_plain(src, skip, low, True))
     img = torch.randn((2, 3, 44, 100), generator=gen).to(dev)
     for net in (model, s_gwc):
         low = fused_stems.prepare_consts(net.stem_2, net.stem_4,
                                          low_precision=True)
-        for name, g, w in zip(("stem_2", "stem_4"),
-                              fused_stems.stems(img, low, True),
-                              fused_stems.stems_plain(img, low, True)):
-            compare_deploy(f"stems deploy {name} {tuple(w.shape)}", g, w)
+        s2, s4 = fused_stems.stems(img, low, True)
+        want2, want4 = fused_stems.stems_plain(img, low, True)
+        # stem_2 on the image, stem_4 on the kernel's own stem_2, the chain
+        # by its max only
+        compare_deploy(f"stems deploy stem_2 {tuple(s2.shape)}", s2, want2)
+        compare_deploy(f"stems deploy stem_4 {tuple(s4.shape)} on its own "
+                       f"stem_2", s4,
+                       fused_stems.stem_block_plain(s2, low, "4", True))
+        compare_ulps(f"stems deploy {tuple(s4.shape)}: the chain", s4, want4)
     x = torch.randn((2, 32, 11, 25), generator=gen).to(dev).to(bf16)
     low = fused_mixer.prepare_consts(model.upsample_module.stage2x,
                                      low_precision=True)
@@ -2002,10 +2018,87 @@ def check_ragged_stem_up_tiles(model, m_norm, s_gwc, gen) -> None:
             compare_ulps(f"{name}: the chain", s4, want4)
 
 
+def check_ragged_head_mixer(model, s_gwc, gen) -> None:
+    """Kernels A and I at shapes that fill none of their tiles (A's 12 x 32
+    output pixels, I's 3 x 32), batch 1 to 3: A in both forms (``model``:
+    efficientnet_b2; ``s_gwc``: mobilenetv2_100, its stem scaled so that
+    the ReLU6 clamps), fp32 within
+    1e-4 of max(1, max|plain|) and bf16 out within 1 bf16 ulp; I in fp32
+    (the whole call, and each of its seven phases on the kernel's own
+    earlier ones, 1e-4 of max|plain|) and in bf16 (``check_mixer_steps``)."""
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    forms = (fused_backbone.prepare_consts(model.feature),
+             mobilenetv2_clamped(fused_backbone.prepare_consts(s_gwc.feature)))
+    for shape in ((2, 3, 34, 66), (1, 3, 70, 130), (3, 3, 2, 4)):
+        img = torch.randn(shape, generator=gen).to(dev)
+        for consts in forms:
+            name = f"fused_stage0 {fused_head.kernel_form(consts)} {shape}"
+            want = fused_head.stage0_plain(img, consts)
+            compare(name, fused_head.fused_stage0(img, consts), want, 1e-4)
+            compare_ulps(f"{name} bf16 out",
+                         fused_head.fused_stage0(img, consts, bf16),
+                         want.to(bf16))
+    stage = model.upsample_module.stage2x
+    fp = fused_mixer.prepare_consts(stage)
+    low = fused_mixer.prepare_consts(stage, low_precision=True)
+    for shape in ((1, 32, 4, 33), (2, 32, 7, 45), (3, 32, 13, 97)):
+        x = torch.randn(shape, generator=gen).to(dev)
+        name = f"mixer {shape}"
+        compare(name, fused_mixer.mixer(x, fp), fused_mixer.mixer_plain(x, fp),
+                1e-4, floor=0.0)
+        outs = fused_mixer.mixer(x, fp, steps=True)
+        for step, (reads, writes) in enumerate(fused_mixer.STEPS, 1):
+            args = {"x": x} if step == 1 else {
+                n: outs[k - 1][n] for n, k in reads}
+            want = fused_mixer.mixer_step_plain(step, fp, False, **args)
+            for n in writes:
+                compare(f"{name}: phase {step} ({n}) on its own inputs",
+                        outs[step - 1][n], want[n], 1e-4, floor=0.0)
+        if shape[0] > 1:
+            check_mixer_steps(f"mixer bf16 {shape}", x.to(bf16), low)
+
+
+def check_graph_capture(model, gen) -> None:
+    """Kernels A's and I's cooperative launches (A's efficientnet_b2 form,
+    fp32 and bf16 out; I in both forms) at the main path's shapes, captured
+    into a CUDA graph: each replay must equal the eager call bit for bit (a
+    launch that cannot be captured raises)."""
+    img = torch.randn((2, 3, *PADDED), generator=gen).cuda()
+    x = torch.randn((1, 32, PADDED[0] // 4, PADDED[1] // 4),
+                    generator=gen).cuda()
+    consts = fused_backbone.prepare_consts(model.feature)
+    stage = model.upsample_module.stage2x
+    fp = fused_mixer.prepare_consts(stage)
+    low = fused_mixer.prepare_consts(stage, low_precision=True)
+    calls = {f"fused_stage0 -> {o}": (
+        lambda o=o: fused_head.fused_stage0(img, consts, o))
+        for o in (torch.float32, torch.bfloat16)}
+    calls["mixer fp32"] = lambda: fused_mixer.mixer(x, fp)
+    calls["mixer bf16"] = lambda: fused_mixer.mixer(x.to(torch.bfloat16), low)
+    for name, fn in calls.items():
+        eager = fn()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        print(f"  {name}: captured into a CUDA graph; the replay "
+              f"{'equals' if torch.equal(out, eager) else 'differs from'} "
+              f"the eager call bit for bit")
+        require(torch.equal(out, eager),
+                f"{name}: the graph's replay differs from the eager call")
+
+
 def check_mixer_steps(name: str, x: torch.Tensor, low: dict) -> None:
-    """Kernel I's bf16 form launch by launch (``fused_mixer.STEPS``): each
-    of its seven launches against the plain step on the kernel's own
-    earlier launches' outputs, by ``compare_deploy`` at ``MIXER_ULPS`` and
+    """Kernel I's bf16 form phase by phase (``fused_mixer.STEPS``): each
+    of its seven phases against the plain step on the kernel's own
+    earlier phases' outputs, by ``compare_deploy`` at ``MIXER_ULPS`` and
     ``MIXER_SHARE`` (the workspace's fp32 maps rounded to bf16, as the next
     layer reads them); the chain against ``mixer_plain`` by
     ``compare_ulps``; and each rounding step seen
@@ -2016,13 +2109,13 @@ def check_mixer_steps(name: str, x: torch.Tensor, low: dict) -> None:
             n: outs[k - 1][n] for n, k in reads}
         want = fused_mixer.mixer_step_plain(step, low, True, **args)
         for n in writes:
-            compare_deploy(f"{name}: launch {step} ({n})",
+            compare_deploy(f"{name}: phase {step} ({n})",
                            outs[step - 1][n].to(torch.bfloat16),
                            want[n].to(torch.bfloat16), ulps=MIXER_ULPS,
                            share=MIXER_SHARE)
     got = fused_mixer.mixer(x, low)
     require(torch.equal(got, outs[-1]["y"]),
-            f"{name}: the launches one by one differ from the whole call")
+            f"{name}: the phases one by one differ from the whole call")
     compare_ulps(f"{name}: the chain", got, fused_mixer.mixer_plain(x, low),
                  MIXER_ULPS)
     require_each_rounding_seen(name, x, got, low)
@@ -2712,11 +2805,18 @@ def main() -> int:
                                      confidence=name.startswith("C-"))
 
     # last among the checks that draw from gen, so that no earlier draw
-    # moves
+    # moves (A's and I's ragged tiles and their graph capture after F's and
+    # H's)
     print("[3] ragged tiles of F's deploy kernel and H's fused transposed "
           "+ 1x1x1 conv")
     with torch.inference_mode():
         check_ragged_stem_up_tiles(model, m_norm, s_gwc, gen)
+    print("[3] ragged tiles of kernels A and I")
+    with torch.inference_mode():
+        check_ragged_head_mixer(model, s_gwc, gen)
+    print("[3] kernels A and I captured into a CUDA graph")
+    with torch.inference_mode():
+        check_graph_capture(model, gen)
 
     nets = {"default": model, "M": m_gwc, "M-norm": m_norm, "S": s_gwc,
             "S-norm": s_norm}

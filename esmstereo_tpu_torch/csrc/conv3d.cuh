@@ -23,6 +23,7 @@
 #include <unordered_map>
 
 #include "activations.cuh"
+#include "async_copy.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -61,27 +62,7 @@ __device__ __forceinline__ Tout finish(float acc,
     return narrow<Tout>(gelu(v, approx));
 }
 
-// --- asynchronous copies and tensor-core fragments --------------------------
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-    return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 4 bytes, or 4 zero bytes when !valid (src is then not read).
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-                 :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0)
-                 : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
+// --- tensor-core fragments (the asynchronous copies: async_copy.cuh) ----------
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], unsigned a) {
     asm volatile(

@@ -1,9 +1,22 @@
 """The hourglass conv3d k3 p1 of one checkout on the card: each conv's
 device time, whether it repeats bit for bit, kernel E's fp32 row, and
 whether L-deploy's forward repeats under cuDNN's default and deterministic
-algorithms; and kernels F's and H's deploy forms launch by launch.
+algorithms; kernels F's and H's deploy forms launch by launch; and kernels
+A and I launch by launch.
 
     python3 -m esmstereo_tpu_torch.eval.conv_repeat [--reps 30] [--fh-only]
+    python3 -m esmstereo_tpu_torch.eval.conv_repeat --ai-only [--reps 30]
+
+``--ai-only`` times one call of kernel A (``fused_head.fused_stage0``, the
+nets' own stage-0 weights) on both eyes' unit-normal fp32 image at L's
+and S's 544 x 992 (efficientnet_b2's and mobilenetv2_100's forms) and at
+C's 384 x 1248 (mobilenetv2_100), writing fp32 and bf16, and of kernel I
+(``fused_mixer.mixer``) on a unit-normal (1, 32, 136, 248) spx map at L in
+fp32 and bf16: device time in a CUDA graph, split by CUDA kernel as below,
+and how many of ``--reps`` further calls differ from the first by any
+bit. Then it stops. It calls only the wrappers' public functions
+(``fused_stage0``, ``mixer`` and their ``prepare_consts``), which older
+checkouts have too, so copied into one it times that checkout's kernels.
 
 First, for each of L-deploy-all, M-norm-deploy-all and S-deploy-all
 (``chip_smoke.SWITCHED_PATHS``), it times one call of kernel F's deploy
@@ -182,11 +195,57 @@ def repeats(fn, reps: int) -> int:
     return sum(not torch.equal(fn(), first) for _ in range(reps))
 
 
+def head_and_mixer(gen, reps: int) -> None:
+    """Kernels A and I launch by launch (``--ai-only``; see the module's
+    docstring)."""
+    from esmstereo_tpu_torch.backbones import fused as fused_backbone
+    from esmstereo_tpu_torch.ops.kernels import fused_head, fused_mixer
+
+    bf16 = torch.bfloat16
+    cases = (("L", CONFIGS["L"], chip_smoke.PADDED),
+             ("S", CONFIGS["S"], chip_smoke.PADDED),
+             ("C", CONFIGS["S"], chip_smoke.KITTI_PADDED))
+    with torch.inference_mode():
+        for var, config, padded in cases:
+            net = ESMStereo(config, device="cuda", seed=chip_smoke.SEED)
+            consts = fused_backbone.prepare_consts(net.feature)
+            img = torch.randn((2, 3, *padded), generator=gen).cuda()
+            form = fused_head.kernel_form(consts)
+            for out in (torch.float32, bf16):
+                def fn(c=consts, o=out):
+                    return fused_head.fused_stage0(img, c, o)
+
+                ms = graph_ms(fn)
+                print(f"A {var} {form} {tuple(img.shape)} -> {out}: "
+                      f"{ms:.4f} ms a call, {repeats(fn, reps)} of {reps} "
+                      f"repeats differ", flush=True)
+                for t, n, name in launch_split(fn):
+                    print(f"    {t:.4f} ms  x{n:g}  {name[:120]}", flush=True)
+        net = ESMStereo(CONFIGS["L"], device="cuda", seed=chip_smoke.SEED)
+        stage = net.upsample_module.stage2x
+        x = torch.randn((1, 32, chip_smoke.PADDED[0] // 4,
+                         chip_smoke.PADDED[1] // 4), generator=gen).cuda()
+        for low in (False, True):
+            consts = fused_mixer.prepare_consts(stage, low_precision=low)
+            xi = x.to(bf16) if low else x
+
+            def fn(c=consts, v=xi):
+                return fused_mixer.mixer(v, c)
+
+            ms = graph_ms(fn)
+            print(f"I L {tuple(xi.shape)} {xi.dtype}: {ms:.4f} ms a call, "
+                  f"{repeats(fn, reps)} of {reps} repeats differ", flush=True)
+            for t, n, name in launch_split(fn):
+                print(f"    {t:.4f} ms  x{n:g}  {name[:120]}", flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=30)
     ap.add_argument("--fh-only", action="store_true",
                     help="time kernels F and H launch by launch, and stop")
+    ap.add_argument("--ai-only", action="store_true",
+                    help="time kernels A and I launch by launch, and stop")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("conv_repeat: no CUDA device")
@@ -195,6 +254,9 @@ def main() -> None:
     _build.build_all()
     print(f"card: {chip_smoke.smi_line()}", flush=True)
     gen = torch.Generator().manual_seed(7)
+    if args.ai_only:
+        head_and_mixer(gen, args.reps)
+        return
     with chip_smoke.tanh_gelu():
         stems_and_up_pairs(gen)
     if args.fh_only:

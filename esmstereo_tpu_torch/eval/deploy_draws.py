@@ -23,10 +23,10 @@ trees to the same draws.
 
 ``--ragged`` runs ``chip_smoke``'s ragged check of the switches' deploy
 forms (``check_ragged_switches_deploy``, at L's, M-norm's and S's widths)
-once per draw instead, and prints, for kernels E, G, H and I, how the
+once per draw instead, and prints, for kernels E, F, G, H and I, how the
 share of outputs that differ by any bit falls over the draws for each
 comparison (a step on its own input, or the whole chain against its plain
-version): the largest and how many exceed E's, G's and H's 1% (I's limit
+version): the largest and how many exceed E's, F's, G's and H's 1% (I's limit
 is ``chip_smoke.MIXER_SHARE``); and how many draws failed the check, by
 the kernel that failed (a draw stops at its first failure).
 """
@@ -47,12 +47,12 @@ from esmstereo_tpu_torch.models.esmstereo import ESMStereo, ESMStereoConfig
 
 LINE = re.compile(r"draw \d+ (\w+): card against CPU bf16 max (\S+) mean "
                   r"(\S+); CPU bf16 against CPU fp32 max (\S+) mean (\S+)")
-# a ragged E, G, H or I comparison: its name, the part it holds (none for
+# a ragged E, F, G, H or I comparison: its name, the part it holds (none for
 # the whole level, as in earlier checkouts) and the share of outputs
 # differing
-RAGGED = re.compile(r"^  ((?:volume_stem_agg|down_pair|up_pair|mixer) bf16 "
-                    r"[^:\n]*): (?:([^:\n]*): )?max abs err .*; (\S+) of the "
-                    r"outputs differ$", re.M)
+RAGGED = re.compile(r"^  ((?:(?:volume_stem_agg|down_pair|up_pair|mixer) "
+                    r"bf16|stems deploy) [^:\n]*): (?:([^:\n]*): )?max abs "
+                    r"err .*; (\S+) of the outputs differ$", re.M)
 FIRST_SEED = 1000
 
 
@@ -83,7 +83,7 @@ def one_draw(name: str, config, seed: int) -> tuple[dict, str | None]:
 
 
 def ragged(draws: int) -> int:
-    """``--ragged``: E's, G's, H's and I's shares of differing outputs per
+    """``--ragged``: E's, F's, G's, H's and I's shares of differing outputs per
     comparison over ``draws`` draws of the ragged check."""
     nets = [ESMStereo(ESMStereoConfig(**kw), device="cuda",
                       seed=chip_smoke.SEED)

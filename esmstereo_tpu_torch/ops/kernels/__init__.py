@@ -5,8 +5,9 @@ the forms each wrapper takes:
 
   * ``fused_head.fused_stage0``         kernel A, backbone stem + stage 0, in
     two layouts (``fused_head.FORMS``): efficientnet_b2's (two blocks with
-    SqueezeExcite, SiLU; three passes) and mobilenetv2_100's (one block, no
-    SE, ReLU6; one pass); fp32 inside, fp32 or bf16 out
+    SqueezeExcite, SiLU; one cooperative launch with grid barriers at the
+    SE means) and mobilenetv2_100's (one block, no SE, ReLU6; one launch);
+    fp32 inside, fp32 or bf16 out; laid out by ``fused_head.stage0_plan``
   * ``correlation.correlation_volume``  kernels B and D, the correlation
     volume (gwc, gwc_norm, norm-correlation) from 64-channel descriptors,
     any number of bins; fp32, and each form on bf16 descriptors in B's
@@ -30,7 +31,9 @@ the forms each wrapper takes:
     and M, (16, 24) for S; fp32, and the deploy form (bf16 operands, bf16
     out)
   * ``fused_mixer.mixer``               kernel I, the cv4 upsampler's
-    ShuffleMixer section (``fuse_mixer``; L only); fp32 and bf16
+    ShuffleMixer section (``fuse_mixer``; L only); fp32 and bf16; one
+    cooperative launch of seven phases, laid out by
+    ``fused_mixer.mixer_plan``
   * ``fused_stage.fused_stage``         kernel J, one whole backbone stage
     >= 1 (expand, k3 or k5 depthwise at stride 1 or 2, SqueezeExcite or
     none, project, residual) of either backbone; fp32. No model path runs

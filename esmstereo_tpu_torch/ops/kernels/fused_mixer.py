@@ -24,14 +24,16 @@ to bf16 (``ROUNDINGS`` names the inputs' steps); the LayerNorm statistics
 (``_mm(..., False)`` there), sums, biases and the residual stream stay
 fp32, and the output is bf16, as ``phased_upsample.py:497`` casts it.
 
-On CUDA a call makes seven launches (``csrc/fused_mixer.cu`` says where
-the section is split); it counts as one launch, by form in
+On CUDA a call is one cooperative launch of seven phases with grid
+barriers between them (``csrc/fused_mixer.cu`` says where the section is
+split), laid out by ``mixer_plan``; it counts as one launch, by form in
 ``form_launches``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -40,6 +42,7 @@ import torch.nn.functional as F
 from esmstereo_tpu_torch.nn.shufflemixer import channel_shuffle
 from esmstereo_tpu_torch.ops.kernels import (_build, count_launch, on_cuda,
                                              stream_handle)
+from esmstereo_tpu_torch.ops.kernels.fused_hourglass import SMEM_MAX, SMS
 from esmstereo_tpu_torch.ops.sampling import pixel_shuffle
 
 _P = ctypes.c_void_p
@@ -140,8 +143,8 @@ def prepare_consts(stage, low_precision: bool = False) -> dict:
 ROUNDINGS = ("fc1", "pass_through", "fc2", "dw", "expand", "project", "up")
 
 
-# the kernel's seven launches (csrc/fused_mixer.cu): the tensors each reads
-# (x, or a name and the launch that wrote it) and writes, by name
+# the kernel's seven phases (csrc/fused_mixer.cu): the tensors each reads
+# (x, or a name and the phase that wrote it) and writes, by name
 STEPS = ((("x",), ("v", "t")),
          ((("t", 1),), ("u",)),
          ((("u", 2), ("v", 1)), ("x2",)),
@@ -153,9 +156,9 @@ STEPS = ((("x",), ("v", "t")),
 
 def mixer_step_plain(step: int, consts: dict, low: bool,
                      exact: tuple = (), **inputs) -> dict:
-    """Plain version of the kernel's launch ``step`` (1-7, ``STEPS``) on
+    """Plain version of the kernel's phase ``step`` (1-7, ``STEPS``) on
     the tensors it reads (fp32, ``x`` in its own dtype): ``{name: fp32
-    tensor}`` of what it writes, the last launch's ``y`` in bf16 with
+    tensor}`` of what it writes, the last phase's ``y`` in bf16 with
     ``low``. ``low`` is the bf16 form (each conv's and linear layer's input
     rounded to bf16); ``exact`` as in ``mixer_plain``."""
     p = unpack(consts["packed"])
@@ -214,14 +217,14 @@ def mixer_step_plain(step: int, consts: dict, low: bool,
                  p["up_w"][..., None, None], p["up_b"])
         y = F.silu(pixel_shuffle(y, 2))
         return {"y": y.to(torch.bfloat16) if low else y}
-    raise ValueError(f"mixer: no launch {step}")
+    raise ValueError(f"mixer: no phase {step}")
 
 
 def mixer_plain(x: torch.Tensor, consts: dict,
                 exact: tuple = ()) -> torch.Tensor:
     """Plain PyTorch version: (B, 32, H, W) -> (B, 16, 2H, 2W); in the bf16
     form each conv's and linear layer's input rounded to bf16, the rest in
-    fp32, and the output in bf16: the kernel's seven launches
+    fp32, and the output in bf16: the kernel's seven phases
     (``mixer_step_plain``) one after the other. The steps of ``ROUNDINGS``
     named in ``exact`` keep their operand in fp32 (a check that the
     comparison sees each rounding)."""
@@ -238,15 +241,65 @@ def _steps_plain(x: torch.Tensor, consts: dict, exact: tuple = ()) -> list:
     return outs
 
 
+# The launch layout (``csrc/fused_mixer.cu`` has the same constants):
+# tiles of 3 x 32 pixels, 192 threads (two a pixel), at most
+# ``MIXER_BLOCKS_PER_SM`` blocks an SM (its ``__launch_bounds__``); shared
+# memory: the largest phase's staged weights (an expand phase's: expand,
+# project and up with their biases), then the data area (a slab and the
+# expand's SiLU map, then the residual stream at ``_VS``).
+MIXER_TILE = (3, 32)
+MIXER_THREADS = 192
+MIXER_BLOCKS_PER_SM = 3
+_W_MAX = _C * 9 * 2 * _C + 2 * _C + 2 * _C * _C + _C + 4 * _C * _C + 4 * _C
+_VS = 6144
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclasses.dataclass(frozen=True)
+class MixerPlan:
+    """How ``mixer`` launches (``csrc/fused_mixer.cu``): ``tile`` (rows,
+    columns of pixels), one cooperative ``grid`` of ``threads`` a block
+    (all blocks resident), ``smem`` dynamic shared bytes a block and
+    ``workspace`` floats (V, T, U and the barrier counter)."""
+
+    tile: tuple
+    grid: int
+    threads: int
+    smem: int
+    workspace: int
+
+
+@functools.lru_cache(maxsize=None)
+def mixer_plan(batch: int, h: int, w: int) -> MixerPlan:
+    """The launch plan of kernel I on a (batch, 32, h, w) spx map: at most
+    ``MIXER_BLOCKS_PER_SM`` blocks an SM, no more than the tiles. Raises
+    ``ValueError`` for an empty map."""
+    if min(batch, h, w) < 1:
+        raise ValueError(f"mixer_plan: map ({batch}, {_CIN}, {h}, {w})")
+    th, tw = MIXER_TILE
+    tiles = batch * _cdiv(h, th) * _cdiv(w, tw)
+    smem = 4 * (_W_MAX + _VS + _C * th * tw)
+    if smem > SMEM_MAX:
+        raise ValueError(f"mixer_plan: {smem} bytes of shared memory")
+    return MixerPlan(MIXER_TILE, min(tiles, SMS * MIXER_BLOCKS_PER_SM),
+                     MIXER_THREADS, smem, 3 * batch * _C * h * w + 4)
+
+
+# csrc/fused_mixer.cu's fused_mixer(x, params, y, ws, B, H, W,
+# low_precision, stop, grid, threads, smem, ws_floats, stream)
+MIXER_ARGTYPES = [_P, _P, _P, _P] + [_I] * 8 + [ctypes.c_longlong, _P]
+
+
 @functools.cache
 def _lib():
     lib = _build.load("fused_mixer")
-    lib.fused_mixer.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+    lib.fused_mixer.argtypes = MIXER_ARGTYPES
     lib.fused_mixer.restype = _I
     lib.mixer_params_size.argtypes = []
     lib.mixer_params_size.restype = _I
-    lib.mixer_workspace_floats.argtypes = [_I, _I, _I]
-    lib.mixer_workspace_floats.restype = ctypes.c_longlong
     return lib
 
 
@@ -256,9 +309,9 @@ def mixer(x: torch.Tensor, consts: dict, steps: bool = False):
     bf16: the kernel on CUDA tensors, the plain version on CPU tensors.
     The form follows ``x``'s dtype, as in the other wrappers. With
     ``steps`` (for a check; the model never asks) the list of what each of
-    the kernel's seven launches writes (``STEPS``: ``{name: tensor}``, the
-    workspace's in fp32), each launch run on the kernel's own earlier
-    ones."""
+    the kernel's seven phases writes (``STEPS``: ``{name: tensor}``, the
+    workspace's in fp32): a launch that stops after each phase in turn,
+    each phase on the kernel's own earlier ones."""
     if x.ndim != 4 or x.shape[1] != _CIN or x.shape[2] == 0 \
             or x.shape[3] == 0:
         raise ValueError(f"mixer: input {tuple(x.shape)}; the kernel takes "
@@ -276,14 +329,15 @@ def mixer(x: torch.Tensor, consts: dict, steps: bool = False):
     if packed.dtype != torch.float32:
         raise TypeError(f"mixer: packed parameters {packed.dtype}")
     b, _, h, w = x.shape
-    ws = torch.empty(lib.mixer_workspace_floats(b, h, w), device=x.device,
-                     dtype=torch.float32)
+    plan = mixer_plan(b, h, w)
+    ws = torch.empty(plan.workspace, device=x.device, dtype=torch.float32)
     out = torch.empty((b, _C, 2 * h, 2 * w), device=x.device, dtype=x.dtype)
 
     def run(stop):
         err = lib.fused_mixer(x.data_ptr(), packed.data_ptr(), out.data_ptr(),
                               ws.data_ptr(), b, h, w, int(form == "bf16"),
-                              stop, stream_handle(x))
+                              stop, plan.grid, plan.threads, plan.smem,
+                              plan.workspace, stream_handle(x))
         _build.check(err, "mixer")
 
     if not steps:
@@ -291,8 +345,8 @@ def mixer(x: torch.Tensor, consts: dict, steps: bool = False):
         count_launch(mixer, form)
         return out
     # the workspace's three maps (csrc/fused_mixer.cu: V, T, U), and where
-    # each launch writes its outputs
-    maps = dict(zip("VTU", ws.view(3, b, _C, h, w)))
+    # each phase writes its outputs
+    maps = dict(zip("VTU", ws[:3 * b * _C * h * w].view(3, b, _C, h, w)))
     where = ({"v": "V", "t": "T"}, {"u": "U"}, {"x2": "T"},
              {"v": "V", "u": "U"}, {"t": "T"}, {"x2": "U"}, {})
     outs = []
