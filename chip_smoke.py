@@ -104,7 +104,12 @@ version:
      generator; last among them, F's deploy kernel and H's fused
      transposed + 1x1x1 conv at ragged tiles, each step on its own input
      (``check_ragged_stem_up_tiles``, a [3] check placed here so that no
-     earlier draw moves);
+     earlier draw moves), then A's and I's ragged tiles and their CUDA
+     graphs, then kernel B in every form under each of its block shapes
+     at column tiles that leave ragged edges and F's fp32 form at odd
+     stem_4 widths
+     (``check_ragged_volume_stem_tiles``), and B's served forms and F's
+     fp32 form captured into CUDA graphs;
   5. for each path, launch counters set to 0, then 3 requests served
      through ``InferenceRunner`` (uint8 540x960 pairs; 375x1242 for C):
      shape, finiteness and time of each; every kernel of the path must
@@ -114,7 +119,9 @@ version:
      none); the shared conv as often as those kernels run it (2 a C, 1
      an E, 2 a G level, 1 an H level), in the path's form, and each conv
      row's shape at least once on its path; H's fused transposed + 1x1x1
-     launch (``up_cat_bf16``) once a bf16 H level, never in fp32;
+     launch (``up_cat_bf16``) once a bf16 H level, never in fp32; the
+     separate normalisation (``l2_normalize_pair``) once a normalised E
+     call and never for B, whose normalised forms are one launch;
   6. a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and last
      ``{"ok": true, "device": {...}}``.
 
@@ -253,6 +260,7 @@ MIXER_MACS = (32 * 9 * 16
 # time for their work, though these first forms run fp32 FMA.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12
 BF16_FLOPS_PER_S = 989e12
 
 
@@ -848,7 +856,10 @@ def check_stems(model, gen, path) -> dict:
     b, _, h, w = img.shape
     px2, px4 = b * (h // 2) * (w // 2), b * (h // 4) * (w // 4)
     macs = px2 * c2 * (3 + c2) * 9 + px4 * c4 * (c2 + c4) * 9
-    bms, by = bound(nbytes(img, *consts.values(), *got), 2 * macs)
+    # the kernel's work: three TF32 products (3xTF32) a multiply-add on the
+    # tensor cores
+    bms, by = bound(nbytes(img, *consts.values(), *got), 3 * 2 * macs,
+                    TF32_FLOPS_PER_S)
     torch_w = {k: v.permute(3, 0, 1, 2).contiguous()
                for k, v in consts.items() if v.ndim == 4}
 
@@ -862,7 +873,7 @@ def check_stems(model, gen, path) -> dict:
                                 padding=1))
         return x
 
-    return {"name": "stems", "form": f"{c2}, {c4}",
+    return {"name": "stems", "form": f"{c2}, {c4} fp32 (3xTF32)",
             "model": variant(model)[0], "path": path, "route": "cuda",
             "source": "esmstereo_tpu_torch/csrc/fused_stems.cu",
             "replaces": "esmstereo_tpu/ops/pallas/fused_stems.py:174",
@@ -870,7 +881,8 @@ def check_stems(model, gen, path) -> dict:
             "ms": cuda_ms(lambda: fused_stems.stems(img, consts, approx)),
             "plain_ms": cuda_ms(lambda: fused_stems.stems_plain(
                 img, consts, approx)),
-            "bound_ms": bms, "bound_by": by, "library_ms": cuda_ms(library)}
+            "bound_ms": bms, "bound_by": by,
+            "library_ms": cuda_ms(library)}
 
 
 def check_mixer(model, gen) -> dict:
@@ -2077,22 +2089,33 @@ def check_graph_capture(model, gen) -> None:
     calls["mixer fp32"] = lambda: fused_mixer.mixer(x, fp)
     calls["mixer bf16"] = lambda: fused_mixer.mixer(x.to(torch.bfloat16), low)
     for name, fn in calls.items():
-        eager = fn()
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            fn()
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            out = fn()
-        graph.replay()
-        torch.cuda.synchronize()
-        print(f"  {name}: captured into a CUDA graph; the replay "
-              f"{'equals' if torch.equal(out, eager) else 'differs from'} "
-              f"the eager call bit for bit")
-        require(torch.equal(out, eager),
-                f"{name}: the graph's replay differs from the eager call")
+        replay_equals_eager(name, fn)
+
+
+def replay_equals_eager(name: str, fn) -> None:
+    """``fn`` (returning a tensor or a tuple of them) captured into a CUDA
+    graph: its replay must equal the eager call bit for bit (a launch that
+    cannot be captured raises)."""
+    def outs():
+        out = fn()
+        return out if isinstance(out, tuple) else (out,)
+
+    eager = outs()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        outs()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = outs()
+    graph.replay()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(out, eager))
+    print(f"  {name}: captured into a CUDA graph; the replay "
+          f"{'equals' if same else 'differs from'} the eager call bit for "
+          f"bit")
+    require(same, f"{name}: the graph's replay differs from the eager call")
 
 
 def check_mixer_steps(name: str, x: torch.Tensor, low: dict) -> None:
@@ -2119,6 +2142,98 @@ def check_mixer_steps(name: str, x: torch.Tensor, low: dict) -> None:
     compare_ulps(f"{name}: the chain", got, fused_mixer.mixer_plain(x, low),
                  MIXER_ULPS)
     require_each_rounding_seen(name, x, got, low)
+
+
+def check_ragged_volume_stem_tiles(model, s_gwc, gen) -> None:
+    """Kernel B's plans and F's fp32 form at ragged shapes: B in every
+    form at W not a multiple of its block's columns (70 = 64 + 6, 33 = 32
+    + 1) and D not of its thread rows (13, 7), under the plan of each of
+    the source's blocks (``corr_plan``'s among them), each against its
+    plain version at the
+    tolerances of [3] (fp32 1e-5, bf16 gwc bit for bit, normalised bf16
+    ``compare_volume_ulps``); F's fp32 form at both widths, its stem_4 at
+    widths that are not a multiple of 8 (an odd one too), each StemBlock on
+    its own input within 1e-4 of max|plain|. Then B at 200 shifts, whose
+    window takes more than a block's default 48 KB of shared memory (the
+    entry point opts in), after F's draws so that they do not move."""
+    dev = torch.device("cuda")
+
+    def volumes(shape, d):
+        b, c, h, w = shape
+        ref = torch.randn(shape, generator=gen).to(dev)
+        tgt = torch.randn(shape, generator=gen).to(dev)
+        for form, (g, norm) in FORMS.items():
+            for blk in correlation.BLOCKS:
+                plan = correlation.make_plan(b, c, g, h, w, d, norm, *blk)
+                name = (f"correlation_volume {form} {shape}, D={d}, block "
+                        f"{blk}")
+                compare(name, correlation.volume_kernel(
+                            ref, tgt, d, g, norm, True, plan),
+                        correlation.correlation_volume_plain(ref, tgt, d, g,
+                                                             norm),
+                        1e-5, floor=0.0 if norm else 1.0, min_peak=1e-3)
+                rb, tb = ref.bfloat16(), tgt.bfloat16()
+                for rounding in (True, False):
+                    got = correlation.volume_kernel(rb, tb, d, g, norm,
+                                                    rounding, plan)
+                    want = correlation.correlation_volume_plain(
+                        rb, tb, d, g, norm, rounding)
+                    bname = (f"{name} bf16 ({'B' if rounding else 'D'}'s "
+                             f"rounding)")
+                    if norm:
+                        compare_volume_ulps(bname, got, want)
+                    else:
+                        print(f"  {bname}: {apart(got, want):.3e} of the "
+                              f"entries differ (tolerance: none)")
+                        require(torch.equal(got, want), bname)
+    for shape, d in (((2, 64, 5, 70), 13), ((1, 64, 3, 33), 7)):
+        volumes(shape, d)
+    for net in (model, s_gwc):
+        consts = fused_stems.prepare_consts(net.stem_2, net.stem_4)
+        approx = blocks.GELU_APPROXIMATE
+        for shape in ((2, 3, 36, 88), (1, 3, 44, 36), (1, 3, 52, 60)):
+            img = torch.randn(shape, generator=gen).to(dev)
+            if fused_stems.widths(consts)[1] % 16:
+                img = img * 4.0
+            s2, s4 = fused_stems.stems(img, consts, approx)
+            name = f"stems fp32 {fused_stems.widths(consts)} {shape}"
+            compare(f"{name}: stem_2 {tuple(s2.shape)}", s2,
+                    fused_stems.stem_block_plain(img, consts, "2", approx),
+                    1e-4, floor=0.0)
+            compare(f"{name}: stem_4 {tuple(s4.shape)} on its own stem_2", s4,
+                    fused_stems.stem_block_plain(s2, consts, "4", approx),
+                    1e-4, floor=0.0)
+    require(min(correlation.make_plan(1, 64, 32, 2, 230, 200, False,
+                                      *blk).smem
+                for blk in correlation.BLOCKS) > 48 * 1024,
+            "B at 200 shifts: a window within the default shared memory")
+    volumes((1, 64, 2, 230), 200)
+
+
+def check_graph_capture_volume_stems(model, m_norm, s_gwc, gen) -> None:
+    """Kernel B in every form a path serves (gwc at L in fp32 and bf16, the
+    normalised G = 1 form at M in fp32 and bf16) and F's fp32 form at L's
+    and S's widths, at the main path's shapes, captured into a CUDA graph:
+    each replay must equal the eager call bit for bit."""
+    calls = {}
+    for net, g, norm in ((model, 32, False), (m_norm, 1, True)):
+        shape = desc_shape(net)
+        ref = torch.randn(shape, generator=gen).cuda()
+        tgt = torch.randn(shape, generator=gen).cuda()
+        for dt in (torch.float32, torch.bfloat16):
+            r, t = ref.to(dt), tgt.to(dt)
+            calls[f"correlation_volume {'norm' if norm else 'gwc'} "
+                  f"{variant(net)} {dt}"] = (
+                lambda r=r, t=t, d=net.num_bins, g=g, n=norm:
+                (correlation.correlation_volume(r, t, d, g, n),))
+    img = torch.randn((2, 3, *PADDED), generator=gen).cuda()
+    for net in (model, s_gwc):
+        consts = fused_stems.prepare_consts(net.stem_2, net.stem_4)
+        calls[f"stems fp32 {fused_stems.widths(consts)}"] = (
+            lambda c=consts: fused_stems.stems(img, c,
+                                               blocks.GELU_APPROXIMATE))
+    for name, fn in calls.items():
+        replay_equals_eager(name, fn)
 
 
 def check_ragged_deploy(model, m_norm, s_gwc, gen) -> None:
@@ -2817,6 +2932,13 @@ def main() -> int:
     print("[3] kernels A and I captured into a CUDA graph")
     with torch.inference_mode():
         check_graph_capture(model, gen)
+    print("[3] ragged tiles of kernel B and of F's fp32 form")
+    with torch.inference_mode():
+        check_ragged_volume_stem_tiles(model, s_gwc, gen)
+    print("[3] kernel B's served forms and F's fp32 form captured into a "
+          "CUDA graph")
+    with torch.inference_mode():
+        check_graph_capture_volume_stems(model, m_norm, s_gwc, gen)
 
     nets = {"default": model, "M": m_gwc, "M-norm": m_norm, "S": s_gwc,
             "S-norm": s_norm}
@@ -2931,13 +3053,21 @@ def main() -> int:
                 f"{conv_forms[path]} in {REQUESTS} requests on the {path} "
                 f"path (want {want_forms})")
     # H's deploy form: its fused transposed + 1x1x1 conv once a bf16
-    # up_pair call (then the shared conv, counted above), never in fp32
+    # up_pair call (then the shared conv, counted above), never in fp32;
+    # the separate normalisation once a normalised E call, in E's form,
+    # and never for B, whose normalised forms are one launch
     for path in want:
         n = forms[path]["up_pair"].get("bf16", 0)
-        require(step_launches[path] == {"up_cat_bf16": {"bf16": n} if n
-                                        else {}},
-                f"up_cat_bf16 launched {step_launches[path]} on the {path} "
-                f"path (want {n} in bf16, one a bf16 up_pair call)")
+        norm_e = (forms[path]["volume_stem_agg"]
+                  if nets[path].config.cost_volume == "norm_correlation"
+                  else {})
+        steps_want = {"up_cat_bf16": {"bf16": n} if n else {},
+                      "l2_normalize_pair": norm_e}
+        require(step_launches[path] == steps_want,
+                f"the steps launched {step_launches[path]} on the {path} "
+                f"path (want {steps_want}: up_cat_bf16 once a bf16 up_pair "
+                f"call, l2_normalize_pair once a normalised volume_stem_agg "
+                f"call)")
     # the forms each path launched: the deploy forms on the deploy paths
     # only, and nothing but fp32 elsewhere
     gwc_bf16 = {"fused_stage0": "bf16", "correlation_volume": "bf16",

@@ -2,10 +2,33 @@
 device time, whether it repeats bit for bit, kernel E's fp32 row, and
 whether L-deploy's forward repeats under cuDNN's default and deterministic
 algorithms; kernels F's and H's deploy forms launch by launch; and kernels
-A and I launch by launch.
+A and I launch by launch; and kernels B and F's fp32 form launch by
+launch.
 
     python3 -m esmstereo_tpu_torch.eval.conv_repeat [--reps 30] [--fh-only]
     python3 -m esmstereo_tpu_torch.eval.conv_repeat --ai-only [--reps 30]
+    python3 -m esmstereo_tpu_torch.eval.conv_repeat --bf-only [--reps 30]
+
+``--bf-only`` times one call of kernel B
+(``correlation.correlation_volume``) in every form a served path builds,
+on unit-normal (1, 64, H/v, W/v) descriptors (bf16 on the deploy paths):
+gwc at L, M and S and at L's unpadded 544 x 960 (``bench.py``'s frame),
+norm-correlation (G = 1) at M, S and C (C at 384 x 1248), each in fp32
+and in bf16 (B's rounding); at M's shapes the forms no path builds
+(gwc_norm in fp32 and bf16, D's rounding of the three bf16 forms); and
+of kernel F's fp32 form
+(``fused_stems.stems``, the nets' own StemBlocks) on both eyes'
+unit-normal fp32 image at 544 x 992, at L's widths (32, 48) and S's
+(16, 24). Each as ``--ai-only`` reports it (device time in a CUDA graph,
+split by CUDA kernel, repeats that differ). It calls only the wrappers'
+public functions, so copied into an older checkout it times that
+checkout's kernels.
+
+``--bf-plans`` (this checkout only) times kernel B in each of those
+forms under the plan of each block shape the source has an instance of
+(``correlation.BLOCKS``), ``corr_plan``'s starred, and kernel F's fp32 form with each StemBlock at each
+tile the source has an instance of (``fused_stems.STEM_INSTANCES``),
+device time a call in a CUDA graph and by launch.
 
 ``--ai-only`` times one call of kernel A (``fused_head.fused_stage0``, the
 nets' own stage-0 weights) on both eyes' unit-normal fp32 image at L's
@@ -239,6 +262,126 @@ def head_and_mixer(gen, reps: int) -> None:
                 print(f"    {t:.4f} ms  x{n:g}  {name[:120]}", flush=True)
 
 
+# (path, config, padded frame, G, normalize, dtype[, B's rounding]) of each
+# form of kernels B and D that ``--bf-only`` times: every served one, then
+# at M's shapes those no path builds (gwc_norm; D's bf16 rounding)
+BF_VOLUMES = (
+    ("L", "L", chip_smoke.PADDED, 32, False, torch.float32),
+    ("L-deploy", "L", chip_smoke.PADDED, 32, False, torch.bfloat16),
+    ("L 544x960", "L", (544, 960), 32, False, torch.float32),
+    ("L-deploy 544x960", "L", (544, 960), 32, False, torch.bfloat16),
+    ("M", "M", chip_smoke.PADDED, 32, False, torch.float32),
+    ("M-deploy", "M", chip_smoke.PADDED, 32, False, torch.bfloat16),
+    ("M-norm", "M", chip_smoke.PADDED, 1, True, torch.float32),
+    ("M-norm-deploy", "M", chip_smoke.PADDED, 1, True, torch.bfloat16),
+    ("S", "S", chip_smoke.PADDED, 32, False, torch.float32),
+    ("S-deploy", "S", chip_smoke.PADDED, 32, False, torch.bfloat16),
+    ("S-norm", "S", chip_smoke.PADDED, 1, True, torch.float32),
+    ("S-norm-deploy", "S", chip_smoke.PADDED, 1, True, torch.bfloat16),
+    ("C", "S", chip_smoke.KITTI_PADDED, 1, True, torch.float32),
+    ("C-deploy", "S", chip_smoke.KITTI_PADDED, 1, True, torch.bfloat16),
+    ("gwc_norm at M", "M", chip_smoke.PADDED, 32, True, torch.float32),
+    ("gwc_norm bf16 at M", "M", chip_smoke.PADDED, 32, True, torch.bfloat16),
+    ("D's gwc bf16 at M", "M", chip_smoke.PADDED, 32, False, torch.bfloat16,
+     False),
+    ("D's gwc_norm bf16 at M", "M", chip_smoke.PADDED, 32, True,
+     torch.bfloat16, False),
+    ("D's norm bf16 at M", "M", chip_smoke.PADDED, 1, True, torch.bfloat16,
+     False))
+
+
+def timed(what: str, fn, reps: int) -> None:
+    """One call of ``fn``: device ms in a CUDA graph, the repeats that
+    differ, and the split by CUDA kernel."""
+    ms = graph_ms(fn)
+    first = fn()
+    differ = sum(any(not torch.equal(a, b) for a, b in zip(fn(), first))
+                 for _ in range(reps))
+    print(f"{what}: {ms:.4f} ms a call, {differ} of {reps} repeats "
+          f"differ", flush=True)
+    for t, n, name in launch_split(fn):
+        print(f"    {t:.4f} ms  x{n:g}  {name[:120]}", flush=True)
+
+
+def volumes_and_stems(gen, reps: int) -> None:
+    """Kernel B in every served form and kernel F's fp32 form, launch by
+    launch (``--bf-only``; see the module's docstring)."""
+    from esmstereo_tpu_torch.ops.kernels import correlation
+
+    with torch.inference_mode():
+        for path, var, padded, g, norm, dtype, *rounding in BF_VOLUMES:
+            net = ESMStereo(CONFIGS[var], device="meta")
+            shape = chip_smoke.desc_shape(net, padded)
+            ref = torch.randn(shape, generator=gen).cuda().to(dtype)
+            tgt = torch.randn(shape, generator=gen).cuda().to(dtype)
+
+            def fn(r=ref, t=tgt, d=net.num_bins, g=g, n=norm,
+                   rnd=rounding[0] if rounding else True):
+                return (correlation.correlation_volume(r, t, d, g, n, rnd),)
+
+            form = ("norm" if g == 1 else "gwc_norm") if norm else "gwc"
+            timed(f"B {path} {form} {tuple(shape)} D={net.num_bins} "
+                  f"{dtype}", fn, reps)
+        img = torch.randn((2, 3, *chip_smoke.PADDED), generator=gen).cuda()
+        for var in ("L", "S"):
+            net = ESMStereo(CONFIGS[var], device="cuda",
+                            seed=chip_smoke.SEED)
+            consts = fused_stems.prepare_consts(net.stem_2, net.stem_4)
+
+            def fn(c=consts):
+                return fused_stems.stems(img, c, False)
+
+            timed(f"F fp32 {fused_stems.widths(consts)} "
+                  f"{tuple(img.shape)}", fn, reps)
+
+
+def volume_plans_and_stem_tiles(gen) -> None:
+    """Kernel B under every plan and F's fp32 form at every tile
+    (``--bf-plans``; see the module's docstring)."""
+    from esmstereo_tpu_torch.ops.kernels import correlation
+
+    with torch.inference_mode():
+        for path, var, padded, g, norm, dtype, *_ in BF_VOLUMES:
+            net = ESMStereo(CONFIGS[var], device="meta")
+            b, c, h, w = chip_smoke.desc_shape(net, padded)
+            ref = torch.randn((b, c, h, w), generator=gen).cuda().to(dtype)
+            tgt = torch.randn((b, c, h, w), generator=gen).cuda().to(dtype)
+            d = net.num_bins
+            es = ref.element_size()
+            chosen = correlation.corr_plan(b, c, g, h, w, d, norm, es)
+            times = []
+            for blk in correlation.BLOCKS:
+                plan = correlation.make_plan(b, c, g, h, w, d, norm, *blk, es)
+                ms = graph_ms(lambda p=plan: correlation.volume_kernel(
+                    ref, tgt, d, g, norm, True, p))
+                times.append(f"{plan.columns}x{plan.rows}"
+                             f"{'*' if plan == chosen else ''} {ms:.4f}")
+            print(f"B {path} {(b, c, h, w)} D={d}, columns x rows ms: "
+                  + ", ".join(times), flush=True)
+        img = torch.randn((2, 3, *chip_smoke.PADDED), generator=gen).cuda()
+        for var in ("L", "S"):
+            net = ESMStereo(CONFIGS[var], device="cuda",
+                            seed=chip_smoke.SEED)
+            consts = fused_stems.prepare_consts(net.stem_2, net.stem_4)
+            c2, c4 = fused_stems.widths(consts)
+            for key in (("fp32", 3, c2), ("fp32", c2, c4)):
+                tiles = sorted(i[3:] for i in fused_stems.STEM_INSTANCES
+                               if i[:3] == key)
+                kept = fused_stems.STEM_TILES[key]
+                for tile in tiles:
+                    fused_stems.STEM_TILES[key] = tile
+                    fused_stems._plan_ints.cache_clear()
+                    fn = lambda c=consts: fused_stems.stems(  # noqa: E731
+                        img, c, False)
+                    print(f"F {key} tile {tile}{'*' if tile == kept else ''}"
+                          f": {graph_ms(fn):.4f} ms a call", flush=True)
+                    for t, n, name in launch_split(fn):
+                        print(f"    {t:.4f} ms  x{n:g}  {name[:100]}",
+                              flush=True)
+                fused_stems.STEM_TILES[key] = kept
+                fused_stems._plan_ints.cache_clear()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=30)
@@ -246,6 +389,12 @@ def main() -> None:
                     help="time kernels F and H launch by launch, and stop")
     ap.add_argument("--ai-only", action="store_true",
                     help="time kernels A and I launch by launch, and stop")
+    ap.add_argument("--bf-only", action="store_true",
+                    help="time kernel B's served forms and F's fp32 form "
+                         "launch by launch, and stop")
+    ap.add_argument("--bf-plans", action="store_true",
+                    help="time kernel B under every plan and F's fp32 form "
+                         "at every tile, and stop")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("conv_repeat: no CUDA device")
@@ -256,6 +405,12 @@ def main() -> None:
     gen = torch.Generator().manual_seed(7)
     if args.ai_only:
         head_and_mixer(gen, args.reps)
+        return
+    if args.bf_only:
+        volumes_and_stems(gen, args.reps)
+        return
+    if args.bf_plans:
+        volume_plans_and_stem_tiles(gen)
         return
     with chip_smoke.tanh_gelu():
         stems_and_up_pairs(gen)

@@ -55,7 +55,10 @@ CPU), laid out per shape by ``fused_hourglass.conv_plan``; its wrappers
 (``conv_wrappers``) count their launches too, by form and by shape. Kernel
 H's deploy form launches two kernels a call, ``fused_hourglass.up_cat_bf16``
 (its transposed and 1x1x1 convs, on CUDA tensors only) and then the shared
-conv; ``step_wrappers`` counts the first.
+conv; ``step_wrappers`` counts the first. Kernel E's normalised form
+launches ``correlation.l2_normalize_pair`` before its kernel, which
+``step_wrappers`` counts too; kernels B and D normalise inside their one
+launch.
 
 A wrapper runs the plain version when its tensors lie on the CPU and
 launches its kernel when they lie on a CUDA device, raising on anything the
@@ -108,10 +111,13 @@ def conv_wrappers() -> dict:
 def step_wrappers() -> dict:
     """``{name: wrapper}`` of the launches inside another wrapper's call
     that count on their own: kernel H's fused transposed + 1x1x1 conv in
-    its deploy form, one a bf16 ``up_pair`` call."""
-    from esmstereo_tpu_torch.ops.kernels import fused_hourglass
+    its deploy form, one a bf16 ``up_pair`` call; the normalisation of
+    kernel E's normalised form, one a normalised ``volume_stem_agg``
+    call."""
+    from esmstereo_tpu_torch.ops.kernels import correlation, fused_hourglass
 
-    return {"up_cat_bf16": fused_hourglass.up_cat_bf16}
+    return {"up_cat_bf16": fused_hourglass.up_cat_bf16,
+            "l2_normalize_pair": correlation.l2_normalize_pair}
 
 
 def on_cuda(what: str, *tensors: torch.Tensor,

@@ -21,12 +21,14 @@ image stays fp32 in both forms.
 
 On CUDA a call launches two kernels, one per StemBlock, each with its
 conv_down map in shared memory only; it counts as one launch, by form in
-``form_launches``. The fp32 form runs fp32 FMA loops; the deploy form runs
-both convs of a StemBlock as implicit GEMMs on the tensor cores
-(``mma.sync``, bf16 operands, fp32 sums), each StemBlock as ``stem_plan``
-lays it out (its tile of output pixels, its shared memory), which the C
-entry point checks against its own count. H and W must be multiples of 4
-(the model pads to /32); anything else raises.
+``form_launches``. Both forms run both convs of a StemBlock as implicit
+GEMMs on the tensor cores (``mma.sync``, fp32 sums) in one kernel: the
+fp32 form on fp32 operands in 3xTF32 (each operand split into two TF32
+parts, three products of the four), the deploy form on bf16 operands.
+Each StemBlock launches as ``stem_plan`` lays it out (its tile of output
+pixels, its shared memory), which the C entry point checks against its
+own count. H and W must be multiples of 4 (the model pads to /32);
+anything else raises.
 """
 
 from __future__ import annotations
@@ -48,43 +50,58 @@ _I = ctypes.c_int
 _KEYS = ("wd2", "td2", "wc2", "tc2", "wd4", "td4", "wc4", "tc4")
 # (C2, C4): the stems' widths the kernel has an instance for
 WIDTHS = frozenset({(32, 48), (16, 24)})
-# the deploy form's tile of output pixels (rows, columns) of each StemBlock
+# the forms: "fp32" (fp32 operands in 3xTF32) and "bf16" (the deploy form)
+FORMS = ("fp32", "bf16")
+# each form's tile of output pixels (rows, columns) of each StemBlock
 # (CI -> C) of ``WIDTHS``: of (8, 32) and (8, 16), the faster on the H100
-# at 544 x 992 (device time, both eyes: L's stem_2 0.1210 against 0.1291
-# ms, its stem_4 0.0862 against 0.0893; S's 0.0565 against 0.0736 and
-# 0.0275 against 0.0331), and the kernel's instances (CI, C, rows,
-# columns), the same list as ``csrc/fused_stems.cu``'s ``STEM_INSTANCES``.
-STEM_TILES = {(3, 32): (8, 32), (32, 48): (8, 16), (3, 16): (8, 16),
-              (16, 24): (8, 16)}
-STEM_INSTANCES = frozenset((ci, c, *tile)
-                           for (ci, c), tile in STEM_TILES.items())
+# at 544 x 992 (device time, both eyes). The deploy form: L's stem_2
+# 0.1210 against 0.1291 ms, its stem_4 0.0862 against 0.0893; S's 0.0565
+# against 0.0736 and 0.0275 against 0.0331. The fp32 form
+# (``eval/conv_repeat.py --bf-plans``): L's stem_2 0.1713 against 0.1852,
+# S's 0.0754 against 0.0824 and its stem_4 0.0669 against 0.0686 at (8,
+# 32); L's stem_4 only (8, 16), the one tile at which two of its blocks
+# share an SM.
+STEM_TILES = {("fp32", 3, 32): (8, 32), ("fp32", 32, 48): (8, 16),
+              ("fp32", 3, 16): (8, 32), ("fp32", 16, 24): (8, 16),
+              ("bf16", 3, 32): (8, 32), ("bf16", 32, 48): (8, 16),
+              ("bf16", 3, 16): (8, 16), ("bf16", 16, 24): (8, 16)}
+# the kernel's instances (form, CI, C, rows, columns), the same list as
+# ``csrc/fused_stems.cu``'s ``STEM_INSTANCES``
+STEM_INSTANCES = frozenset((*key, *tile) for key, tile in STEM_TILES.items())
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def stem_smem(ci: int, c: int, th: int, tw: int) -> int:
-    """Bytes of shared memory of one StemBlock's deploy kernel
-    (``StemTile`` in the source): the conv_down map of the tile's
-    (th + 2) x (tw + 2) halo pixels in chunks of 16 bf16 channels; the
-    larger of conv_down's input with its weights of one chunk and the
-    output tile; the conv's weights."""
-    np_, ck = 8 * _cdiv(c, 8), _cdiv(c, 16)
+def stem_smem(ci: int, c: int, th: int, tw: int, form: str = "bf16") -> int:
+    """Bytes of shared memory of one StemBlock's kernel in ``form``
+    (``StemTile`` in the source), in rows of 32 bytes, 16 bf16 or 8 fp32
+    channels each: the conv_down map of the tile's (th + 2) x (tw + 2)
+    halo pixels in chunks of a row; the larger of conv_down's input with
+    its weights of one chunk and the output tile; in the deploy form the
+    conv's weights beside them. The fp32 form keeps each weight twice, its
+    high and low TF32 parts, and passes the conv's weights through that
+    region, as many chunks at a time as it holds (at least one)."""
+    kc, wb = (16, 1) if form == "bf16" else (8, 2)
+    np_, ck = 8 * _cdiv(c, 8), _cdiv(c, kc)
     mp = (th + 2) * (tw + 2)
-    if ci == 3:     # the im2col rows and all the weights, 2 chunks of 16
-        down = 2 * mp * 32 + 2 * np_ * 32
+    if ci == 3:     # the im2col rows and all the weights, 32 (tap, channel)
+        down = 32 // kc * (mp + wb * np_) * 32
     else:           # the stride-2 window of a chunk, its weights
-        down = (2 * (th + 2) + 1) * (2 * (tw + 2) + 1) * 32 + 9 * np_ * 32
-    out = np_ * (th * tw + 8) * 2
-    return ck * mp * 32 + max(down, out) + ck * 9 * np_ * 32
+        down = ((2 * (th + 2) + 1) * (2 * (tw + 2) + 1) * 32
+                + wb * 9 * np_ * 32)
+    region = max(down, np_ * (th * tw + 8) * 32 // kc)
+    if form == "bf16":
+        return ck * mp * 32 + region + ck * 9 * np_ * 32
+    return ck * mp * 32 + max(region, wb * 9 * np_ * 32)
 
 
 @dataclasses.dataclass(frozen=True)
 class StemPlan:
-    """How one StemBlock's deploy form launches: ``ci`` -> ``c`` channels,
-    ``tile`` (rows, columns) of output pixels a block, ``smem`` its bytes
-    of dynamic shared memory."""
+    """How one StemBlock launches: ``ci`` -> ``c`` channels, ``tile``
+    (rows, columns) of output pixels a block, ``smem`` its bytes of dynamic
+    shared memory."""
 
     ci: int
     c: int
@@ -92,22 +109,23 @@ class StemPlan:
     smem: int
 
 
-def stem_plan(ci: int, c: int) -> StemPlan:
-    """The deploy form's plan of a StemBlock ``ci`` -> ``c`` at its tile
-    of ``STEM_TILES``; raises ``ValueError`` for another StemBlock."""
-    if (ci, c) not in STEM_TILES:
-        raise ValueError(f"stem_plan: no instance for {ci} -> {c}")
-    tile = STEM_TILES[(ci, c)]
-    return StemPlan(ci, c, tile, stem_smem(ci, c, *tile))
+def stem_plan(ci: int, c: int, form: str = "bf16") -> StemPlan:
+    """The plan of a StemBlock ``ci`` -> ``c`` in ``form`` at its tile of
+    ``STEM_TILES``; raises ``ValueError`` for another StemBlock."""
+    if (form, ci, c) not in STEM_TILES:
+        raise ValueError(f"stem_plan: no instance for {ci} -> {c} in the "
+                         f"{form} form")
+    tile = STEM_TILES[(form, ci, c)]
+    return StemPlan(ci, c, tile, stem_smem(ci, c, *tile, form))
 
 
 @functools.lru_cache(maxsize=None)
-def _plan_ints(c2: int, c4: int):
-    """The deploy entry point's plan argument for widths (c2, c4): its
-    address and the array (kept alive here), stem_2's (rows, columns,
+def _plan_ints(c2: int, c4: int, form: str):
+    """The entry point's plan argument for widths (c2, c4) in ``form``:
+    its address and the array (kept alive here), stem_2's (rows, columns,
     smem) then stem_4's."""
-    ints = (ctypes.c_int * 6)(*(v for plan in (stem_plan(3, c2),
-                                                stem_plan(c2, c4))
+    ints = (ctypes.c_int * 6)(*(v for plan in (stem_plan(3, c2, form),
+                                                stem_plan(c2, c4, form))
                                 for v in (*plan.tile, plan.smem)))
     return ctypes.addressof(ints), ints
 
@@ -192,13 +210,11 @@ def _check(img: torch.Tensor, consts: dict) -> tuple[int, int]:
 
 
 @functools.cache
-def _fns():
-    lib = _build.load("fused_stems")
-    fp32, low = lib.fused_stems, lib.fused_stems_bf16
-    fp32.argtypes = [_P] * 11 + [_I] * 6 + [_P]
-    low.argtypes = [_P] * 11 + [_I] * 5 + [_P, _I, _P]
-    fp32.restype = low.restype = _I
-    return fp32, low
+def _fn():
+    fn = _build.load("fused_stems").fused_stems
+    fn.argtypes = [_P] * 11 + [_I] * 6 + [_P, _I, _P]
+    fn.restype = _I
+    return fn
 
 
 def stems(img: torch.Tensor, consts: dict, approximate: bool
@@ -221,18 +237,16 @@ def stems(img: torch.Tensor, consts: dict, approximate: bool
         raise TypeError(f"stems: the kernel takes an fp32 image, not "
                         f"{img.dtype}")
     b, _, h, w = img.shape
+    form = "bf16" if low else "fp32"
     out = torch.bfloat16 if low else torch.float32
     s2 = torch.empty((b, c2, h // 2, w // 2), device=img.device, dtype=out)
     s4 = torch.empty((b, c4, h // 4, w // 4), device=img.device, dtype=out)
-    ptrs = (img.data_ptr(), *(consts[k].data_ptr() for k in _KEYS),
-            s2.data_ptr(), s4.data_ptr(), b, h, w, c2, c4)
-    if low:
-        err = _fns()[1](*ptrs, _plan_ints(c2, c4)[0], int(approximate),
-                        stream_handle(img))
-    else:
-        err = _fns()[0](*ptrs, int(approximate), stream_handle(img))
+    err = _fn()(img.data_ptr(), *(consts[k].data_ptr() for k in _KEYS),
+                s2.data_ptr(), s4.data_ptr(), b, h, w, c2, c4, int(low),
+                _plan_ints(c2, c4, form)[0], int(approximate),
+                stream_handle(img))
     _build.check(err, "stems")
-    count_launch(stems, "bf16" if low else "fp32")
+    count_launch(stems, form)
     return s2, s4
 
 

@@ -66,17 +66,23 @@ def up_bytes(nt, th, td):
     return max(slab + weights, skip + cat)
 
 
-def stem_bytes(ci, c, th, tw):
-    """stem_mma_kernel's shared memory, region by region."""
-    np_, chunks = 8 * cdiv(c, 8), cdiv(c, 16)
+def stem_bytes(ci, c, th, tw, form="bf16"):
+    """stem_mma_kernel's shared memory, region by region: rows of 32
+    bytes, 16 bf16 or 8 fp32 channels; in the deploy form the conv's
+    weights beside the window's region, in the fp32 form (each weight as
+    two TF32 planes, high and low) through it."""
+    kc, es, wb = (16, 2, 1) if form == "bf16" else (8, 4, 2)
+    np_, chunks = 8 * cdiv(c, 8), cdiv(c, kc)
     halo = (th + 2) * (tw + 2)
     mid = chunks * halo * 32
     if ci == 3:
-        down = 2 * halo * 32 + 2 * np_ * 32
+        down = 32 // kc * halo * 32 + wb * 32 // kc * np_ * 32
     else:
-        down = (2 * th + 5) * (2 * tw + 5) * 32 + 9 * np_ * 32
-    return (mid + max(down, np_ * (th * tw + 8) * 2)
-            + chunks * 9 * np_ * 32)
+        down = (2 * th + 5) * (2 * tw + 5) * 32 + wb * 9 * np_ * 32
+    region = max(down, np_ * (th * tw + 8) * es)
+    if form == "bf16":
+        return mid + region + chunks * 9 * np_ * 32
+    return mid + max(region, wb * 9 * np_ * 32)
 
 
 @pytest.mark.parametrize("ci,co,ds,hs,ws,d2,h2,w2", UP_CASES)
@@ -114,8 +120,8 @@ def test_up_plan_refuses():
 def test_stem_plan(ci, c):
     plan = fs.stem_plan(ci, c)
     th, tw = plan.tile
-    assert plan.tile == fs.STEM_TILES[(ci, c)]
-    assert (ci, c, th, tw) in fs.STEM_INSTANCES
+    assert plan.tile == fs.STEM_TILES[("bf16", ci, c)]
+    assert ("bf16", ci, c, th, tw) in fs.STEM_INSTANCES
     assert plan.smem == stem_bytes(ci, c, th, tw)
     assert 2 * (plan.smem + 1024) <= SM_SMEM
     assert tw % 16 == 0 and th * tw % 128 == 0
@@ -127,20 +133,22 @@ def test_instances_match_the_sources_and_the_models():
     """The X-lists of ``STEM_INSTANCES`` (fused_stems.cu) and
     ``UP_INSTANCES`` (fused_hourglass.cu) are the Python lists, and those
     cover every StemBlock and up level of L, M and S."""
-    def x_list(source, name, arity):
+    def x_list(source, name, arity, token=False):
         text = (CSRC / source).read_text()
         block = text[text.index(f"#define {name}(X)"):]
         block = block[:block.index("\n\n")]
-        found = re.findall(r"X\(" + ", ".join([r"(\d+)"] * arity) + r"\)",
-                           block)
-        return [tuple(int(v) for v in f) for f in found]
+        fields = [r"(\w+)"] * token + [r"(\d+)"] * arity
+        found = re.findall(r"X\(" + ", ".join(fields) + r"\)", block)
+        return [tuple(v if i < token else int(v) for i, v in enumerate(f))
+                for f in found]
 
-    stems = x_list("fused_stems.cu", "STEM_INSTANCES", 4)
+    stems = x_list("fused_stems.cu", "STEM_INSTANCES", 4, token=True)
     assert len(stems) == len(set(stems)) and set(stems) == fs.STEM_INSTANCES
     ups = x_list("fused_hourglass.cu", "UP_INSTANCES", 3)
     assert len(ups) == len(set(ups)) and set(ups) == fh.UP_INSTANCES
     widths = {(3, c2) for c2, _ in fs.WIDTHS} | set(fs.WIDTHS)
-    assert set(fs.STEM_TILES) == widths
+    assert set(fs.STEM_TILES) == {(form, *w) for form in fs.FORMS
+                                  for w in widths}
     for config in CONFIGS.values():
         for shape in up_levels(config):
             plan = fh.up_plan(*shape)
@@ -159,35 +167,41 @@ def swz(row, half):
     return row * 32 + ((half ^ ((row >> 2) & 1)) << 4)
 
 
-def store(smem, dst, vals):
-    """16-byte stores: vals (..., 8) at byte offsets dst (...)."""
+def store(smem, dst, vals, es=2):
+    """16-byte stores: vals (..., 16 / es) of es bytes each at byte offsets
+    dst (...); smem holds one value every es bytes."""
     assert (dst % 16 == 0).all()
-    smem[dst[..., None] // 2 + np.arange(8)] = vals
+    smem[dst[..., None] // es + np.arange(16 // es)] = vals
 
 
-def a_tiles(smem, addr):
-    """ldmatrix.x4 as mma's A: lane addresses (..., 32) -> (..., 16, 16),
-    lane l giving row A_ROW[l], channels 8 A_HALF[l] .. + 7."""
+def a_tiles(smem, addr, es=2):
+    """ldmatrix.x4 as mma's A: lane addresses (..., 32) -> (..., 16, k),
+    lane l giving row A_ROW[l], values n A_HALF[l] .. + n - 1 (n = 16 /
+    es): the m16n8k16 bf16 fragment (k 16), or the m16n8k8 tf32 one (k 8:
+    ldmatrix hands lane l the 32-bit word l % 4 of row l / 4)."""
     assert (addr % 16 == 0).all()
-    rows = smem[addr[..., None] // 2 + np.arange(8)]
-    out = np.empty((*addr.shape[:-1], 16, 16))
-    out[..., A_ROW[:, None], A_HALF[:, None] * 8 + np.arange(8)] = rows
+    n = 16 // es
+    rows = smem[addr[..., None] // es + np.arange(n)]
+    out = np.empty((*addr.shape[:-1], 16, 2 * n))
+    out[..., A_ROW[:, None], A_HALF[:, None] * n + np.arange(n)] = rows
     return out
 
 
-def b_tiles(smem, base, row0, nt):
-    """``load_b``: B (16 k, 8 nt n) from rows row0 + n of a [row][16]
-    layout, ldmatrix.x4 a pair of n-tiles, .x2 (lanes 0-15) the last."""
-    out = np.empty((16, 8 * nt))
+def b_tiles(smem, base, row0, nt, es=2):
+    """``load_b``: B (k, 8 nt n) from rows row0 + n of a [row][k] layout
+    (k 16 bf16 or 8 fp32), ldmatrix.x4 a pair of n-tiles, .x2 (lanes 0-15)
+    the last."""
+    n = 16 // es
+    out = np.empty((2 * n, 8 * nt))
     for j in range(0, nt - 1, 2):
-        rows = smem[(base + swz(row0 + j * 8 + B_N, B_HALF))[:, None] // 2
-                    + np.arange(8)]
-        out[B_HALF[:, None] * 8 + np.arange(8), j * 8 + B_N[:, None]] = rows
+        rows = smem[(base + swz(row0 + j * 8 + B_N, B_HALF))[:, None] // es
+                    + np.arange(n)]
+        out[B_HALF[:, None] * n + np.arange(n), j * 8 + B_N[:, None]] = rows
     if nt % 2:
         ln = LANE[:16]
         rows = smem[(base + swz(row0 + (nt - 1) * 8 + (ln & 7),
-                                B_HALF[:16]))[:, None] // 2 + np.arange(8)]
-        out[B_HALF[:16, None] * 8 + np.arange(8),
+                                B_HALF[:16]))[:, None] // es + np.arange(n)]
+        out[B_HALF[:16, None] * n + np.arange(n),
             (nt - 1) * 8 + (ln & 7)[:, None]] = rows
     return out
 
@@ -329,22 +343,46 @@ def test_up_cat_tiling_matches_conv_transpose(ci, co, src_dhw, skip_dhw,
     np.testing.assert_allclose(got, want, rtol=1e-10, atol=1e-9)
 
 
-def stem_emulated(x, wd, wc, tile):
+def store_w(smem, dst, vals, es, lo_off):
+    """Weights staged as the source stages them: in the fp32 form
+    (lo_off > 0) as two planes, high and low parts, here 3/4 and 1/4 of
+    each value (so that both planes' addresses count)."""
+    if lo_off:
+        store(smem, dst, 0.75 * vals, es)
+        store(smem, dst + lo_off, 0.25 * vals, es)
+    else:
+        store(smem, dst, vals, es)
+
+
+def b_w(smem, base, row0, nt, es, lo_off):
+    """``load_b``: the B fragments, in the fp32 form the high plane's plus
+    the low plane's."""
+    b = b_tiles(smem, base, row0, nt, es)
+    return b + b_tiles(smem, base + lo_off, row0, nt, es) if lo_off else b
+
+
+def stem_emulated(x, wd, wc, tile, form="bf16"):
     """stem_mma_kernel's sums on float64 values, its shifts, activations
     and roundings left out, but conv_down's map zeroed outside the
-    StemBlock's output: conv(conv_down(x)), each 3x3 pad 1."""
+    StemBlock's output: conv(conv_down(x)), each 3x3 pad 1. ``form``:
+    rows of 16 bf16 channels (the deploy form), or of 8 fp32 ones (the
+    fp32 form, the conv's weights in passes through the window's
+    region)."""
     b_, ci, h, w = x.shape
     c = wd.shape[-1]
     th, tw = tile
+    kc, es, wb = (16, 2, 1) if form == "bf16" else (8, 4, 2)
+    hv = kc // 2                   # values a 16-byte half
     ho, wo = h // 2, w // 2
     nt = cdiv(c, 8)
-    np_, ck = 8 * nt, cdiv(c, 16)
+    np_, ck = 8 * nt, cdiv(c, kc)
     mw = tw + 2
     mp = (th + 2) * mw
     mt1, mt2 = cdiv(mp, 16), th * tw // 16
     image = ci == 3
-    kd = 2 if image else ci // 16
+    kd = 32 // kc if image else ci // kc
     sh_, se, sw_ = 2 * (th + 2) + 1, mw + 1, 2 * mw + 1
+    wp = ck if form == "bf16" else stem_passes(ci, c, th, tw)
     tiles_w = cdiv(wo, tw)
     y = np.full((b_, c, ho, wo), np.nan)
     mt = np.arange(mt1)
@@ -363,7 +401,7 @@ def stem_emulated(x, wd, wc, tile):
 
             if image:
                 # one halo pixel a thread: k = 3 (3 kh + kw) + channel
-                win = np.full(kd * mp * 16, np.nan)
+                win = np.full(kd * mp * 32 // es, np.nan)
                 p = np.arange(mp)
                 my, mx = p // mw, p % mw
                 vals = np.zeros((mp, 32))
@@ -372,83 +410,94 @@ def stem_emulated(x, wd, wc, tile):
                         for ch in range(3):
                             vals[:, (kh * 3 + kw) * 3 + ch] = window_value(
                                 ch, iy0 + 2 * my + kh, ix0 + 2 * mx + kw)
-                for u in range(4):
+                for u in range(32 // hv):
                     store(win, (u >> 1) * mp * 32 + swz(p, u & 1),
-                          vals[:, 8 * u:8 * u + 8])
-                wsh = np.full(kd * np_ * 16, np.nan)
+                          vals[:, hv * u:hv * u + hv], es)
+                wsh = np.full(wb * kd * np_ * 32 // es, np.nan)
+                lo_off = (wb - 1) * kd * np_ * 32
                 i = np.arange(kd * 2 * np_)
                 n, u = i % np_, i // np_
-                vals = np.zeros((len(i), 8))
-                for j in range(8):
-                    k = 8 * u + j
+                vals = np.zeros((len(i), hv))
+                for j in range(hv):
+                    k = hv * u + j
                     take = (n < c) & (k < 27)
                     tap = k[take] // 3
                     vals[take, j] = wd[k[take] % 3, tap // 3, tap % 3,
                                        n[take]]
-                store(wsh, (u >> 1) * np_ * 32 + swz(n, u & 1), vals)
-                for kc in range(kd):
-                    acc1 += (a_tiles(win, kc * mp * 32 + swz(p_lane, A_HALF))
-                             @ b_tiles(wsh, 0, kc * np_, nt))
+                store_w(wsh, (u >> 1) * np_ * 32 + swz(n, u & 1), vals, es,
+                        lo_off)
+                for kc_ in range(kd):
+                    acc1 += (a_tiles(win, kc_ * mp * 32 + swz(p_lane, A_HALF),
+                                     es)
+                             @ b_w(wsh, 0, kc_ * np_, nt, es, lo_off))
             else:
                 arow = 2 * (p_lane // mw) * sw_ + p_lane % mw
-                for c0 in range(0, ci, 16):
-                    win = np.full(sh_ * sw_ * 16, np.nan)
+                for c0 in range(0, ci, kc):
+                    win = np.full(sh_ * sw_ * 32 // es, np.nan)
                     i = np.arange(2 * sh_ * sw_)
                     sx, sy, u = i % sw_, i // sw_ % sh_, i // (sw_ * sh_)
-                    vals = np.stack([window_value(c0 + 8 * u + j, iy0 + sy,
+                    vals = np.stack([window_value(c0 + hv * u + j, iy0 + sy,
                                                   ix0 + sx)
-                                     for j in range(8)], axis=1)
+                                     for j in range(hv)], axis=1)
                     store(win, swz(sy * sw_ + np.where(sx & 1, se, 0)
-                                   + (sx >> 1), u), vals)
-                    wsh = np.full(9 * np_ * 16, np.nan)
+                                   + (sx >> 1), u), vals, es)
+                    wsh = np.full(wb * 9 * np_ * 32 // es, np.nan)
+                    lo_off = (wb - 1) * 9 * np_ * 32
                     i = np.arange(9 * np_ * 2)
                     n, tap, u = i % np_, i // np_ % 9, i // (9 * np_)
-                    vals = np.zeros((len(i), 8))
-                    for j in range(8):
+                    vals = np.zeros((len(i), hv))
+                    for j in range(hv):
                         take = n < c
-                        vals[take, j] = wd[(c0 + 8 * u + j)[take],
+                        vals[take, j] = wd[(c0 + hv * u + j)[take],
                                            tap[take] // 3, tap[take] % 3,
                                            n[take]]
-                    store(wsh, swz(tap * np_ + n, u), vals)
+                    store_w(wsh, swz(tap * np_ + n, u), vals, es, lo_off)
                     for kh in range(3):
                         for kw in range(3):
                             toff = kh * sw_ + (se if kw == 1 else kw // 2)
-                            acc1 += (a_tiles(win, swz(arow + toff, A_HALF))
-                                     @ b_tiles(wsh, 0, (kh * 3 + kw) * np_,
-                                               nt))
+                            acc1 += (a_tiles(win, swz(arow + toff, A_HALF),
+                                             es)
+                                     @ b_w(wsh, 0, (kh * 3 + kw) * np_, nt,
+                                           es, lo_off))
             # the map: zero outside the output and past C
-            mid = np.full(ck * mp * 16, np.nan)
+            mid = np.full(ck * mp * 32 // es, np.nan)
             p = np.arange(mp)
             gy, gx = oy0 - 1 + p // mw, ox0 - 1 + p % mw
             inside = (gy >= 0) & (gy < ho) & (gx >= 0) & (gx < wo)
             sums = acc1.reshape(-1, np_)[:mp]
             for half in range(2 * ck):
-                ch = 8 * half + np.arange(8)
-                vals = np.zeros((mp, 8))
-                if 8 * half < np_:
+                ch = hv * half + np.arange(hv)
+                vals = np.zeros((mp, hv))
+                if hv * half < np_:
                     vals = np.where(inside[:, None] & (ch < c),
                                     sums[:, ch % np_], 0.0)
-                store(mid, (half >> 1) * mp * 32 + swz(p, half & 1), vals)
-            wsh = np.full(ck * 9 * np_ * 16, np.nan)
-            i = np.arange(ck * 9 * np_ * 2)
-            n, tap, u = i % np_, i // np_ % 9, i // (9 * np_)
-            cc = (u >> 1) * 16 + 8 * (u & 1)
-            vals = np.zeros((len(i), 8))
-            for j in range(8):
-                take = (n < c) & (cc + j < c)
-                vals[take, j] = wc[(cc + j)[take], tap[take] // 3,
-                                   tap[take] % 3, n[take]]
-            store(wsh, swz(((u >> 1) * 9 + tap) * np_ + n, u & 1), vals)
+                store(mid, (half >> 1) * mp * 32 + swz(p, half & 1), vals, es)
             q = np.arange(mt2)[:, None] * 16 + A_ROW
             mrow = (q // tw) * mw + q % tw
             acc = np.zeros((mt2, 16, np_))
-            for k in range(ck):
-                for kh in range(3):
-                    for kw in range(3):
-                        acc += (a_tiles(mid, k * mp * 32
-                                        + swz(mrow + kh * mw + kw, A_HALF))
-                                @ b_tiles(wsh, 0, (k * 9 + kh * 3 + kw) * np_,
-                                          nt))
+            for ck0 in range(0, ck, wp):
+                n_ck = min(wp, ck - ck0)
+                wsh = np.full(n_ck * wb * 9 * np_ * 32 // es, np.nan)
+                lo_off = (wb - 1) * 9 * np_ * 32
+                i = np.arange(n_ck * 9 * np_ * 2)
+                n, tap, u = i % np_, i // np_ % 9, i // (9 * np_)
+                cc = (ck0 + (u >> 1)) * kc + hv * (u & 1)
+                vals = np.zeros((len(i), hv))
+                for j in range(hv):
+                    take = (n < c) & (cc + j < c)
+                    vals[take, j] = wc[(cc + j)[take], tap[take] // 3,
+                                       tap[take] % 3, n[take]]
+                store_w(wsh, swz(((u >> 1) * wb * 9 + tap) * np_ + n, u & 1),
+                        vals, es, lo_off)
+                for k in range(n_ck):
+                    for kh in range(3):
+                        for kw in range(3):
+                            acc += (a_tiles(mid, (ck0 + k) * mp * 32
+                                            + swz(mrow + kh * mw + kw,
+                                                  A_HALF), es)
+                                    @ b_w(wsh, 0,
+                                          (k * wb * 9 + kh * 3 + kw) * np_,
+                                          nt, es, lo_off))
             # the output transpose [n][pixel], then 2 pixels a store (1
             # at an odd width)
             os_ = th * tw + 8
@@ -486,3 +535,124 @@ def test_stem_tiling_matches_conv2d(ci, c, shape, tile):
     want = F.conv2d(mid, t(wc).permute(3, 0, 1, 2), padding=1).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-10, atol=1e-9)
 
+
+
+# --- the fp32 form: 3xTF32 on m16n8k8 fragments -------------------------------
+
+@pytest.mark.parametrize("ci,c", STEM_CASES)
+def test_stem_plan_fp32(ci, c):
+    """The fp32 form's plan: its instance, its shared memory counted region
+    by region (the map in fp32 chunks of 8 channels; the conv's weights
+    through the window's region, as many chunks a pass as it holds), and
+    at least two blocks an SM."""
+    plan = fs.stem_plan(ci, c, "fp32")
+    th, tw = plan.tile
+    assert plan.tile == fs.STEM_TILES[("fp32", ci, c)]
+    assert ("fp32", ci, c, th, tw) in fs.STEM_INSTANCES
+    assert plan.smem == stem_bytes(ci, c, th, tw, "fp32")
+    assert 2 * (plan.smem + 1024) <= SM_SMEM
+    assert tw % 16 == 0 and th * tw % 128 == 0
+    assert stem_passes(ci, c, th, tw) >= 1
+    with pytest.raises(ValueError, match="no instance"):
+        fs.stem_plan(ci, c + 8, "fp32")
+
+
+def stem_passes(ci, c, th, tw):
+    """The fp32 form's conv-weight chunks a pass (WP in the source): each
+    chunk its two TF32 planes."""
+    np_, ck = 8 * cdiv(c, 8), cdiv(c, 8)
+    region = stem_bytes(ci, c, th, tw, "fp32") - ck * (th + 2) * (tw + 2) * 32
+    return min(ck, region // (2 * 9 * np_ * 32))
+
+
+@pytest.mark.parametrize("ci,c,shape,tile", [
+    (3, 16, (1, 3, 20, 72), (8, 32)),
+    (3, 32, (2, 3, 12, 36), (8, 16)),
+    (16, 24, (1, 16, 20, 36), (8, 16)),
+    (32, 48, (1, 32, 12, 68), (8, 16)),
+    (16, 24, (2, 16, 10, 30), (8, 32)),     # stem_4 at an odd width
+])
+def test_stem_tiling_fp32_matches_conv2d(ci, c, shape, tile):
+    """The fp32 form's index math (rows of 8 fp32 channels, the image's 4
+    chunks of 8 (tap, channel) values, m16n8k8 TF32 fragments through
+    ldmatrix, the conv's weights in passes) against ``F.conv2d``."""
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal(shape)
+    wd = rng.standard_normal((ci, 3, 3, c))
+    wc = rng.standard_normal((c, 3, 3, c))
+    got = stem_emulated(x, wd, wc, tile, "fp32")
+    t = torch.from_numpy
+    mid = F.conv2d(t(x), t(wd).permute(3, 0, 1, 2), stride=2, padding=1)
+    want = F.conv2d(mid, t(wc).permute(3, 0, 1, 2), padding=1).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-10, atol=1e-9)
+
+
+def tf32_rna(x):
+    """cvt.rna.tf32.f32: fp32 to 10 explicit mantissa bits, to nearest,
+    ties away from zero (the low 13 bits zero)."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def f32(x):
+    return np.asarray(x, np.float64).astype(np.float32)
+
+
+def dots_3xtf32(a, b, parts, passes=3):
+    """The kernel's sums of a (n, K) . b (K,) in fp32: K in ``parts`` of 8
+    (the order of the source's chunks and taps), each part the tensor
+    core's products from zero (lo.hi, then hi.lo, then hi.hi, each m16n8k8
+    rounded to fp32 as it accumulates), added to the running sum with one
+    rounded add. ``passes`` 1: hi.hi alone (a one-pass TF32 product)."""
+    ah = tf32_rna(a)
+    al = tf32_rna(a - ah)
+    bh = tf32_rna(b)
+    bl = tf32_rna(b - bh)
+    acc = np.zeros(len(a), np.float32)
+    for idx in parts:
+        terms = [(ah, bh)] if passes == 1 else [(al, bh), (ah, bl), (ah, bh)]
+        part = np.zeros(len(a), np.float32)
+        for u, v in terms:
+            part = f32(part.astype(np.float64)
+                       + u[:, idx].astype(np.float64) @ v[idx].astype(
+                           np.float64))
+        acc = f32(acc.astype(np.float64) + part)
+    return acc
+
+
+@pytest.mark.parametrize("ci", [3, 32, 48, 16, 24],
+                         ids=["fan-in 27", "288", "432", "144", "216"])
+def test_3xtf32_within_fp32_conditioning(ci):
+    """Every StemBlock conv's fan-in (stem_2's conv_down 27; 288 for L's
+    stem_2 conv and stem_4 conv_down, 432 its conv; S's 144, 216): the
+    3xTF32 products and the kernel's order of sums (parts of 8 in (chunk,
+    tap) order; stem_2's conv_down in (tap, channel) order, padded to 32)
+    within 10 times the fp32 CPU conv's distance from float64, where a
+    one-pass TF32 product lies further."""
+    rng = np.random.default_rng(4)
+    n_out = 16
+    x = rng.standard_normal((1, ci, 24, 24)).astype(np.float32)
+    w = (rng.standard_normal((n_out, ci, 3, 3))
+         / np.sqrt(9 * ci)).astype(np.float32)
+    t = torch.from_numpy
+    want = F.conv2d(t(x).double(), t(w).double(), padding=1).numpy()
+    cpu = F.conv2d(t(x), t(w), padding=1).double().numpy()
+    cols = F.unfold(t(x), 3, padding=1)[0].numpy().T     # (L, ci * 9): (c, tap)
+    if ci == 3:     # K = (tap, channel), zero-padded to 32, 4 parts of 8
+        order = [c * 9 + tap for tap in range(9) for c in range(3)]
+        parts = [np.arange(k, min(k + 8, 27)) for k in range(0, 27, 8)]
+    else:           # K = (chunk of 8 channels, tap), a part a (chunk, tap)
+        order = list(range(ci * 9))
+        parts = [np.array([c * 9 + tap for c in range(c0, c0 + 8)])
+                 for c0 in range(0, ci, 8) for tap in range(9)]
+    a = cols[:, order]
+    got, one = np.empty_like(cpu), np.empty_like(cpu)
+    for o in range(n_out):
+        wo = w[o].reshape(-1)[order]
+        got[0, o] = dots_3xtf32(a, wo, parts).reshape(24, 24)
+        one[0, o] = dots_3xtf32(a, wo, parts, passes=1).reshape(24, 24)
+    cpu_err = np.abs(cpu - want).max()
+    err = np.abs(got - want).max()
+    assert err <= 10 * cpu_err
+    assert np.abs(one - want).max() > 10 * cpu_err
