@@ -122,7 +122,23 @@ version:
      launch (``up_cat_bf16``) once a bf16 H level, never in fp32; the
      separate normalisation (``l2_normalize_pair``) once a normalised E
      call and never for B, whose normalised forms are one launch;
-  6. a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and last
+  6. train: ESMStereo-L at full width in fp32 on the SceneFlow recipe
+     (AdamW at lr 1e-3, batch 4 of 256x512 crops; synthetic scenes from
+     ``data.synthetic.make_scene_batch``, weights from the seeded init):
+     ``run_training`` for one epoch of 8 batches (no kernel launched in
+     its steps; a checkpoint ``latest_checkpoint`` finds, from which a
+     resume gives the parameters, statistics and optimizer state bit for
+     bit); 8 steps on one repeated batch bring the loss below 0.8 x the
+     first (each step timed by CUDA events, the median after 2 warm-up
+     steps, and the peak device memory printed); one train step of S at
+     64x128, batch 2, on the card and on the CPU from the same weights
+     (float64: gradients within 1e-4 of each tensor's max|g|, running
+     statistics within 1e-4; fp32: the card no further from float64 than
+     10 times the CPU's fp32 step); kernels B and C raise on an input that
+     requires grad and launch under ``no_grad``; the trained L in eval mode
+     serves 3 requests (A, B, C once each) and matches the CPU on
+     match_left and cost at 1e-4;
+  7. a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and last
      ``{"ok": true, "device": {...}}``.
 
 TF32 is off throughout (``cudnn.allow_tf32 = False``, matmul precision
@@ -140,14 +156,18 @@ import copy
 import dataclasses
 import json
 import math
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
 import numpy as np
 import torch
 
+from esmstereo_tpu_torch.data.loader import DataLoader
+from esmstereo_tpu_torch.data.synthetic import SceneDataset, make_scene_batch
 from esmstereo_tpu_torch.eval.runner import InferenceRunner, precision
 from esmstereo_tpu_torch.models.confidence import ESMStereoConfidence
 from esmstereo_tpu_torch.models.esmstereo import (ESMStereo, ESMStereoConfig,
@@ -164,6 +184,11 @@ from esmstereo_tpu_torch.ops.kernels.activations import gelu
 from esmstereo_tpu_torch.backbones import fused as fused_backbone
 from esmstereo_tpu_torch.backbones.fused_stage import prepare_stage_consts
 from esmstereo_tpu_torch.nn import blocks
+from esmstereo_tpu_torch.train import checkpoints
+from esmstereo_tpu_torch.train.loop import TrainLoopConfig, run_training
+from esmstereo_tpu_torch.train.schedule import lr_schedule_fn
+from esmstereo_tpu_torch.train.state import create_train_state
+from esmstereo_tpu_torch.train.step import make_train_step
 
 SEED = 0
 FRAME = (540, 960)            # SceneFlow; the runner pads to 544 x 992
@@ -2702,6 +2727,267 @@ def serve(model, rng: np.random.Generator, frame=FRAME) -> None:
               f"{maps[0].shape}, {dt * 1e3:.2f} ms ({ranges})")
 
 
+# [6]: the SceneFlow recipe (tools/train_sceneflow.py:24,44; the JAX
+# loop's AdamW at lr 1e-3, train/loop.py:32-35): batch 4 of 256x512 crops
+TRAIN_BATCH = 4
+TRAIN_CROP = (256, 512)
+TRAIN_BATCHES = 8
+OVERFIT_STEPS = 8
+OVERFIT_WARMUP = 2
+# S's card step against the CPU (batch 2, 64x128)
+S_STEP_BATCH = 2
+S_STEP_CROP = (64, 128)
+
+
+def check_training_run(model) -> None:
+    """[6] 1 and 3: ``run_training`` on ``model`` (L), one epoch of
+    ``TRAIN_BATCHES`` synthetic scene batches, a checkpoint that
+    ``latest_checkpoint`` finds, no kernel launched in the training steps;
+    then 4: a resume from that checkpoint into another model gives its
+    parameters, statistics and optimizer state bit for bit."""
+    logdir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        loader = DataLoader(SceneDataset(TRAIN_BATCH * TRAIN_BATCHES,
+                                         *TRAIN_CROP),
+                            TRAIN_BATCH, num_workers=4, seed=SEED)
+        cfg = TrainLoopConfig(epochs=1, logdir=logdir)
+        reset_launches()
+        out = run_training(model, cfg, loader, None,
+                           log_fn=lambda line: print(f"  {line}"))
+        torch.cuda.synchronize()
+        moved = {k: fn.launches for k, fn in wrappers().items()
+                 if fn.launches}
+        require(not moved, f"kernels launched in the training steps: {moved}")
+        state = out["state"]
+        require(state.step == TRAIN_BATCHES,
+                f"run_training took {state.step} steps, not {TRAIN_BATCHES}")
+        path = checkpoints.latest_checkpoint(logdir)
+        require(path == checkpoints.checkpoint_path(logdir, 0),
+                f"latest_checkpoint found {path}")
+        other = ESMStereo(device="cuda", seed=SEED + 6)
+        fresh = create_train_state(other, cfg.optimizer, lr_schedule_fn(
+            cfg.lr, cfg.lrepochs, TRAIN_BATCHES))
+        fresh, next_epoch = checkpoints.restore_checkpoint(path, fresh)
+        require(next_epoch == 1 and fresh.step == state.step,
+                f"resume: epoch {next_epoch}, step {fresh.step}")
+        for (k, a), b in zip(model.state_dict().items(),
+                             other.state_dict().values()):
+            require(torch.equal(a, b), f"resume: {k} differs")
+        want, got = state.optimizer.state_dict(), \
+            fresh.optimizer.state_dict()
+        require(want["param_groups"] == got["param_groups"]
+                and len(want["state"]) == len(got["state"]) == len(
+                    list(model.parameters())),
+                "resume: optimizer groups or state count differ")
+        for i, entry in want["state"].items():
+            for k, v in entry.items():
+                require(torch.equal(v, got["state"][i][k]),
+                        f"resume: optimizer {k} of parameter {i} differs")
+        print(f"  checkpoint {path.rsplit('/', 1)[1]}: found by "
+              f"latest_checkpoint; resumed bit for bit ({len(want['state'])} "
+              f"parameters' exp_avg, exp_avg_sq, step; step {fresh.step})")
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+
+
+def check_overfit() -> dict:
+    """[6] 2: a fresh L, ``OVERFIT_STEPS`` train steps on one repeated
+    batch of the recipe: every loss finite and the last below 0.8 x the
+    first (the criterion of tests/test_train_step.py:35-39); each step
+    timed by CUDA events (its median after ``OVERFIT_WARMUP``), the peak
+    device memory, and no kernel launched."""
+    model = ESMStereo(device="cuda", seed=SEED + 7)
+    state = create_train_state(model, "adamw", lr_schedule_fn(
+        1e-3, TrainLoopConfig.lrepochs, TRAIN_BATCHES))
+    step = make_train_step(model)
+    batch = make_scene_batch(np.random.default_rng(SEED + 7), TRAIN_BATCH,
+                             *TRAIN_CROP)
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(OVERFIT_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics = step(state, batch)
+        end.record()
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  losses: {', '.join(f'{v:.4f}' for v in losses)}")
+    require(all(math.isfinite(v) for v in losses), "non-finite loss")
+    require(losses[-1] < 0.8 * losses[0],
+            f"loss {losses[-1]:.4f} after {OVERFIT_STEPS} steps is not below "
+            f"0.8 x the first {losses[0]:.4f}")
+    require(all(fn.launches == 0 for fn in wrappers().values()),
+            "a kernel launched in a train step")
+    step_ms = float(np.median(times[OVERFIT_WARMUP:]))
+    print(f"  train step (L, fp32, TF32 off, batch {TRAIN_BATCH} x "
+          f"{TRAIN_CROP[0]}x{TRAIN_CROP[1]}): median {step_ms:.2f} ms over "
+          f"steps {OVERFIT_WARMUP}-{OVERFIT_STEPS - 1} (each: "
+          f"{', '.join(f'{t:.2f}' for t in times)} ms); peak device memory "
+          f"{peak / 2**30:.3f} GiB; 0 kernel launches a step")
+    return {"step_ms": step_ms, "peak_bytes": peak, "losses": losses}
+
+
+def _s_step(device: str, dtype: torch.dtype, batch: dict):
+    """One ``make_train_step`` step of S (seeded init weights) in
+    ``dtype`` on ``device``: (gradients, running statistics), float64 on
+    the CPU."""
+    model = ESMStereo(S, device=device, seed=SEED + 8).to(dtype)
+    state = create_train_state(model, "adamw", lambda step: 1e-3)
+    cast = (lambda x: torch.from_numpy(x).to(device, dtype))
+    b = {k: [cast(x) for x in v] if isinstance(v, list) else cast(v)
+         for k, v in batch.items()}
+    with deterministic_cudnn():
+        make_train_step(model)(state, b)
+    grads = {k: p.grad.detach().cpu().double()
+             for k, p in model.named_parameters()}
+    stats = {k: t.detach().cpu().double() for k, t in model.named_buffers()
+             if k.endswith(("running_mean", "running_var"))}
+    return grads, stats
+
+
+def _grad_errors(got: dict, want: dict) -> dict:
+    """Per tensor: max|got - want| over max(max|want|, 1e-9 of the largest
+    tensor's max|want|); the floor gives a gradient that is zero by
+    construction but for rounding (a BatchNorm shift whose output only
+    feeds training-mode BatchNorms) a scale."""
+    floor = 1e-9 * max(float(w.abs().max()) for w in want.values())
+    return {k: float((got[k] - w).abs().max())
+            / max(float(w.abs().max()), floor) for k, w in want.items()}
+
+
+def check_s_step_against_cpu() -> None:
+    """[6] 5: one train step of S at 64x128, batch 2, on the card and on
+    the CPU from the same weights and batch, cuDNN deterministic. In
+    float64 (the same function: the training forward's batch statistics
+    amplify fp32 rounding, so that the CPU's own fp32 gradients lie up to
+    5% of a tensor's max|g| from float64 on some tensors at these
+    weights) every parameter's gradient within 1e-4 of its max|g| and the
+    running statistics within 1e-4 of max(1, max|CPU|); in fp32 the
+    card's worst tensor no further from the CPU's float64 step than 10
+    times the CPU fp32 step's own worst."""
+    batch = make_scene_batch(np.random.default_rng(SEED + 8), S_STEP_BATCH,
+                             *S_STEP_CROP)
+    want_g, want_s = _s_step("cpu", torch.float64, batch)
+    got_g, got_s = _s_step("cuda", torch.float64, batch)
+    g_err = _grad_errors(got_g, want_g)
+    s_err = {k: float((got_s[k] - w).abs().max()) / max(
+        1.0, float(w.abs().max())) for k, w in want_s.items()}
+    worst_g = max(g_err, key=g_err.get)
+    worst_s = max(s_err, key=s_err.get)
+    print(f"  S float64 step: worst gradient {worst_g} "
+          f"{g_err[worst_g]:.3e} of its max|g| (tolerance 1e-4, {len(g_err)} "
+          f"tensors); worst running statistic {worst_s} "
+          f"{s_err[worst_s]:.3e} (tolerance 1e-4, {len(s_err)} buffers)")
+    require(g_err[worst_g] <= 1e-4, "S's float64 gradients on the card "
+            "disagree with the CPU's")
+    require(s_err[worst_s] <= 1e-4, "S's running statistics on the card "
+            "disagree with the CPU's")
+    card = max(_grad_errors(_s_step("cuda", torch.float32, batch)[0],
+                            want_g).values())
+    cpu = max(_grad_errors(_s_step("cpu", torch.float32, batch)[0],
+                           want_g).values())
+    print(f"  S fp32 step against the CPU's float64 step: card's worst "
+          f"tensor {card:.3e}, the CPU fp32's own {cpu:.3e} of max|g| "
+          f"(bound 10x the CPU's)")
+    require(card <= 10.0 * cpu, "S's fp32 gradients on the card are "
+            "further from float64 than the CPU's fp32 rounding explains")
+
+
+def check_autograd_refusal(model) -> None:
+    """[6] the wrappers refuse autograd on the card: kernels B and C raise
+    ``RuntimeError`` on an input that requires grad under grad mode and
+    launch nothing; under ``torch.no_grad()`` the same calls launch."""
+    d = model.num_bins
+    desc = torch.randn((1, 64, 16, 32), device="cuda", requires_grad=True)
+    vol = torch.randn((1, 32, d, 16, 32), device="cuda", requires_grad=True)
+    with torch.no_grad():
+        consts = fused_agg_stem.prepare_consts(model.group_stem, model.agg)
+    calls = {"correlation_volume": lambda: correlation.correlation_volume(
+                 desc, desc.detach(), d, 32),
+             "stem_agg": lambda: fused_agg_stem.stem_agg(vol, consts, False)}
+    kernels = wrappers()
+    for name, call in calls.items():
+        reset_launches()
+        try:
+            call()
+        except RuntimeError as e:
+            require("eval-only" in str(e), f"{name} raised {e}")
+        else:
+            raise RuntimeError(f"chip_smoke: {name} launched on an input "
+                               f"that requires grad")
+        require(kernels[name].launches == 0, f"{name} counted a launch")
+        with torch.no_grad():
+            call()
+        torch.cuda.synchronize()
+        require(kernels[name].launches == 1,
+                f"{name} did not launch under no_grad")
+        print(f"  {name}: raises under autograd, launches under no_grad")
+
+
+def check_served_after_training(model) -> None:
+    """[6] 6: the trained L in eval mode serves ``REQUESTS`` requests
+    through ``InferenceRunner``, each launching kernels A, B and C once and
+    no other kernel (folded constants recomputed from the trained weights,
+    not the ones memoised before training), and on a 128x256 pair the
+    card's match_left and cost within 1e-4 of max|CPU| of the same trained
+    weights on the CPU (plain versions), the disparity finite."""
+    reset_launches()
+    serve(model, np.random.default_rng(SEED + 9))
+    torch.cuda.synchronize()
+    want = {"fused_stage0": REQUESTS, "correlation_volume": REQUESTS,
+            "stem_agg": REQUESTS}
+    got = {k: fn.launches for k, fn in wrappers().items() if fn.launches}
+    require(got == want, f"after training the eval path launched {got} "
+            f"(want {want})")
+    cpu = ESMStereo(device="cpu", seed=SEED)
+    cpu.load_state_dict(model.state_dict())
+    gen = torch.Generator().manual_seed(SEED + 9)
+    left = torch.randn((1, 128, 256, 3), generator=gen)
+    right = torch.randn((1, 128, 256, 3), generator=gen)
+    with torch.inference_mode():
+        want_d, want_aux = cpu(left, right, capture_internals=True)
+        got_d, got_aux = model(left.cuda(), right.cuda(),
+                               capture_internals=True)
+    for key in ("match_left", "cost"):
+        g, w = got_aux[key].cpu(), want_aux[key]
+        peak = float(w.abs().max())
+        rel = float((g - w).abs().max()) / peak
+        print(f"  trained {key}: max err {rel:.3e} of max|CPU| {peak:.3e} "
+              f"(tolerance 1e-4)")
+        require(peak > 0.0 and rel < 1e-4,
+                f"trained {key}: the card disagrees with the CPU")
+    d = got_d[0].cpu()
+    share = float(((d - want_d[0]).abs() / float(want_d[0].abs().max())
+                   < 1e-4).float().mean())
+    require(d.shape == (1, 128, 256) and torch.isfinite(d).all(),
+            "trained disparity: wrong shape or non-finite")
+    print(f"  trained disparity: {share:.4f} of pixels within 1e-4 of "
+          f"max|CPU| (cv4's top-2 regression flips near-ties; not bound)")
+
+
+def check_training() -> dict:
+    """[6] train: ESMStereo-L at full width in fp32 (TF32 off) on the
+    SceneFlow recipe, synthetic scenes from ``make_scene_batch``, weights
+    from the seeded init; S's train step against the CPU; the wrappers'
+    refusal of autograd."""
+    model = ESMStereo(device="cuda", seed=SEED)
+    # one request first, so that the eval's folded constants are memoised
+    # from the initial weights before training changes them
+    InferenceRunner(model)(*[np.random.default_rng(SEED).integers(
+        0, 256, (*FRAME, 3), dtype=np.uint8)] * 2)
+    check_training_run(model)
+    perf = check_overfit()
+    check_s_step_against_cpu()
+    check_autograd_refusal(model)
+    check_served_after_training(model)
+    return perf
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3108,6 +3394,13 @@ def main() -> int:
             r["launches"] = forms[r["path"]][r["name"]][key]
         else:
             r["launches"] = launches[r["path"]][r["name"]]
+
+    print("[6] train: ESMStereo-L, fp32, SceneFlow recipe (AdamW lr 1e-3, "
+          f"batch {TRAIN_BATCH} x {TRAIN_CROP[0]}x{TRAIN_CROP[1]} synthetic "
+          f"scenes)")
+    perf = check_training()
+    print(f"  [6] median train step {perf['step_ms']:.2f} ms, peak device "
+          f"memory {perf['peak_bytes'] / 2**30:.3f} GiB on {smi}")
 
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -237,6 +237,11 @@ class ESMStereoConfidence(nn.Module):
 
     def forward(self, left: torch.Tensor, right: torch.Tensor,
                 capture_internals: bool = False):
+        if self.training:
+            raise NotImplementedError(
+                "the confidence model does not train in the port yet: its "
+                "two-phase recipe (tools/accuracy_scoreboard.py) is a later "
+                "slice; train ESMStereo-S, or call .eval() first")
         disp, aux = self.stereo(left, right, capture_internals=True)
         nchw = lambda t: t.permute(0, 3, 1, 2)  # noqa: E731
         conf = self.confidence_net(aux["cost"], nchw(aux["init_pred"]),

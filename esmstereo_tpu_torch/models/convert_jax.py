@@ -24,9 +24,19 @@ plus the layout transforms of
 
 Any leaf that matches no rule, and any key the port's model has that the
 tree does not give (or the other way round), raises ``KeyError``.
+
+``optimizer_state_from_jax(opt_state, state)`` carries an ``optax.adamw``
+or ``optax.adam`` state (its ``ScaleByAdamState``: ``count``, ``mu``,
+``nu``, trees of the ``params`` layout) into a ``train.state.TrainState``:
+``mu`` and ``nu`` through the same layout transforms into each
+parameter's ``exp_avg`` and ``exp_avg_sq``, ``count`` into the optimizer's
+``step``, the train state's step and the LR schedule, so that a JAX run
+resumes in the port.
 """
 
 from __future__ import annotations
+
+from collections.abc import Mapping
 
 import numpy as np
 import torch
@@ -37,7 +47,7 @@ _DECONV_AXES = {4: (2, 3, 0, 1), 5: (3, 4, 0, 1, 2)}
 
 def _leaves(tree: dict, prefix: tuple = ()):
     for k, v in tree.items():
-        if isinstance(v, dict):
+        if isinstance(v, Mapping):
             yield from _leaves(v, prefix + (k,))
         else:
             yield prefix + (k,), np.asarray(v)
@@ -118,3 +128,55 @@ def state_dict_from_jax(variables: dict, config=None
         model = ESMStereo(config or ESMStereoConfig(), device="meta")
     check_against(sd, model.state_dict())
     return sd
+
+
+def _adam_moments(opt_state):
+    """``(count, mu, nu)`` of the scale-by-Adam state inside an optax
+    state (a chain's tuple, any nesting), or of a ``{"count", "mu",
+    "nu"}`` dict."""
+    if isinstance(opt_state, Mapping) and {"count", "mu", "nu"} <= set(
+            opt_state):
+        return opt_state["count"], opt_state["mu"], opt_state["nu"]
+    if all(hasattr(opt_state, k) for k in ("count", "mu", "nu")):
+        return opt_state.count, opt_state.mu, opt_state.nu
+    if isinstance(opt_state, (tuple, list)):
+        for sub in opt_state:
+            try:
+                return _adam_moments(sub)
+            except KeyError:
+                pass
+    raise KeyError("no scale-by-Adam state (count, mu, nu) in the optimizer "
+                   "state")
+
+
+def optimizer_state_from_jax(opt_state, state) -> None:
+    """Load ``opt_state`` (an ``optax.adamw`` / ``optax.adam`` state as
+    numpy, e.g. ``jax.tree.map(np.asarray, train_state.opt_state)``) into
+    ``state`` (a ``train.state.TrainState`` whose optimizer is
+    ``make_optimizer``'s), in place. Raises ``KeyError`` on a leaf no rule
+    covers, or unless the moments give exactly the model's parameters and
+    shapes."""
+    count, mu, nu = _adam_moments(opt_state)
+    count = int(np.asarray(count))
+    params = dict(state.model.named_parameters())
+    moments = []
+    for tree in (mu, nu):
+        sd = {}
+        for path, arr in _leaves(tree):
+            key, val = _param_entry(path, arr)
+            sd[key] = np.asarray(val, np.float32)
+        check_against(sd, params)
+        moments.append(sd)
+    opt = state.optimizer
+    for name, p in params.items():
+        opt.state[p] = {
+            "step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": torch.tensor(moments[0][name], device=p.device),
+            "exp_avg_sq": torch.tensor(moments[1][name], device=p.device)}
+    state.step = count
+    sched = state.scheduler
+    sched.last_epoch = count
+    for group, base, fn in zip(opt.param_groups, sched.base_lrs,
+                               sched.lr_lambdas):
+        group["lr"] = base * fn(count)
+    sched._last_lr = [group["lr"] for group in opt.param_groups]

@@ -1,4 +1,5 @@
-"""ESMStereo, L, M and S variants, eval mode (NCHW / NCDHW inside).
+"""ESMStereo, L, M and S variants, eval and training modes (NCHW / NCDHW
+inside).
 
 Counterpart of ``esmstereo_tpu/models/esmstereo.py`` for its cv4 (L), cv8
 (M) and cv16 (S) branches: siamese feature pyramid -> FeatUp (cv4, cv8;
@@ -22,6 +23,16 @@ config's ``fuse_*`` switches, the volume built inside group_stem (cv4,
 cv8), the hourglass levels, the stem_2 + stem_4 towers and the cv4
 upsampler's ShuffleMixer section. On CPU tensors their plain PyTorch
 versions run.
+
+Training mode (``model.train()``) computes what the JAX model's
+``train=True`` computes: the siamese batch with every BatchNorm on the
+joint left + right statistics (flax's running-variance rule,
+``nn.blocks.BatchNorm2d``), the plain modules at every kernel site (JAX
+takes its plain twins there, ``esmstereo_tpu/models/esmstereo.py:476,480,
+538,630,638,775``, ``models/folded_agg.py:78,144``, ``backbones/fused.py:
+163``: ``pallas_call`` has no AD rule, and the CUDA kernels are eval-only
+too), and every scale's disparity (``train_status``, ``:814-817``). So a
+training step launches no kernel.
 
 The deploy numerics (``dtype="bfloat16"``, every variant and volume, with
 any ``fuse_*`` switch): the modules compute in bf16 with fp32 parameters
@@ -490,11 +501,13 @@ def conv3d_shapes(config: ESMStereoConfig, height: int, width: int) -> list:
 
 
 class ESMStereo(nn.Module):
-    """ESMStereo-L, -M or -S in eval mode (``ESMStereo.py:511-745``, the
-    cv4, cv8 and cv16 branches).
+    """ESMStereo-L, -M or -S (``ESMStereo.py:511-745``, the cv4, cv8 and
+    cv16 branches). It is built in eval mode.
 
     ``forward(left, right)`` takes NHWC images ``(B, H, W, 3)`` (H and W
-    multiples of 32) and returns ``[disparity (B, H, W)]``; with
+    multiples of 32) and returns ``[disparity (B, H, W)]``; in training
+    mode the disparity of every scale, full resolution first (cv4: full
+    and 1/2; cv8: full, 1/2, 1/4; cv16: full and 1/4), each x4. With
     ``capture_internals=True`` also the dict of intermediates the JAX model
     returns (in the JAX package's layouts). Weights are drawn from ``seed``
     with the reference's init rules; ``models.convert_jax`` loads JAX ones.
@@ -576,7 +589,11 @@ class ESMStereo(nn.Module):
 
     def stem_agg(self, volume: torch.Tensor, approx: bool) -> torch.Tensor:
         """group_stem (corr_stem) + agg on a stored volume: kernel C, in the
-        model's dtype, or in its int8 form on the quantised volume."""
+        model's dtype, or in its int8 form on the quantised volume; in
+        training the two plain ConvBlocks, unquantised (JAX's train mode
+        runs its plain convs, ``esmstereo_tpu/models/esmstereo.py:638``)."""
+        if self.training:
+            return self.agg(self.volume_stem(volume))
         consts = folded_once(self, _stem_agg_consts, self.volume_stem,
                              self.agg)
         if not self.volume_int8:
@@ -588,6 +605,16 @@ class ESMStereo(nn.Module):
             q, consts, approx, out_dtype=self.config.torch_dtype or
             torch.float32)
 
+    def correlation(self, match_l: torch.Tensor, match_r: torch.Tensor,
+                    groups: int, normalize: bool) -> torch.Tensor:
+        """The volume: kernel B, or in training its plain version (the
+        ``ops.cost_volume`` functions), as JAX's train mode builds it in jnp
+        (``esmstereo_tpu/models/esmstereo.py:630``)."""
+        build = (correlation.correlation_volume_plain if self.training
+                 else correlation.correlation_volume)
+        return build(match_l, match_r, self.num_bins, groups,
+                     normalize=normalize)
+
     @property
     def volume_stem(self) -> ConvBlock:
         """The volume's first 3-D conv: ``corr_stem`` or ``group_stem``."""
@@ -597,10 +624,8 @@ class ESMStereo(nn.Module):
 
     def forward(self, left: torch.Tensor, right: torch.Tensor,
                 capture_internals: bool = False):
-        if self.training:
-            raise NotImplementedError("training is not in this slice; "
-                                      "call .eval() first")
         cfg = self.config
+        train = self.training
         v = cfg.cv_scale
         bsz = left.shape[0]
         both = torch.cat([left, right], dim=0).permute(0, 3, 1, 2).contiguous()
@@ -608,7 +633,7 @@ class ESMStereo(nn.Module):
         if v != 16:
             f_both = self.feature_up(f_both)
         approx = blocks.GELU_APPROXIMATE
-        if cfg.fuse_stems:
+        if cfg.fuse_stems and not train:
             # kernel F: each conv_down map stays in shared memory; stem_8
             # (and stem_16) run plain on F's stem_4, as in JAX
             # (esmstereo.py:568-572). Its deploy form takes the fp32 image
@@ -631,7 +656,7 @@ class ESMStereo(nn.Module):
         groups = self.volume_groups
         if v == 16:
             volume = self._cv16_volume(match_l, match_r, fl[3], approx)
-        elif cfg.fuse_volume_agg:
+        elif cfg.fuse_volume_agg and not train:
             # kernel E: the volume never reaches device memory
             consts = folded_once(self, _stem_agg_consts, self.volume_stem,
                                  self.agg)
@@ -639,9 +664,8 @@ class ESMStereo(nn.Module):
                 match_l, match_r, consts, self.num_bins, groups, approx,
                 normalize=norm)
         else:
-            volume = correlation.correlation_volume(
-                match_l, match_r, self.num_bins, groups, normalize=norm)
-            volume = self.stem_agg(volume, approx)
+            volume = self.stem_agg(
+                self.correlation(match_l, match_r, groups, norm), approx)
         # (B, D, H/v, W/v); regression and the disparity stream are fp32
         # whatever the compute dtype (JAX esmstereo.py:769-774)
         cost = self.aggregation_out(volume)[:, 0]
@@ -661,7 +685,9 @@ class ESMStereo(nn.Module):
                 outs = self.upsample_module(fl[2], self.conv_f2(fl[3]),
                                             fl[1], self.conv_f0(fl[0]),
                                             init_pred)
-        result = [outs[0][:, 0] * 4]
+        # every scale in training (JAX's train_status), the full-res one
+        # at eval
+        result = [o[:, 0] * 4 for o in (outs if train else outs[:1])]
         if capture_internals:
             nhwc = lambda t: t.permute(0, 2, 3, 1)  # noqa: E731
             # keys and pyramid indices as the JAX model's aux dict
@@ -682,9 +708,8 @@ class ESMStereo(nn.Module):
         either, esmstereo.py:643,731-739)."""
         att = self.semantic_1(self.semantic_0(f16))[:, :, None]
         if self.config.cost_volume == "norm_correlation":
-            volume = correlation.correlation_volume(
-                match_l, match_r, self.num_bins, 1, normalize=True)
+            volume = self.correlation(match_l, match_r, 1, True)
             return self.agg(self.corr_stem(volume) * att)
-        volume = correlation.correlation_volume(
-            match_l, match_r, self.num_bins, self.config.num_groups)
+        volume = self.correlation(match_l, match_r, self.config.num_groups,
+                                  False)
         return self.stem_agg(volume * att, approx)

@@ -145,10 +145,14 @@ def _cast_params(conv: nn.Module):
 def _cast(conv: nn.Module, x: torch.Tensor):
     """``(x, weight, bias)`` of a conv in its compute dtype: the input cast,
     the parameters' casts memoised (``folded_once``), so a frame casts no
-    weight."""
+    weight. Where autograd records (a training step) the casts are made
+    afresh, so that the gradient reaches the fp32 parameters."""
     if conv.compute_dtype is None:
         return x, conv.weight, conv.bias
-    w, b = folded_once(conv, _cast_params, conv)
+    if torch.is_grad_enabled() and conv.weight.requires_grad:
+        w, b = _cast_params(conv)
+    else:
+        w, b = folded_once(conv, _cast_params, conv)
     return x.to(conv.compute_dtype), w, b
 
 
@@ -243,9 +247,46 @@ class TorchConvTranspose(nn.Module):
         return y if b is None else y + b.view(-1, *(1,) * self.dims)
 
 
+class _FlaxStatistics:
+    """Training mode with flax's running-statistics rule
+    (``flax/linen/normalization.py:142,404`` in flax 0.12.3): the batch is
+    normalised with its biased variance, as torch does, and the running
+    variance also moves towards the biased one, where torch's moves towards
+    the unbiased one (n/(n-1) larger: 6% with 16 values per channel).
+    Eval mode is torch's BatchNorm as it is. torch's momentum 0.1 is flax's
+    0.9."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        self._check_input_dim(x)
+        n = x.numel() // x.shape[1]
+        # torch's update goes to copies (autograd keeps them for the
+        # backward pass, so they are not changed after it)
+        mean, var = self.running_mean.clone(), self.running_var.clone()
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True,
+                         self.momentum, self.eps)
+        with torch.no_grad():
+            # torch added momentum * unbiased var; flax adds the biased one
+            kept = self.running_var * (1.0 - self.momentum)
+            self.running_var.copy_((var - kept) * ((n - 1) / n) + kept)
+            self.running_mean.copy_(mean)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
+class BatchNorm2d(_FlaxStatistics, nn.BatchNorm2d):
+    pass
+
+
+class BatchNorm3d(_FlaxStatistics, nn.BatchNorm3d):
+    pass
+
+
 def batch_norm(features: int, dims: int = 2, device=None) -> nn.Module:
-    """BatchNorm with the reference's eps 1e-5 and torch momentum 0.1."""
-    cls = nn.BatchNorm2d if dims == 2 else nn.BatchNorm3d
+    """BatchNorm with the reference's eps 1e-5 and torch momentum 0.1, and
+    flax's running variance in training (``_FlaxStatistics``)."""
+    cls = BatchNorm2d if dims == 2 else BatchNorm3d
     return cls(features, eps=1e-5, momentum=0.1, device=device)
 
 

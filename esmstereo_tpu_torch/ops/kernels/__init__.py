@@ -63,7 +63,13 @@ launch.
 A wrapper runs the plain version when its tensors lie on the CPU and
 launches its kernel when they lie on a CUDA device, raising on anything the
 kernel does not take (a dtype outside the wrapper's list among them); it
-never falls back. ``wrapper.launches`` counts the calls that launched the
+never falls back. The kernels are eval-only, as the Pallas kernels are
+(``pallas_call`` has no AD rule): a kernel's output has no ``grad_fn``, so
+a wrapper about to launch one raises when grad mode is on and any of its
+inputs requires grad (``refuse_autograd``), where a training forward would
+otherwise detach silently. The model's training mode takes the plain
+modules at every kernel site; eval runs under ``torch.inference_mode()``
+or ``torch.no_grad()``. ``wrapper.launches`` counts the calls that launched the
 kernel, and ``wrapper.form_launches`` the same by form (``"fp32"``,
 ``"bf16"``, ``"int8"``; kernel B's ``correlation.volume_form`` names).
 
@@ -135,10 +141,22 @@ def on_cuda(what: str, *tensors: torch.Tensor,
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{what}: unsupported device {dev}")
     if dev.type == "cuda":
+        refuse_autograd(what, *tensors)
         for t in tensors:
             if not t.is_contiguous():
                 raise ValueError(f"{what}: CUDA kernel needs contiguous inputs")
     return dev.type == "cuda"
+
+
+def refuse_autograd(what: str, *tensors: torch.Tensor) -> None:
+    """Raise ``RuntimeError`` when grad mode is on and any of ``tensors``
+    requires grad: the kernel's output would carry no gradient."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: the CUDA kernel is eval-only and its output has no "
+            f"gradient; run it under torch.no_grad() or "
+            f"torch.inference_mode(), or train the model, whose training "
+            f"mode takes the plain modules")
 
 
 def count_launch(wrapper, form: str) -> None:

@@ -45,7 +45,7 @@ from esmstereo_tpu_torch.ops.cost_volume import (build_gwc_volume,
                                                  build_norm_correlation_volume,
                                                  l2_normalize_groups)
 from esmstereo_tpu_torch.ops.kernels import (_build, count_launch, on_cuda,
-                                             stream_handle)
+                                             refuse_autograd, stream_handle)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -230,6 +230,7 @@ def l2_normalize_pair(ref: torch.Tensor, tgt: torch.Tensor, num_groups: int
     ``l2_normalize_groups``: the first step of kernel E on its normalised
     form (kernels B and D normalise inside their one launch). The bf16
     forms keep the normalised maps in fp32, as the Pallas kernels do."""
+    refuse_autograd("l2_normalize_pair", ref, tgt)
     b, c, h, w = ref.shape
     out_r = torch.empty(ref.shape, device=ref.device, dtype=torch.float32)
     out_t = torch.empty_like(out_r)

@@ -55,7 +55,7 @@ import torch.nn.functional as F
 
 from esmstereo_tpu_torch.nn.blocks import bn_scale_shift, fold_bn
 from esmstereo_tpu_torch.ops.kernels import (_build, count_launch, on_cuda,
-                                             stream_handle)
+                                             refuse_autograd, stream_handle)
 from esmstereo_tpu_torch.ops.kernels.activations import gelu
 
 _P = ctypes.c_void_p
@@ -521,6 +521,7 @@ def conv3d_bn_gelu(x: torch.Tensor, w: torch.Tensor, t: torch.Tensor,
     GELU on CUDA tensors, as ``conv_plan("fp32", ...)`` lays it out: the
     conv of kernels C, E, G and H. ``w`` is ``(CO, CI, 3, 3, 3)`` with the
     BN scale folded in, ``t`` the shift."""
+    refuse_autograd("conv3d", x, w, t)
     b, ci, d, h, wd = x.shape
     co = w.shape[0]
     if w.shape != (co, ci, 3, 3, 3) or t.shape != (co,):
@@ -552,6 +553,7 @@ def conv3d_bn_gelu_bf16(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     ``GELU(sum * scale + shift)`` in fp32, written in ``out_dtype`` (bf16
     or fp32). bf16 -> bf16 takes stride 1 or 2 and any CO; the other forms
     stride 1 and CO a multiple of 8."""
+    refuse_autograd("conv3d bf16", x, w, scale, shift)
     b, ci, d, h, wd = x.shape
     co = w.shape[0]
     if (w.shape != (co, ci, 3, 3, 3) or scale.shape != (co,)
@@ -590,6 +592,7 @@ def up_cat_bf16(src: torch.Tensor, skip: torch.Tensor, consts: dict,
     ``up_plan`` lays it out: bf16 src and skip, the deploy form's consts
     (raw bf16 weights, fp32 BN scales and shifts); returns z, bf16, the
     skip's shape. ``up_pair`` runs it, then the k3 conv."""
+    refuse_autograd("up_cat_bf16", src, skip, *consts.values())
     b, ci, ds, hs, ws = src.shape
     co, d2, h2, w2 = skip.shape[1:]
     ints, _ = _up_ints(b, (ci, co, ds, hs, ws, d2, h2, w2), bool(approximate))

@@ -29,6 +29,7 @@ from esmstereo_tpu_torch.device import resolve_device  # noqa: E402
 from esmstereo_tpu_torch.eval.runner import (InferenceRunner,  # noqa: E402
                                              pad_to_next_multiple)
 from esmstereo_tpu_torch.models.convert_jax import state_dict_from_jax  # noqa: E402
+from esmstereo_tpu_torch.models.confidence import ESMStereoConfidence  # noqa: E402
 from esmstereo_tpu_torch.models.esmstereo import (ESMStereo,  # noqa: E402
                                                   ESMStereoConfig)
 from test_torch_kernels import random_variables  # noqa: E402
@@ -280,10 +281,15 @@ def test_slice_guards(monkeypatch):
         for volume in ("gwc", "norm_correlation"):
             ESMStereoConfig(cv_scale=cv, backbone=backbone,
                             cost_volume=volume)
+    # training mode runs (tests/test_torch_train_model.py holds it against
+    # JAX) and returns every scale; the confidence model does not train yet
     model = ESMStereo(device="cpu")
-    x = torch.zeros(1, 32, 64, 3)
+    x = torch.randn(1, 32, 64, 3, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        outs = model.train()(x, x)
+    assert [tuple(o.shape) for o in outs] == [(1, 32, 64), (1, 16, 32)]
     with pytest.raises(NotImplementedError):
-        model.train()(x, x)
+        ESMStereoConfidence(device="cpu").train()(x, x)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         resolve_device(None)
