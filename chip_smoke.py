@@ -138,7 +138,27 @@ version:
      requires grad and launch under ``no_grad``; the trained L in eval mode
      serves 3 requests (A, B, C once each) and matches the CPU on
      match_left and cost at 1e-4;
-  7. a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and last
+  7. the entry points (``esmstereo_tpu_torch.cli``), each ``main`` called
+     in process on synthetic trees that the port's own writers make from
+     ``make_scene_batch`` scenes (uint8 PNG pairs; PFM or KITTI's uint16
+     PNG disparities): a SceneFlow list tree of 4 pairs at 540x960,
+     KITTI-2015 ``training/`` (2 pairs at 375x1242, zeros as invalid GT)
+     and ``testing/`` trees, a Middlebury and an ETH3D scene with
+     non-occlusion masks. ``make_filelists``; ``train_sceneflow`` (L,
+     fp32, batch 4 of 256x512 crops, 1 epoch, the 512x960 test crop);
+     ``test_kitti`` on its checkpoint in fp32 and in bf16 with tanh GELU;
+     ``save_disp``; ``test_mid`` and ``test_eth3d`` at S; ``train_kitti``
+     (1 epoch of 1 batch, warm-started from that checkpoint). Each exits
+     0 and prints only finite EPEs, each checkpoint exists; the evaluation
+     CLIs launch A, B and C once a frame (bf16 forms under
+     ``--dtype bfloat16``), the training CLIs none in their steps (A, B, C
+     once for their one test batch); ``save_disp``'s PNGs, read back by
+     the port's decoder, equal round(clip(disparity, 0, 255) * 256) of
+     the runner's output exactly; ``test_kitti`` at M on one pair on the
+     card within 1e-4 of max|CPU| of the same CLI with ``--cpu`` on every
+     pixel. Each CLI's wall time and ``test_kitti``'s mean forward ms are
+     printed beside the card's name and power limit;
+  8. a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and last
      ``{"ok": true, "device": {...}}``.
 
 TF32 is off throughout (``cudnn.allow_tf32 = False``, matmul precision
@@ -154,8 +174,11 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import io
 import json
 import math
+import os
+import re
 import shutil
 import subprocess
 import sys
@@ -166,6 +189,12 @@ import types
 import numpy as np
 import torch
 
+from esmstereo_tpu_torch.cli import (make_filelists, save_disp, test_eth3d,
+                                     test_kitti, test_mid, train_kitti,
+                                     train_sceneflow)
+from esmstereo_tpu_torch.data import png
+from esmstereo_tpu_torch.data.io import (denormalize_image, pfm_imwrite,
+                                         read_all_lines)
 from esmstereo_tpu_torch.data.loader import DataLoader
 from esmstereo_tpu_torch.data.synthetic import SceneDataset, make_scene_batch
 from esmstereo_tpu_torch.eval.runner import InferenceRunner, precision
@@ -2988,6 +3017,267 @@ def check_training() -> dict:
     return perf
 
 
+# [7]: the entry points on the card, on synthetic trees in each dataset's
+# layout written by the port's own writers: make_scene_batch scenes as
+# uint8 PNG pairs, their disparities as PFM or KITTI's uint16 PNG
+SF_PAIRS = 4                    # the SceneFlow list tree, at FRAME
+EVAL_CROP = (512, 960)          # train_sceneflow's test crop
+KITTI_PAIRS = 2                 # KITTI-2015 training/ and testing/ trees
+MID_FRAME = (496, 718)          # MiddEval3 trainingQ's Adirondack
+ETH3D_FRAME = (489, 941)        # ETH3D two-view delivery_area_1l
+TREE_DISPARITIES = (4, 96)
+S_FLAGS = ["--backbone", "mobilenetv2_100", "--cv_scale", "16"]
+# the eval path's kernels (A, B, C), as [5] counts them
+EVAL_KERNELS = ("fused_stage0", "correlation_volume", "stem_agg")
+# an EPE figure as the CLIs print it ("EPE 1.234", "EPE = 1.234")
+EPE_RE = re.compile(r"EPE\s*=?\s*([-+0-9.eE]+|nan|inf)")
+
+
+def scene_pairs(rng: np.random.Generator, n: int, frame) -> list:
+    """``n`` ``make_scene_batch`` scenes at ``frame``: (left uint8, right
+    uint8, disparity float32) each."""
+    b = make_scene_batch(rng, n, *frame, disp_range=TREE_DISPARITIES,
+                         pyramid=False)
+
+    def u8(x):
+        return np.round(denormalize_image(x) * 255).astype(np.uint8)
+
+    return [(u8(b["left"][i]), u8(b["right"][i]), b["disparity"][i])
+            for i in range(n)]
+
+
+def write_file(path: str, data: np.ndarray) -> None:
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    if path.endswith(".pfm"):
+        pfm_imwrite(path, data)
+    else:
+        png.write_png(path, data)
+
+
+def write_trees(root: str, rng: np.random.Generator) -> None:
+    """[7] 1: under ``root``, a SceneFlow tree (``SF_PAIRS`` pairs at
+    ``FRAME``, FlyingThings3D's ``frames_finalpass`` / ``disparity``
+    layout, PFM GT); KITTI-2015 ``training/`` (``KITTI_PAIRS`` pairs at
+    ``KITTI_FRAME``, uint16 GT with zeros as invalid pixels: none above
+    the horizon, half of the rest) and ``testing/`` trees; a Middlebury and
+    an ETH3D scene directory (``im0``/``im1``, PFM GT with inf as invalid,
+    ``mask0nocc.png`` with an occluded band)."""
+    for i, (left, right, disp) in enumerate(scene_pairs(rng, SF_PAIRS,
+                                                        FRAME)):
+        rel = os.path.join("TRAIN", "A", f"{i:04d}")
+        base = os.path.join(root, "sceneflow")
+        write_file(os.path.join(base, "frames_finalpass", rel, "left",
+                                "0006.png"), left)
+        write_file(os.path.join(base, "frames_finalpass", rel, "right",
+                                "0006.png"), right)
+        write_file(os.path.join(base, "disparity", rel, "left", "0006.pfm"),
+                   disp)
+    for split in ("training", "testing"):
+        base = os.path.join(root, "kitti15", split)
+        for i, (left, right, disp) in enumerate(scene_pairs(
+                rng, KITTI_PAIRS, KITTI_FRAME)):
+            name = f"{i:06d}_10.png"
+            write_file(os.path.join(base, "image_2", name), left)
+            write_file(os.path.join(base, "image_3", name), right)
+            if split == "training":
+                gt = np.round(disp * 256).astype(np.uint16)
+                gt[:KITTI_FRAME[0] // 3] = 0
+                gt[rng.random(gt.shape) < 0.5] = 0
+                write_file(os.path.join(base, "disp_occ_0", name), gt)
+    for scene, frame in (("middlebury/Adirondack", MID_FRAME),
+                         ("eth3d/delivery_area_1l", ETH3D_FRAME)):
+        base = os.path.join(root, scene)
+        (left, right, disp), = scene_pairs(rng, 1, frame)
+        disp = disp.copy()
+        disp[:, :8] = np.inf
+        mask = np.full(frame, 255, np.uint8)
+        mask[:, -24:] = 128
+        for name, data in (("im0.png", left), ("im1.png", right),
+                           ("disp0GT.pfm", disp), ("mask0nocc.png", mask)):
+            write_file(os.path.join(base, name), data)
+
+
+@contextlib.contextmanager
+def recorded_frames():
+    """While open, every ``InferenceRunner`` call's disparity, in order:
+    what the evaluation CLIs computed, read where they read it."""
+    frames: list = []
+    call = InferenceRunner.__call__
+
+    def record(self, left, right):
+        out = call(self, left, right)
+        frames.append(out[0])
+        return out
+
+    InferenceRunner.__call__ = record
+    try:
+        yield frames
+    finally:
+        InferenceRunner.__call__ = call
+
+
+def run_cli(name: str, module, argv: list, smi: str,
+            epe: bool = True) -> str:
+    """``module.main(argv)`` in this process, from launch counters at 0:
+    exit 0 and, with ``epe``, EPE figures printed, every one finite; its
+    output (its last lines echoed, also when it raises) and wall time
+    printed."""
+    buf = io.StringIO()
+    reset_launches()
+    start = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf), \
+                contextlib.redirect_stderr(buf):
+            rc = module.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        out = buf.getvalue()
+        for line in out.splitlines()[-6:]:
+            print(f"    {line[:200]}")
+    seconds = time.perf_counter() - start
+    require(rc == 0, f"{name} returned {rc}")
+    epes = [float(v) for v in EPE_RE.findall(out)]
+    require(bool(epes) == epe and all(math.isfinite(v) for v in epes),
+            f"{name} printed the EPE figures {epes}")
+    print(f"  {name}: exit 0 in {seconds:.2f} s wall, "
+          f"{len(epes)} EPE figures, all finite ({smi})")
+    return out
+
+
+def require_launches(name: str, per_kernel: int, form: str) -> None:
+    """Kernels A, B and C each launched ``per_kernel`` times in ``form``
+    since the counters were set to 0, and no other kernel."""
+    kernels = wrappers()
+    got = {k: fn.launches for k, fn in kernels.items() if fn.launches}
+    want = dict.fromkeys(EVAL_KERNELS, per_kernel)
+    require(got == want, f"{name} launched {got} (want {want})")
+    for k in EVAL_KERNELS:
+        forms = dict(kernels[k].form_launches)
+        require(forms == {form: per_kernel},
+                f"{name}: {k} launched the forms {forms} (want {form})")
+
+
+def check_entry_points(smi: str) -> None:
+    """[7] the seven CLIs' ``main``, in process, on the card, on the trees
+    of ``write_trees``: every exit 0, every printed EPE finite, the
+    checkpoints written; the evaluation CLIs launch A, B and C once a
+    frame (in bf16 under --dtype bfloat16), the training CLIs none in
+    their steps (A, B and C once a batch of their end-of-epoch test);
+    save_disp's PNGs, read back through the port's decoder, equal to
+    round(clip(disparity, 0, 255) * 256) of the runner's output exactly;
+    test_kitti at M on the card within 1e-4 of max|CPU| of the same CLI
+    with --cpu on every pixel (TF32 off: the runner's own flags)."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        start = time.perf_counter()
+        write_trees(root, np.random.default_rng(SEED + 10))
+        print(f"  trees written in {time.perf_counter() - start:.2f} s")
+        sf, k15 = os.path.join(root, "sceneflow"), \
+            os.path.join(root, "kitti15")
+        lists = {}
+        for kind, src, n in (("sceneflow_train", sf, SF_PAIRS),
+                             ("kitti15", k15, KITTI_PAIRS)):
+            lists[kind] = os.path.join(root, f"{kind}.txt")
+            run_cli(f"make_filelists {kind}", make_filelists,
+                    [kind, src, "-o", lists[kind]], smi, epe=False)
+            require(len(read_all_lines(lists[kind])) == n,
+                    f"make_filelists {kind}: not {n} entries")
+
+        logs = os.path.join(root, "logs_sceneflow")
+        run_cli("train_sceneflow", train_sceneflow, [
+            "--datapath", sf, "--trainlist", lists["sceneflow_train"],
+            "--testlist", lists["sceneflow_train"], "--epochs", "1",
+            "--crop", "%d,%d" % TRAIN_CROP, "--eval_crop", "%d,%d" % EVAL_CROP,
+            "--logdir", logs], smi)
+        ckpt = checkpoints.checkpoint_path(logs, 0)
+        require(os.path.exists(ckpt), f"train_sceneflow wrote no {ckpt}")
+        require_launches("train_sceneflow (its one test batch)", 1, "fp32")
+
+        kitti = ["--datapath", os.path.join(k15, "training"), "--loadckpt",
+                 ckpt]
+        for label, flags, form in (("fp32", [], "fp32"),
+                                   ("bf16, tanh GELU",
+                                    ["--dtype", "bfloat16"], "bf16")):
+            viz = os.path.join(root, f"viz_{form}")
+            with recorded_frames() as frames, (
+                    tanh_gelu() if form == "bf16"
+                    else contextlib.nullcontext()):
+                out = run_cli(f"test_kitti ({label})", test_kitti,
+                              [*kitti, *flags, "--save_dir", viz], smi)
+            require(len(frames) == KITTI_PAIRS,
+                    f"test_kitti served {len(frames)} frames")
+            require_launches(f"test_kitti ({label})", KITTI_PAIRS, form)
+            for sub in ("error", "gt", "disp"):
+                names = sorted(os.listdir(os.path.join(viz, sub)))
+                require(len(names) == KITTI_PAIRS and all(
+                    png.read_rgb(os.path.join(viz, sub, n)).shape
+                    == (*KITTI_FRAME, 3) for n in names),
+                    f"test_kitti ({label}): {sub} PNGs {names}")
+            fwd = re.search(r"#### mean forward ([0-9.]+) ms", out)
+            require(fwd, f"test_kitti ({label}) printed no mean forward")
+            print(f"  test_kitti ({label}, L, {KITTI_FRAME[0]}x"
+                  f"{KITTI_FRAME[1]} padded to {KITTI_PADDED[0]}x"
+                  f"{KITTI_PADDED[1]}): mean forward {fwd.group(1)} ms a "
+                  f"frame (host clock, copies included) on {smi}")
+
+        preds = os.path.join(root, "predictions")
+        with recorded_frames() as frames:
+            run_cli("save_disp", save_disp, [
+                "--datapath", os.path.join(k15, "testing"), "--loadckpt",
+                ckpt, "--outdir", preds], smi, epe=False)
+        require_launches("save_disp", KITTI_PAIRS, "fp32")
+        names = sorted(os.listdir(preds))
+        require(len(names) == len(frames) == KITTI_PAIRS,
+                f"save_disp wrote {names} for {len(frames)} frames")
+        for name, pred in zip(names, frames):
+            got = png.read_png(os.path.join(preds, name))
+            want = np.round(np.clip(pred, 0, 255) * 256).astype(np.uint16)
+            require(got.dtype == np.uint16 and np.array_equal(got, want),
+                    f"save_disp {name}: the PNG differs from the runner's "
+                    f"output")
+        print(f"  save_disp: {len(names)} uint16 PNGs equal "
+              f"round(clip(disparity, 0, 255) * 256) of the runner's output "
+              f"bit for bit")
+
+        for name, module, scene in (("test_mid", test_mid, "middlebury"),
+                                    ("test_eth3d", test_eth3d, "eth3d")):
+            run_cli(f"{name} (S)", module, [
+                *S_FLAGS, "--datapath", os.path.join(root, scene)], smi)
+            require_launches(name, 1, "fp32")
+
+        kitti_logs = os.path.join(root, "logs_kitti")
+        run_cli("train_kitti", train_kitti, [
+            "--datapath_12", k15, "--datapath_15", k15,
+            "--trainlist", lists["kitti15"], "--testlist", lists["kitti15"],
+            "--epochs", "1", "--max_batches", "1", "--batch_size", "2",
+            "--crop", "%d,%d" % TRAIN_CROP, "--pad_to", "%d,%d" % KITTI_PADDED,
+            "--save_freq", "1", "--loadckpt", ckpt, "--logdir", kitti_logs],
+            smi)
+        require(os.path.exists(checkpoints.checkpoint_path(kitti_logs, 0)),
+                "train_kitti wrote no checkpoint")
+        require_launches("train_kitti (its one test batch)", 1, "fp32")
+
+        runs = {}
+        for where, flags in (("card", []), ("CPU", ["--cpu"])):
+            with recorded_frames() as frames:
+                run_cli(f"test_kitti (M, {where})", test_kitti, [
+                    "--cv_scale", "8", "--limit", "1", "--datapath",
+                    os.path.join(k15, "training"), *flags], smi)
+            runs[where] = frames
+        got, want = runs["card"][0], runs["CPU"][0]
+        peak = float(np.abs(want).max())
+        rel = float(np.abs(got - want).max()) / peak
+        print(f"  test_kitti at M: card against --cpu, max err {rel:.3e} of "
+              f"max|CPU| {peak:.3e} on {got.size} pixels (tolerance 1e-4 "
+              f"on every pixel)")
+        require(got.shape == want.shape == KITTI_FRAME and peak > 0.0
+                and rel < 1e-4, "test_kitti at M: the card disagrees with "
+                "the CPU")
+        print(f"  [7] {time.perf_counter() - start:.1f} s in all on {smi}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2997,6 +3287,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
 
+    started = time.perf_counter()
     smi = smi_line()
     print(f"[1] card: {smi}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
@@ -3401,6 +3692,13 @@ def main() -> int:
     perf = check_training()
     print(f"  [6] median train step {perf['step_ms']:.2f} ms, peak device "
           f"memory {perf['peak_bytes'] / 2**30:.3f} GiB on {smi}")
+
+    print("[7] the entry points (esmstereo_tpu_torch.cli) on synthetic "
+          "SceneFlow, KITTI-2015, Middlebury and ETH3D trees")
+    check_entry_points(smi)
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - started:.1f} s, the build included, on "
+          f"{smi}")
 
     print(json.dumps({"kernels": rows}))
     print(smi)

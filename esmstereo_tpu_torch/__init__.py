@@ -8,7 +8,12 @@ numerics (bf16 compute, tanh GELU, optionally an int8 volume). Public
 layouts follow the JAX package: NHWC images in, ``(B, H, W)`` disparity
 (and confidence) out; inside, tensors are NCHW / NCDHW.
 
-Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+It trains L, M and S (``train``), reads the SceneFlow, KITTI, Middlebury
+and ETH3D files (``data``, without PIL or OpenCV), and has the
+command-line entry points that train and evaluate (``cli``).
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
+(the CLIs: ``--cpu``).
 The kernels of the paths (``ops.kernels``) launch on CUDA tensors; on CPU
 tensors their plain PyTorch versions run instead.
 

@@ -12,6 +12,10 @@ fp32 steps (the regression and the disparity stream) are fp32 too. The
 caller's flags are restored after each call. Inputs stay fp32 (each model
 casts them where the JAX model does); the maps come back fp32 (a bf16
 model's confidence map, bf16 on the device, is widened after its copy).
+
+``load_model_for_eval`` builds the model the evaluation CLIs serve, from a
+port checkpoint (``train.checkpoints``); ``masked_epe_and_rate`` is their
+metric.
 """
 
 from __future__ import annotations
@@ -87,3 +91,28 @@ class InferenceRunner:
         hi, wi = left.shape[1:3]
         maps = [m[0, hi - h:, wi - w:] for m in maps]
         return (maps[0] if len(maps) == 1 else tuple(maps)), dt
+
+
+def load_model_for_eval(config, loadckpt: str = "", device=None
+                        ) -> torch.nn.Module:
+    """``ESMStereo`` on ``config``, on ``device`` (the card when None), in
+    eval mode: its seeded init weights, or with ``loadckpt`` the weights of
+    a checkpoint that ``train.checkpoints`` wrote (every tensor, names and
+    shapes matching). The JAX counterpart restores an orbax directory,
+    which the port does not read."""
+    from esmstereo_tpu_torch.models import build_model
+    from esmstereo_tpu_torch.train.checkpoints import load_weights
+
+    model = build_model("ESMStereo", config, device=device)
+    if loadckpt:
+        load_weights(loadckpt, model)
+    return model.eval()
+
+
+def masked_epe_and_rate(pred: np.ndarray, gt: np.ndarray, mask: np.ndarray,
+                        thresh: float) -> tuple[float, float]:
+    """(masked mean abs err, masked >thresh rate), ``test_kitti.py:117-125``."""
+    err = np.abs(pred * mask - gt * mask)
+    rate = float(np.sum(err > thresh) / max(np.sum(mask), 1))
+    epe = float(np.mean(err[mask])) if mask.any() else 0.0
+    return epe, rate

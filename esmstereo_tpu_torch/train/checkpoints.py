@@ -9,7 +9,8 @@ orbax:
   * resume: restore the newest checkpoint of the logdir (parameters, batch
     statistics, optimizer, schedule, step) and go on at the next epoch;
   * warm start: load the tensors whose names and shapes match (the KITTI
-    finetune from a SceneFlow checkpoint) and leave the optimizer fresh.
+    finetune from a SceneFlow checkpoint) and leave the optimizer fresh;
+  * evaluation: load every tensor of the model, strictly (``load_weights``).
 """
 
 from __future__ import annotations
@@ -68,6 +69,15 @@ def restore_checkpoint(path: str, state):
     state.scheduler.load_state_dict(tree["scheduler"])
     state.step = int(tree["step"])
     return state, int(tree["epoch"]) + 1
+
+
+def load_weights(path: str, model: torch.nn.Module) -> torch.nn.Module:
+    """Load the parameters and buffers of a checkpoint (or of a bare
+    ``state_dict`` file) into ``model``, every name and shape matching;
+    raises on any key missing or left over."""
+    tree = _load(path)
+    model.load_state_dict(tree.get("model", tree))
+    return model
 
 
 def warm_start(path: str, state, log_fn=print):

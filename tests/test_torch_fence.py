@@ -1,8 +1,11 @@
-"""Import fence: the PyTorch port and chip_smoke.py import no JAX.
+"""Import fence: the PyTorch port and chip_smoke.py import no JAX, and
+nothing the card's machine lacks.
 
 Parses every ``.py`` file of ``esmstereo_tpu_torch/`` and ``chip_smoke.py``
 with ``ast`` and fails on any import of ``jax``, ``flax``, ``jaxlib`` or
-``esmstereo_tpu`` (the JAX package), at any depth of the file.
+``esmstereo_tpu`` (the JAX package), of ``tools`` (the JAX CLIs), or of
+``PIL`` or ``cv2`` (the port reads and writes PNG files itself,
+``data/png.py``), at any depth of the file.
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "flax", "jaxlib", "esmstereo_tpu"}
+FORBIDDEN = {"jax", "flax", "jaxlib", "esmstereo_tpu", "tools", "PIL", "cv2"}
 FILES = sorted((ROOT / "esmstereo_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
@@ -49,3 +52,10 @@ def test_fence_catches_a_jax_import():
                      "def f():\n    import jax.numpy as jnp\n")
     found = {m.split(".")[0] for m in _imports(tree)}
     assert {"esmstereo_tpu", "jax"} <= found
+
+
+def test_fence_catches_image_libraries_and_tools():
+    tree = ast.parse("from PIL import Image\nimport tools.common\n"
+                     "def f():\n    import cv2\n")
+    found = {m.split(".")[0] for m in _imports(tree)}
+    assert {"PIL", "tools", "cv2"} <= found <= FORBIDDEN
