@@ -26,9 +26,12 @@ frame (A, B). It holds each hand-written kernel against its plain PyTorch
 version:
 
   1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-  2. build the seven kernel sources from ``esmstereo_tpu_torch/csrc`` (one
+  2. build the eight kernel sources from ``esmstereo_tpu_torch/csrc`` (one
      ``nvcc`` per source, all at once) and print ``ptxas`` register/spill
-     lines;
+     lines; beside them the ops library (``csrc/torch_ops.cpp``: kernels
+     A, B and C's conv as ``esmstereo::`` operators, which their wrappers
+     call), the operators' definitions library and the native runner
+     (``esmstereo_tpu_torch/serving``, ``g++``);
   3. each kernel and its plain version on the same inputs at the main-path
      shapes (a 540x960 SceneFlow frame padded to 544x992, both eyes), L's,
      M's and S's: max abs / relative error against the stated tolerance,
@@ -158,7 +161,25 @@ version:
      card within 1e-4 of max|CPU| of the same CLI with ``--cpu`` on every
      pixel. Each CLI's wall time and ``test_kitti``'s mean forward ms are
      printed beside the card's name and power limit;
-  8. a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and last
+  8. export and native serving (``check_serving``) of L-deploy (bf16, tanh
+     GELU) and C (the confidence model on S-norm, fp32) at 384x1248, the
+     export CLI's default, from the seeded weights [4] holds each at (the
+     init rule's; C's ``scale_bn3`` drawn) saved with
+     ``train/checkpoints.py``: ``eval/serve_e2e.py`` exports through
+     ``cli/export.py`` (an AOTInductor package), serves a seeded 375x1242
+     pair with the C++ runner, and runs the package in Python and the
+     eager kernel path on the same inputs. The runner's uint16 disparity
+     (and C's confidence map) equal the package's in Python through the
+     same pre- and post-processing bit for bit; the package holds against
+     eager within [4]'s bounds (L-deploy: cv4's deploy bounds pooled over
+     three pairs against the eager fp32 path's distance, the sub-pixel
+     mean at ``CV4_MARGIN`` as the other two; C: 1e-4 of max|eager| on
+     every pixel); the ops library's counters read A 1, B 1 and C's conv
+     2 (L-deploy) or 0 (C) a frame, in the runner and in Python. Export
+     and compile seconds, the package's size and the runner's ms a frame
+     (host clock with the read-back, CUDA events) are printed beside the
+     eager request ms of [5] and on the same pair;
+  9. a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and last
      ``{"ok": true, "device": {...}}``.
 
 TF32 is off throughout (``cudnn.allow_tf32 = False``, matmul precision
@@ -213,6 +234,8 @@ from esmstereo_tpu_torch.ops.kernels.activations import gelu
 from esmstereo_tpu_torch.backbones import fused as fused_backbone
 from esmstereo_tpu_torch.backbones.fused_stage import prepare_stage_consts
 from esmstereo_tpu_torch.nn import blocks
+from esmstereo_tpu_torch.eval import serve_e2e
+from esmstereo_tpu_torch.serving import build as serving_build
 from esmstereo_tpu_torch.train import checkpoints
 from esmstereo_tpu_torch.train.loop import TrainLoopConfig, run_training
 from esmstereo_tpu_torch.train.schedule import lr_schedule_fn
@@ -2734,10 +2757,12 @@ def check_conditioning(name: str, config: ESMStereoConfig,
                     f"the fp32 CPU's rounding explains")
 
 
-def serve(model, rng: np.random.Generator, frame=FRAME) -> None:
+def serve(model, rng: np.random.Generator, frame=FRAME) -> list:
     """Answer ``REQUESTS`` uint8 pairs of ``frame``; check and print each
-    disparity (and confidence map, from the confidence model)."""
+    disparity (and confidence map, from the confidence model). Returns
+    each request's ms."""
     runner = InferenceRunner(model)
+    times = []
     for i in range(REQUESTS):
         left = rng.integers(0, 256, (*frame, 3), dtype=np.uint8)
         right = np.roll(left, -8, axis=1)          # a constant 8-px shift
@@ -2754,6 +2779,8 @@ def serve(model, rng: np.random.Generator, frame=FRAME) -> None:
                                               maps))
         print(f"  request {i}: {frame[0]}x{frame[1]} -> {len(maps)} map(s) "
               f"{maps[0].shape}, {dt * 1e3:.2f} ms ({ranges})")
+        times.append(dt * 1e3)
+    return times
 
 
 # [6]: the SceneFlow recipe (tools/train_sceneflow.py:24,44; the JAX
@@ -3278,6 +3305,200 @@ def check_entry_points(smi: str) -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# [8]: export and native serving: cli/export.py's package of each path at
+# the CLI's default size, served by the C++ runner (serving/) on a seeded
+# KITTI-sized pair that it pads, from seeded weights saved with
+# train/checkpoints.py
+SERVE_SIZE = (384, 1248)          # cli/export.py's --height, --width
+SERVE_FRAMES = 20
+SERVE_WARMUP = 3
+SERVE_PATHS = {"L-deploy": (DEPLOY_PATHS["L-deploy"], False),
+               "C": (S_NORM, True)}
+# the esmstereo:: operators a frame launches on each path, as [5] counts
+# their wrappers (A, B, and C's two convs on L-deploy; A and B on C)
+SERVE_LAUNCHES = {
+    "L-deploy": {"fused_stage0": 1, "correlation_volume": 1,
+                 "conv3d_bn_gelu": 0, "conv3d_bn_gelu_bf16": 2},
+    "C": {"fused_stage0": 1, "correlation_volume": 1, "conv3d_bn_gelu": 0,
+          "conv3d_bn_gelu_bf16": 0}}
+
+
+def serve_weights_(name: str, model, gen: torch.Generator) -> None:
+    """[8]'s seeded weights of ``model``: those [4] holds each path at, the
+    init rule's, and for C ``scale_bn3`` (zero at init) drawn in [0.75,
+    1.25) from ``gen``, as ``check_against_cpu`` draws it. Not
+    fan-in-scaled ones (``fan_in_scaled_``): under them L's refinement
+    carries the disparity to +-3e4 px and bf16 against fp32 moves 99.9% of
+    its pixels by more than 1 px (mean 1207 px), and C's confidence map
+    saturates while fp32 rounding is amplified to 1.4e-4 between the
+    package and eager (on the H100): [4] holds such weights against
+    float64 (``check_conditioning``), not at these bounds."""
+    if name == "C":
+        bn = model.confidence_net.scale_bn3
+        with torch.no_grad():
+            bn.weight.copy_(0.75 + 0.5 * torch.rand(bn.weight.shape,
+                                                    generator=gen))
+
+
+def serve_args(config: ESMStereoConfig, confidence: bool, loadckpt: str):
+    """``eval/serve_e2e.py``'s arguments for ``config``."""
+    argv = ["--backbone", config.backbone, "--cv_scale",
+            str(config.cv_scale), "--cv", config.cost_volume, "--dtype",
+            config.dtype, "--maxdisp", str(config.max_disp), "--loadckpt",
+            loadckpt, "--height", str(SERVE_SIZE[0]), "--width",
+            str(SERVE_SIZE[1]), "--frames", str(SERVE_FRAMES), "--warmup",
+            str(SERVE_WARMUP)]
+    return serve_e2e.build_parser().parse_args(
+        argv + (["--confidence"] if confidence else []))
+
+
+def check_served_deploy(name: str, got: np.ndarray, eager: np.ndarray,
+                        fp32: np.ndarray) -> None:
+    """[4]'s cv4 deploy bounds, pooled over the pixels of its
+    ``DEPLOY_DRAWS`` pairs (``served_deploy_runs``): the package's
+    disparity against the eager deploy path within ``CV4_MARGIN`` times
+    the deploy numerics' own distance (the eager deploy path against the
+    eager fp32 path with exact GELU) in mean, in the share of pixels off
+    by more than 1 px and in the others' mean (or 0.05 px). [4] holds that
+    last one at 1 times; here it gets the margin of the other two: at
+    384x1248 the package, the eager deploy path and the fp32 path are
+    three runs that sit as far from one another (on the H100, means 2.99,
+    3.36 and 3.32 px, 37-39% of pixels off by more than 1 px, the others'
+    means 0.0906, 0.0836 and 0.0833 px), so that at 1 times the verdict is
+    a draw's."""
+    g, c, r = (torch.from_numpy(m) for m in (got, eager, fp32))
+    card, own = (g - c).abs(), (c - r).abs()
+    ratio = float(card.mean()) / float(own.mean())
+
+    def flips(a, b):
+        diff = (a - b).abs()
+        off = diff > 1.0
+        return float(off.float().mean()), float(diff[~off].mean())
+
+    (fl, sub), (own_fl, own_sub) = flips(g, c), flips(c, r)
+    print(f"  {name}: package against eager, disparity mean "
+          f"{float(card.mean()):.4e}, {ratio:.4f} times the deploy "
+          f"numerics' own {float(own.mean()):.4e} (at most {CV4_MARGIN}); "
+          f"{fl:.3%} of pixels off by more than 1 px, {sub:.4f} px mean over "
+          f"the others (bounds {max(0.05, CV4_MARGIN * own_fl):.3%}, "
+          f"{max(0.05, CV4_MARGIN * own_sub):.4f} px; own {own_fl:.3%}, "
+          f"{own_sub:.4f} px)")
+    require(card.mean() <= CV4_MARGIN * own.mean()
+            and fl < max(0.05, CV4_MARGIN * own_fl)
+            and sub < max(0.05, CV4_MARGIN * own_sub),
+            f"{name}: the package is outside [4]'s deploy bounds")
+
+
+def served_deploy_runs(result: dict, args, config: ESMStereoConfig,
+                       weights: str) -> tuple:
+    """The disparities [4]'s deploy check pools, over ``DEPLOY_DRAWS``
+    pairs (the served pair and seeded 375x1242 pairs after it, padded as
+    the runner pads them): the package's in Python, the eager deploy
+    path's (tanh GELU) and the eager fp32 path's with exact GELU (the
+    deploy numerics' own distance), each concatenated."""
+    program = torch._inductor.aoti_load_package(result["package"])
+    deploy_net = serve_e2e.eager_model(args)
+    fp32 = serve_e2e.eager_model(serve_args(
+        dataclasses.replace(config, dtype="float32"), False, weights))
+    runs = ([result["package_maps"][0]], [result["eager_maps"][0]], [])
+    pairs = [result["inputs"]] + [
+        [serve_e2e.preprocess(im, *SERVE_SIZE) for im in
+         serve_e2e.seeded_pair(SEED + 300 + k, KITTI_FRAME)]
+        for k in range(DEPLOY_DRAWS - 1)]
+    for k, inputs in enumerate(pairs):
+        dev = [torch.from_numpy(x).cuda() for x in inputs]
+        with serve_e2e.serving_numerics():
+            runs[2].append(serve_e2e.maps(fp32(*dev))[0])
+            if k:
+                runs[0].append(serve_e2e.maps(program(*dev))[0])
+                with tanh_gelu():
+                    runs[1].append(serve_e2e.maps(deploy_net(*dev))[0])
+    return tuple(np.concatenate(r) for r in runs)
+
+
+def check_serving(smi: str, request_ms: dict) -> None:
+    """[8] for each of ``SERVE_PATHS``: seeded weights (``serve_weights_``)
+    saved with ``checkpoints.save_weights``; ``eval/serve_e2e.py`` exports
+    them through ``cli/export.py`` (L-deploy under tanh GELU), serves a
+    seeded 375x1242 pair with the runner built in [2], and runs the same
+    package in Python and the eager kernel path on the same inputs. The
+    runner's uint16 disparity (and C's confidence map) must equal the
+    package's in Python through the same pre- and post-processing bit for
+    bit; the package's raw maps must hold against eager within [4]'s
+    bounds (L-deploy: ``check_served_deploy``; C: every pixel within 1e-4
+    of max|eager|); the runner's and the Python run's launch counters must
+    read ``SERVE_LAUNCHES`` a frame. Prints the export and
+    compile seconds, the package's size, the runner's ms a frame (host
+    clock and CUDA events) beside [5]'s eager request ms and the eager
+    request ms on this pair."""
+    start = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 200)
+    for name, (config, confidence) in SERVE_PATHS.items():
+        cls = ESMStereoConfidence if confidence else ESMStereo
+        with tempfile.TemporaryDirectory() as root:
+            model = cls(config, device="cpu", seed=SEED)
+            serve_weights_(name, model, gen)
+            weights = checkpoints.save_weights(os.path.join(root, "w.pt"),
+                                               model)
+            args = serve_args(config, confidence, weights)
+            deploy_path = config.dtype == "bfloat16"
+            with tanh_gelu() if deploy_path else contextlib.nullcontext():
+                result = serve_e2e.serve(args, root, KITTI_FRAME)
+                eager_times = serve(serve_e2e.eager_model(args),
+                                    np.random.default_rng(SEED),
+                                    KITTI_FRAME)
+            if deploy_path:
+                pooled = served_deploy_runs(result, args, config, weights)
+        verdict = serve_e2e.summary(result)
+        runner = verdict["runner"]
+        print(f"  {name}: exported in {result['export_s']:.2f} s, "
+              f"AOTInductor compiled in {result['compile_s']:.2f} s, package "
+              f"{result['package_bytes'] / 1e6:.2f} MB, runner built in "
+              f"{result['runner_build_s']:.2f} s ({smi})")
+        print(f"  {name}: runner {runner['host_ms_median']:.3f} ms a frame "
+              f"(host clock, median of {runner['frames']}; mean "
+              f"{runner['host_ms_mean']:.3f}), device "
+              f"{runner['device_ms_median']:.3f} ms (CUDA events, median; "
+              f"mean {runner['device_ms_mean']:.3f}); eager request ms on "
+              f"this pair {[round(t, 2) for t in eager_times]}, in [5] "
+              f"{[round(t, 2) for t in request_ms[name]]} ({smi})")
+        print(f"  {name}: {result['runner']['stderr'].strip()}")
+        print(f"  {name}: runner EPE {runner['epe']:.4f} px against the "
+              f"pair's {serve_e2e.SHIFT} px shift on "
+              f"{runner['valid_pixels']} pixels (random weights)")
+        require(math.isfinite(runner["epe"]), f"{name}: EPE not finite")
+        require(verdict["runner_bit_for_bit"],
+                f"{name}: the runner's uint16 maps differ from the package "
+                f"run in Python")
+        print(f"  {name}: the runner's uint16 disparity"
+              f"{' and confidence map' if confidence else ''} equal the "
+              f"package's in Python bit for bit "
+              f"({int((result['golden_u16'] > 0).sum())} valid pixels)")
+        want = SERVE_LAUNCHES[name]
+        require(verdict["launches_per_frame"] == want
+                and result["python_launches"] == want,
+                f"{name}: launches a frame {verdict['launches_per_frame']} "
+                f"(runner), {result['python_launches']} (Python), want "
+                f"{want}")
+        print(f"  {name}: launches a frame {verdict['launches_per_frame']} "
+              f"in the runner over {runner['runs']} runs, as in Python")
+        pkg, eager = result["package_maps"], result["eager_maps"]
+        require(all(p.shape == SERVE_SIZE and np.isfinite(p).all()
+                    for p in pkg), f"{name}: package maps")
+        if deploy_path:
+            check_served_deploy(name, *pooled)
+        else:
+            for key, g, w in zip(("disparity", "confidence"), pkg, eager):
+                peak = float(np.abs(w).max())
+                rel = float(np.abs(g - w).max()) / peak
+                print(f"  {name} {key}: package against eager max err "
+                      f"{rel:.3e} of max|eager| {peak:.3e} (tolerance 1e-4 "
+                      f"on every pixel)")
+                require(peak > 0.0 and rel < 1e-4,
+                        f"{name} {key}: the package disagrees with eager")
+    print(f"  [8] {time.perf_counter() - start:.1f} s in all on {smi}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3293,12 +3514,18 @@ def main() -> int:
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
+    runner_build = serving_build.start()
     libs = _build.build_all()
-    print(f"[2] built {len(libs)} kernel libraries in "
+    runner_bin = serving_build.finish(runner_build)
+    print(f"[2] built {len(_build.SOURCES)} kernel libraries, the ops and "
+          f"definitions libraries and the native runner in "
           f"{time.perf_counter() - t0:.1f} s")
-    for name in libs:
+    for name in _build.SOURCES:
         print(f"  {name}:\n    " + _build.ptxas_report(name).replace(
             "\n", "\n    "))
+    for name in (_build.OPS, _build.DEFS):
+        print(f"  {name}: {libs[name].name}")
+    print(f"  runner: {runner_bin.name}")
 
     gen = torch.Generator().manual_seed(SEED)
     model = ESMStereo(device="cuda", seed=SEED)
@@ -3539,7 +3766,7 @@ def main() -> int:
     kernels = wrappers()
     convs = conv_wrappers()
     steps = step_wrappers()
-    launches, forms, act_forms, step_launches = {}, {}, {}, {}
+    launches, forms, act_forms, step_launches, request_ms = {}, {}, {}, {}, {}
     conv_launches, conv_forms, conv_shapes = {}, {}, {}
     for name, net in nets.items():
         frame = KITTI_FRAME if name.split("-")[0] == "C" else FRAME
@@ -3550,7 +3777,7 @@ def main() -> int:
                   f"InferenceRunner, {frame[0]}x{frame[1]} padded to "
                   f"{padded[0]}x{padded[1]}, {precision(net)}")
             reset_launches()
-            serve(net, np.random.default_rng(SEED), frame)
+            request_ms[name] = serve(net, np.random.default_rng(SEED), frame)
             torch.cuda.synchronize()
         launches[name] = {k: fn.launches for k, fn in kernels.items()}
         forms[name] = {k: dict(fn.form_launches) for k, fn in kernels.items()}
@@ -3696,6 +3923,10 @@ def main() -> int:
     print("[7] the entry points (esmstereo_tpu_torch.cli) on synthetic "
           "SceneFlow, KITTI-2015, Middlebury and ETH3D trees")
     check_entry_points(smi)
+
+    print(f"[8] export and native serving at {SERVE_SIZE[0]}x{SERVE_SIZE[1]} "
+          f"(cli/export.py, the C++ runner)")
+    check_serving(smi, request_ms)
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - started:.1f} s, the build included, on "
           f"{smi}")

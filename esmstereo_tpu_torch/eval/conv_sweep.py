@@ -18,7 +18,6 @@ convs and over G's six, and over every distinct conv.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import itertools
 
 import torch
@@ -27,6 +26,7 @@ import torch.nn.functional as F
 from esmstereo_tpu_torch.models.esmstereo import (ESMStereoConfig,
                                                   conv3d_shapes)
 from esmstereo_tpu_torch.ops.kernels import fused_hourglass as fh
+from esmstereo_tpu_torch.ops.kernels import torch_ops
 
 FRAME = (544, 992)          # a 540 x 960 frame padded to the next /32
 CONFIGS = {"L": ESMStereoConfig(), "M": ESMStereoConfig(cv_scale=8),
@@ -74,30 +74,27 @@ def variants(form: str, ci: int, co: int, stride: int):
 def time_conv(name: str, ci: int, co: int, d: int, h: int, w: int, s: int,
               form: str, gen) -> dict:
     """Device ms of the conv under its plan, under its fastest tile and
-    split, and of cuDNN; the plan's and the fastest's keys."""
+    split, and of cuDNN; the plan's and the fastest's keys. Each launch
+    goes through the conv's operator with the layout's plan."""
+    torch_ops.load_cuda()
     dtype = torch.float32 if form == "fp32" else torch.bfloat16
     x = torch.randn((1, ci, d, h, w), generator=gen).cuda().to(dtype)
     wt = (torch.randn((co, ci, 3, 3, 3), generator=gen)
           / (27 * ci) ** 0.5).cuda().to(dtype)
     shift = torch.zeros(co, device="cuda")
     scale = torch.ones(co, device="cuda")
-    out = [(n - 1) // s + 1 for n in (d, h, w)]
-    y = torch.empty((1, co, *out), device="cuda", dtype=dtype)
-    fn = fh._fns()[0 if form == "fp32" else 3]
-    weights = ((wt.data_ptr(),) if form == "fp32" else
-               (wt.data_ptr(), scale.data_ptr()))
     times = {}
     for tile, r in variants(form, ci, co, s):
-        ints = fh.conv_layout(form, ci, co, d, h, w, s, tile,
-                              r).ints(1, False)
-        args = (x.data_ptr(), *weights, shift.data_ptr(), y.data_ptr(),
-                ctypes.addressof(ints))
-
-        def launch(args=args):
-            # on the current stream, the capturing one in a graph
-            err = fn(*args, torch.cuda.current_stream().cuda_stream)
-            if err != 0:
-                raise RuntimeError(f"{name} {form}: CUDA error {err}")
+        ints = list(fh.conv_layout(form, ci, co, d, h, w, s, tile,
+                                   r).ints(1, False))
+        if form == "fp32":
+            def launch(ints=ints):
+                # on the current stream, the capturing one in a graph
+                torch_ops.op("conv3d_bn_gelu")(x, wt, shift, s, False, ints)
+        else:
+            def launch(ints=ints):
+                torch_ops.op("conv3d_bn_gelu_bf16")(x, wt, scale, shift,
+                                                    False, s, False, ints)
 
         times[f"{tile[0]}x{tile[1]} R{r}"] = graph_ms(launch)
     bias = shift.to(dtype)

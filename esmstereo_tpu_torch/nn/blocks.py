@@ -316,7 +316,12 @@ def folded_once(owner: nn.Module, fold, *sources: nn.Module):
     arguments), memoised on ``owner``. They are computed again only when one
     of those tensors is replaced or changed in place (``load_state_dict``,
     ``.to``), so a frame pays for no folding. ``fold`` must be a function
-    defined once (it keys the memo), not a fresh lambda."""
+    defined once (it keys the memo), not a fresh lambda. While a graph is
+    traced (``torch.export``, ``torch.compile``) the fold is computed
+    without the memo, as part of the graph: a traced tensor has no storage
+    whose address could key it."""
+    if torch.compiler.is_compiling():
+        return fold(owner)
     tensors = [t for m in sources for t in (*m.parameters(), *m.buffers())]
     if any(t.is_inference() for t in tensors):
         return fold(owner)     # inference tensors keep no version counter

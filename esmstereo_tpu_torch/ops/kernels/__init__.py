@@ -49,10 +49,19 @@ Each deploy form rounds its operands to bf16 where the TPU kernel does,
 sums in fp32 and applies BN after the fp32 sum.
 
 Kernels C, E, G and H share one conv3d k3 p1 (``fused_hourglass.
-conv3d_bn_gelu`` in fp32, ``conv3d_bn_gelu_bf16`` in the deploy forms, on
-CUDA tensors only: their callers above take the plain versions on the
-CPU), laid out per shape by ``fused_hourglass.conv_plan``; its wrappers
-(``conv_wrappers``) count their launches too, by form and by shape. Kernel
+conv3d_bn_gelu`` in fp32, ``conv3d_bn_gelu_bf16`` in the deploy forms; C
+calls them on both devices, E, G and H on CUDA tensors only, taking their
+own plain versions on the CPU), laid out per shape by
+``fused_hourglass.conv_plan``; its wrappers (``conv_wrappers``) count
+their launches too, by form and by shape.
+
+Kernel A, kernel B and the shared conv are PyTorch operators
+(``torch_ops.py``: ``esmstereo::fused_stage0``, ``::correlation_volume``,
+``::conv3d_bn_gelu``, ``::conv3d_bn_gelu_bf16``), which their wrappers
+call on both devices: the CPU kernel of each is the plain version, the
+CUDA kernel launches the hand kernel, so that ``torch.export`` holds the
+launches of an eval frame (``export/program.py``). The other kernels
+launch through ``ctypes``. Kernel
 H's deploy form launches two kernels a call, ``fused_hourglass.up_cat_bf16``
 (its transposed and 1x1x1 convs, on CUDA tensors only) and then the shared
 conv; ``step_wrappers`` counts the first. Kernel E's normalised form

@@ -28,8 +28,12 @@ it, and the plain version dispatches by it.
 On CUDA a call is one launch, laid out by ``corr_plan`` (columns and
 thread rows a block, a thread a column; shared memory), which the C entry
 point checks; the normalised forms normalise inside it,
-with no scratch maps. ``l2_normalize_pair`` (the normalisation alone,
-into two fp32 maps) serves kernel E's normalised form.
+with no scratch maps. The wrapper calls the operator
+``esmstereo::correlation_volume`` (``torch_ops.py``) on both devices: on
+CUDA tensors its kernel in ``csrc/torch_ops.cpp`` launches this one with
+the plan, on CPU tensors its CPU kernel is the plain version.
+``l2_normalize_pair`` (the normalisation alone, into two fp32 maps) serves
+kernel E's normalised form.
 """
 
 from __future__ import annotations
@@ -45,15 +49,13 @@ from esmstereo_tpu_torch.ops.cost_volume import (build_gwc_volume,
                                                  build_norm_correlation_volume,
                                                  l2_normalize_groups)
 from esmstereo_tpu_torch.ops.kernels import (_build, count_launch, on_cuda,
-                                             refuse_autograd, stream_handle)
+                                             refuse_autograd, stream_handle,
+                                             torch_ops)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # (C, G) instances of the CUDA kernel
 KERNEL_FORMS = ((64, 32), (64, 1))
-# the CUDA entry point's form numbers (csrc/correlation.cu)
-_FORM_CODES = {"fp32": 0, "bf16": 1, "bf16_norm": 2, "bf16_d": 3,
-               "bf16_d_norm": 4}
 SMS = 132             # an H100's SMs
 # (columns, thread rows) a block, a thread a column: the kernel's instances,
 # the same list as csrc/correlation.cu's CORR_BLOCKS
@@ -139,14 +141,6 @@ def corr_plan(b: int, c: int, g: int, h: int, w: int, d: int,
     return plan
 
 
-@functools.lru_cache(maxsize=None)
-def _plan_ints(plan: CorrPlan):
-    """The entry point's plan argument: its address and the array (kept
-    alive here)."""
-    ints = (ctypes.c_int * 3)(*plan.ints())
-    return ctypes.addressof(ints), ints
-
-
 def volume_form(dtype: torch.dtype, normalize: bool,
                 round_products: bool = True) -> str:
     """The form of a volume on ``dtype`` descriptors: ``"fp32"``; or in
@@ -204,16 +198,29 @@ def correlation_volume_plain(ref: torch.Tensor, tgt: torch.Tensor,
     return build_gwc_volume_norm(ref, tgt, max_disp, num_groups)
 
 
+def _op_plain(ref, tgt, max_disp, num_groups, normalize, round_products,
+              plan):
+    """``esmstereo::correlation_volume``'s CPU kernel: the plain
+    version."""
+    return correlation_volume_plain(ref, tgt, max_disp, num_groups,
+                                    normalize, round_products)
+
+
+def _op_fake(ref, tgt, max_disp, num_groups, normalize, round_products,
+             plan):
+    b, _, h, w = ref.shape
+    return ref.new_empty((b, num_groups, max_disp, h, w))
+
+
+torch_ops.register("correlation_volume", _op_plain, _op_fake)
+
+
 @functools.cache
-def _fns():
-    lib = _build.load("correlation")
-    vol = lib.correlation_volume
-    vol.argtypes = [_P, _P, _P] + [_I] * 8 + [_P, _P]
-    norm = lib.l2_normalize_groups
-    norm.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
-    for fn in (vol, norm):
-        fn.restype = _I
-    return vol, norm
+def _normalize_fn():
+    fn = _build.load("correlation").l2_normalize_groups
+    fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+    fn.restype = _I
+    return fn
 
 
 def check_kernel_form(what: str, c: int, num_groups: int) -> None:
@@ -234,9 +241,10 @@ def l2_normalize_pair(ref: torch.Tensor, tgt: torch.Tensor, num_groups: int
     b, c, h, w = ref.shape
     out_r = torch.empty(ref.shape, device=ref.device, dtype=torch.float32)
     out_t = torch.empty_like(out_r)
-    err = _fns()[1](ref.data_ptr(), tgt.data_ptr(), out_r.data_ptr(),
-                    out_t.data_ptr(), b, c, num_groups, h, w,
-                    int(ref.dtype == torch.bfloat16), stream_handle(ref))
+    err = _normalize_fn()(ref.data_ptr(), tgt.data_ptr(), out_r.data_ptr(),
+                          out_t.data_ptr(), b, c, num_groups, h, w,
+                          int(ref.dtype == torch.bfloat16),
+                          stream_handle(ref))
     _build.check(err, "l2_normalize_groups")
     count_launch(l2_normalize_pair,
                  "bf16" if ref.dtype == torch.bfloat16 else "fp32")
@@ -266,8 +274,8 @@ def correlation_volume(ref: torch.Tensor, tgt: torch.Tensor, max_disp: int,
         raise TypeError(f"correlation_volume: {ref.dtype} and {tgt.dtype}")
     if not on_cuda("correlation_volume", ref, tgt,
                    dtypes=(torch.float32, torch.bfloat16)):
-        return correlation_volume_plain(ref, tgt, max_disp, num_groups,
-                                        normalize, round_products)
+        return torch_ops.op("correlation_volume")(
+            ref, tgt, max_disp, num_groups, normalize, round_products, [])
     return volume_kernel(ref, tgt, max_disp, num_groups, normalize,
                          round_products,
                          corr_plan(b, c, num_groups, h, w, max_disp,
@@ -277,23 +285,21 @@ def correlation_volume(ref: torch.Tensor, tgt: torch.Tensor, max_disp: int,
 def volume_kernel(ref: torch.Tensor, tgt: torch.Tensor, max_disp: int,
                   num_groups: int, normalize: bool, round_products: bool,
                   plan: CorrPlan) -> torch.Tensor:
-    """The kernel's launch on CUDA tensors under ``plan``, counted as a
-    launch of ``correlation_volume``, which passes ``corr_plan``'s plan;
-    the ragged checks of ``chip_smoke.py`` and ``eval/conv_repeat.py
-    --bf-plans`` pass the other blocks' (``make_plan``). The entry point
-    refuses a plan that does not fit the shapes."""
+    """The kernel's launch on CUDA tensors under ``plan``, through
+    ``esmstereo::correlation_volume``, counted as a launch of
+    ``correlation_volume``, which passes ``corr_plan``'s plan; the ragged
+    checks of ``chip_smoke.py`` and ``eval/conv_repeat.py --bf-plans``
+    pass the other blocks' (``make_plan``). The entry point refuses a plan
+    that does not fit the shapes."""
     if not on_cuda("correlation_volume", ref, tgt,
                    dtypes=(torch.float32, torch.bfloat16)):
         raise ValueError("volume_kernel: takes CUDA tensors")
-    b, c, h, w = ref.shape
-    out = torch.empty((b, num_groups, max_disp, h, w), device=ref.device,
-                      dtype=ref.dtype)
-    form = volume_form(ref.dtype, normalize, round_products)
-    err = _fns()[0](ref.data_ptr(), tgt.data_ptr(), out.data_ptr(), b, c,
-                    num_groups, h, w, max_disp, _FORM_CODES[form],
-                    int(normalize), _plan_ints(plan)[0], stream_handle(ref))
-    _build.check(err, "correlation_volume")
-    count_launch(correlation_volume, form)
+    torch_ops.load_cuda()
+    out = torch_ops.op("correlation_volume")(
+        ref, tgt, max_disp, num_groups, normalize, round_products,
+        list(plan.ints()))
+    count_launch(correlation_volume,
+                 volume_form(ref.dtype, normalize, round_products))
     return out
 
 

@@ -28,12 +28,14 @@ the volume in kernel B's bf16 rounding, then C's bf16 form, so its plain
 version is B's plain bf16 form followed by C's, and the kernel equals that
 pair without ever holding the volume.
 
-On CUDA, C's wrapper launches the shared conv3d kernel twice (G -> 8, then
-8 -> 8; G = 32 for gwc, 1 for norm-correlation), with the 8-channel
-intermediate in device memory (bf16 in the deploy forms). E's launches
-the volume + group_stem kernel (``csrc/fused_volume_agg.cu``: the same
-conv, on the tensor cores in the bf16 forms, with its slab built from the
-descriptors), laid out by ``volume_plan`` as ``conv_plan`` lays out C's
+C's wrapper calls the shared conv's wrappers twice (G -> 8, then 8 -> 8;
+G = 32 for gwc, 1 for norm-correlation) on both devices, so that an
+exported graph holds their operators: on CUDA two launches of the shared
+conv3d kernel, with the 8-channel intermediate in device memory (bf16 in
+the deploy forms), on the CPU the two layers of ``stem_agg_plain``. E's
+launches the volume + group_stem kernel (``csrc/fused_volume_agg.cu``: the
+same conv, on the tensor cores in the bf16 forms, with its slab built from
+the descriptors), laid out by ``volume_plan`` as ``conv_plan`` lays out C's
 group_stem, then C's 8 -> 8 conv; it reads the two descriptor maps and
 never allocates the volume. Its normalised form first writes the two
 L2-normalised maps into scratch (fp32, from fp32 or bf16 descriptors) with
@@ -152,9 +154,10 @@ def _out_dtype(vol: torch.Tensor, out_dtype) -> torch.dtype:
 def stem_agg(vol: torch.Tensor, consts: dict, approximate: bool,
              out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """(B, G, D, H, W) -> (B, 8, D, H, W), G = 32 (group_stem) or 1
-    (corr_stem): the kernel on CUDA tensors, the plain version on CPU
-    tensors. An fp32 volume takes fp32 ``consts``; a bf16 or an int8 one
-    (the deploy forms) takes ``prepare_consts(..., low_precision=True)``,
+    (corr_stem): the shared conv twice, its kernel on CUDA tensors and its
+    plain version on CPU tensors. An fp32 volume takes fp32 ``consts``; a
+    bf16 or an int8 one (the deploy forms) takes ``prepare_consts(...,
+    low_precision=True)``,
     through ``with_input_scale`` for int8, and writes bf16 or, from int8,
     ``out_dtype``."""
     if vol.ndim != 5:
@@ -164,9 +167,8 @@ def stem_agg(vol: torch.Tensor, consts: dict, approximate: bool,
         raise TypeError(f"stem_agg: a {vol.dtype} volume with "
                         f"{consts['w1'].dtype} weights")
     out = _out_dtype(vol, out_dtype)
-    if not on_cuda("stem_agg", vol, *consts.values(),
-                   dtypes=(torch.float32, torch.bfloat16, torch.int8)):
-        return stem_agg_plain(vol, consts, approximate, out_dtype)
+    card = on_cuda("stem_agg", vol, *consts.values(),
+                   dtypes=(torch.float32, torch.bfloat16, torch.int8))
     if form == "fp32":
         y = conv3d_bn_gelu(vol, consts["w1"], consts["t1"], 1, approximate)
         y = conv3d_bn_gelu(y, consts["w2"], consts["t2"], 1, approximate)
@@ -175,7 +177,8 @@ def stem_agg(vol: torch.Tensor, consts: dict, approximate: bool,
                                 consts["t1"], torch.bfloat16, approximate)
         y = conv3d_bn_gelu_bf16(y, consts["w2"], consts["s2"], consts["t2"],
                                 out, approximate)
-    count_launch(stem_agg, form)
+    if card:
+        count_launch(stem_agg, form)
     return y
 
 

@@ -24,23 +24,24 @@ model casts the kernel's output to its compute dtype
 (``esmstereo_tpu/backbones/fused.py:174-175``). ``stage0_plan`` lays a call
 out (tiles, grid, threads, shared memory, workspace); the C entry point
 refuses any other layout.
+
+The wrapper calls the operator ``esmstereo::fused_stage0``
+(``torch_ops.py``) on the image and the packed weights: its CUDA kernel is
+``csrc/torch_ops.cpp``'s, which launches this kernel; its CPU kernel
+unpacks the weights by form (``unpack_params``) and runs the plain
+version.
 """
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import functools
 
 import torch
 import torch.nn.functional as F
 
-from esmstereo_tpu_torch.ops.kernels import (_build, count_launch, on_cuda,
-                                             stream_handle)
+from esmstereo_tpu_torch.ops.kernels import count_launch, on_cuda, torch_ops
 from esmstereo_tpu_torch.ops.kernels.fused_hourglass import SMEM_MAX, SMS
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
 
 _DW_KEYS = ("dw_w", "dw_b")
 _SE_KEYS = ("se_w1", "se_b1", "se_w2", "se_b2")
@@ -100,6 +101,31 @@ def pack_params(consts: dict) -> torch.Tensor:
     for blk in consts["blocks"]:
         parts += [blk[k] for k in _block_keys(blk)]
     return torch.cat([p.reshape(-1) for p in parts]).contiguous()
+
+
+def unpack_params(name: str, packed: torch.Tensor) -> dict:
+    """``pack_params`` undone for the form ``name`` of ``FORMS``: the
+    consts ``stage0_plain`` takes (views into ``packed``)."""
+    _, act, layout = FORMS[name]
+    shapes = [("stem_w", (32, 3, 3, 3)), ("stem_b", (32,))]
+    for i, (c, r, o, _) in enumerate(layout):
+        shapes += [((i, "dw_w"), (c, 3, 3)), ((i, "dw_b"), (c,))]
+        if r:
+            shapes += [((i, "se_w1"), (r, c)), ((i, "se_b1"), (r,)),
+                       ((i, "se_w2"), (c, r)), ((i, "se_b2"), (c,))]
+        shapes += [((i, "pw_w"), (o, c)), ((i, "pw_b"), (o,))]
+    sizes = [torch.Size(shape).numel() for _, shape in shapes]
+    if packed.numel() != sum(sizes):
+        raise ValueError(f"fused_stage0: {packed.numel()} packed parameters, "
+                         f"the {name} form has {sum(sizes)}")
+    blocks = [{"residual": res} for *_, res in layout]
+    consts = {"blocks": blocks, "act": act}
+    for (key, shape), part in zip(shapes, packed.split(sizes)):
+        if isinstance(key, tuple):
+            blocks[key[0]][key[1]] = part.view(shape)
+        else:
+            consts[key] = part.view(shape)
+    return consts
 
 
 # The launch layout (``csrc/fused_head.cu`` has the same constants): tiles
@@ -174,19 +200,21 @@ def stage0_plan(form: str, batch: int, hi: int, wi: int) -> Stage0Plan:
     return Stage0Plan(form, STAGE0_TILE, grid, STAGE0_THREADS, smem, work)
 
 
-# csrc/fused_head.cu's fused_stage0(form, img, params, out, ws, B, Hi, Wi,
-# out_bf16, grid, threads, smem, ws_floats, stream)
-STAGE0_ARGTYPES = [_I, _P, _P, _P, _P] + [_I] * 7 + [ctypes.c_longlong, _P]
+def _op_plain(img, params, form, out_bf16, plan):
+    """``esmstereo::fused_stage0``'s CPU kernel: the plain version, in the
+    image's dtype or bf16."""
+    name = next(n for n, f in FORMS.items() if f[0] == form)
+    out = stage0_plain(img, unpack_params(name, params))
+    return out.to(torch.bfloat16) if out_bf16 else out
 
 
-@functools.cache
-def _lib():
-    lib = _build.load("fused_head")
-    lib.fused_stage0.argtypes = STAGE0_ARGTYPES
-    lib.fused_stage0.restype = _I
-    lib.stage0_params_size.argtypes = [_I]
-    lib.stage0_params_size.restype = _I
-    return lib
+def _op_fake(img, params, form, out_bf16, plan):
+    b, _, h, w = img.shape
+    return img.new_empty((b, 16, h // 2, w // 2),
+                         dtype=torch.bfloat16 if out_bf16 else img.dtype)
+
+
+torch_ops.register("fused_stage0", _op_plain, _op_fake)
 
 
 _OUT_DTYPES = {torch.float32: "fp32", torch.bfloat16: "bf16"}
@@ -208,28 +236,18 @@ def fused_stage0(img: torch.Tensor, consts: dict,
                         f"not {out_dtype}")
     tensors = [consts["stem_w"], consts["stem_b"], consts["packed"]] + [
         b[k] for b in consts["blocks"] for k in _block_keys(b)]
-    if not on_cuda("fused_stage0", img, *tensors):
-        return stage0_plain(img, consts).to(out_dtype)
+    card = on_cuda("fused_stage0", img, *tensors)
     name = kernel_form(consts)
-    form = FORMS[name][0]
-    lib = _lib()
-    params = consts["packed"]
-    if params.numel() != lib.stage0_params_size(form):
-        raise ValueError(f"fused_stage0: packed parameters {params.numel()}, "
-                         f"the kernel's form reads "
-                         f"{lib.stage0_params_size(form)}")
-    b, _, h, w = img.shape
-    plan = stage0_plan(name, b, h, w)
-    ws = torch.empty(plan.workspace, device=img.device, dtype=torch.float32)
-    out = torch.empty((b, 16, h // 2, w // 2), device=img.device,
-                      dtype=out_dtype)
-    bf16 = out_dtype == torch.bfloat16
-    err = lib.fused_stage0(form, img.data_ptr(), params.data_ptr(),
-                           out.data_ptr(), ws.data_ptr(), b, h, w, int(bf16),
-                           plan.grid, plan.threads, plan.smem, plan.workspace,
-                           stream_handle(img))
-    _build.check(err, "fused_stage0")
-    count_launch(fused_stage0, _OUT_DTYPES[out_dtype])
+    plan = ()
+    if card:
+        b, _, h, w = img.shape
+        p = stage0_plan(name, b, h, w)
+        plan = (p.grid, p.threads, p.smem, p.workspace)
+        torch_ops.load_cuda()
+    out = torch_ops.op("fused_stage0")(img, consts["packed"], FORMS[name][0],
+                                       out_dtype != img.dtype, list(plan))
+    if card:
+        count_launch(fused_stage0, _OUT_DTYPES[out_dtype])
     return out
 
 

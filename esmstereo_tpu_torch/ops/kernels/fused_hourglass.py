@@ -41,7 +41,13 @@ the deploy form on the tensor cores, the fp32 form as FMA. Any width runs
 1x1x1 convs tile output channels by 8 and mask the last tile, the 1x1x1
 conv at most 128 output channels; ``up_cat_bf16`` takes the up levels'
 widths of L, M and S (``UP_N_TILES``: 9 to 16, 17 to 24 and 33 to 40
-output channels) as ``up_plan`` lays them out.
+output channels) as ``up_plan`` lays them out. The two conv wrappers call
+the operators ``esmstereo::conv3d_bn_gelu`` and ``::conv3d_bn_gelu_bf16``
+(``torch_ops.py``) with ``conv_plan``'s ints: on CUDA tensors their
+kernels in ``csrc/torch_ops.cpp`` launch this source's conv, on CPU
+tensors their CPU kernels are the plain versions (``conv3d_bn_gelu_plain``,
+``conv3d_bn_gelu_bf16_plain``), so kernel C's wrapper takes one route on
+both devices. The other launches of this source stay ctypes calls.
 """
 
 from __future__ import annotations
@@ -55,7 +61,8 @@ import torch.nn.functional as F
 
 from esmstereo_tpu_torch.nn.blocks import bn_scale_shift, fold_bn
 from esmstereo_tpu_torch.ops.kernels import (_build, count_launch, on_cuda,
-                                             refuse_autograd, stream_handle)
+                                             refuse_autograd, stream_handle,
+                                             torch_ops)
 from esmstereo_tpu_torch.ops.kernels.activations import gelu
 
 _P = ctypes.c_void_p
@@ -387,17 +394,6 @@ def conv_plan(form: str, ci: int, co: int, d: int, h: int, w: int,
                                  _cdiv(SMS, plan.blocks)))
 
 
-@functools.lru_cache(maxsize=None)
-def _launch_ints(form: str, b: int, ci: int, co: int, d: int, h: int,
-                 w: int, stride: int, approximate: bool):
-    """The C entry points' plan argument for one call signature: the
-    address of ``conv_plan``'s ints, the array itself (kept alive here),
-    and the output's (D, H, W)."""
-    ints = conv_plan(form, ci, co, d, h, w, stride).ints(b, approximate)
-    out = tuple((n - 1) // stride + 1 for n in (d, h, w))
-    return ctypes.addressof(ints), ints, out
-
-
 # --- the launch plan of H's fused deploy kernel ------------------------------
 
 # its tiles, (rows, depths) of 16 columns of the half-resolution grid (all
@@ -500,39 +496,105 @@ def _up_ints(b: int, shape: tuple, approximate: bool):
 @functools.cache
 def _fns():
     lib = _build.load("fused_hourglass")
-    conv = lib.conv3d_k3_bn_gelu
-    conv.argtypes = [_P] * 6
     deconv = lib.hourglass_deconv
     deconv.argtypes = [_P, _P, _P, _P] + [_I] * 10 + [_P]
     cat = lib.hourglass_conv1x1_cat
     cat.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
-    lowp = lib.conv3d_k3_bn_gelu_bf16
-    lowp.argtypes = [_P] * 7
     up_cat = lib.hourglass_up_cat_bf16
     up_cat.argtypes = [_P] * 11
-    for fn in (conv, deconv, cat, lowp, up_cat):
+    for fn in (deconv, cat, up_cat):
         fn.restype = _I
-    return conv, deconv, cat, lowp, up_cat
+    return deconv, cat, up_cat
+
+
+@functools.lru_cache(maxsize=None)
+def conv_ints(form: str, b: int, ci: int, co: int, d: int, h: int, w: int,
+              stride: int, approximate: bool) -> tuple:
+    """The conv operators' ``plan`` argument for one call signature:
+    ``conv_plan``'s 16 ints (``ConvPlan.ints``)."""
+    return tuple(conv_plan(form, ci, co, d, h, w, stride).ints(b,
+                                                               approximate))
+
+
+def conv3d_bn_gelu_plain(x: torch.Tensor, w: torch.Tensor, t: torch.Tensor,
+                         stride: int, approximate: bool) -> torch.Tensor:
+    """Plain version of the fp32 conv: conv3d k3 p1 with the folded shift
+    as its bias, then GELU."""
+    return gelu(F.conv3d(x, w, t, stride=stride, padding=1), approximate)
+
+
+def conv3d_bn_gelu_bf16_plain(x: torch.Tensor, w: torch.Tensor,
+                              scale: torch.Tensor, shift: torch.Tensor,
+                              out_dtype: torch.dtype, approximate: bool,
+                              stride: int = 1) -> torch.Tensor:
+    """Plain version of the deploy forms: the conv on the operands widened
+    to fp32 (bf16 or int8 input, bf16 weights), the BN after the sum, GELU,
+    one rounding to ``out_dtype``."""
+    y = F.conv3d(x.float(), w.float(), stride=stride, padding=1)
+    return bn_gelu(y, scale, shift, approximate).to(out_dtype)
+
+
+def _conv_shape(x: torch.Tensor, w: torch.Tensor, stride: int) -> tuple:
+    b, _, d, h, wd = x.shape
+    return (b, w.shape[0], *((n - 1) // stride + 1 for n in (d, h, wd)))
+
+
+def _conv_op_plain(x, w, t, stride, approximate, plan):
+    """``esmstereo::conv3d_bn_gelu``'s CPU kernel."""
+    return conv3d_bn_gelu_plain(x, w, t, stride, approximate)
+
+
+def _conv_op_fake(x, w, t, stride, approximate, plan):
+    return x.new_empty(_conv_shape(x, w, stride))
+
+
+def _conv_bf16_op_plain(x, w, scale, shift, out_fp32, stride, approximate,
+                        plan):
+    """``esmstereo::conv3d_bn_gelu_bf16``'s CPU kernel: bf16 out, or fp32
+    with ``out_fp32``."""
+    return conv3d_bn_gelu_bf16_plain(x, w, scale, shift,
+                                     _conv_out_dtype(out_fp32), approximate,
+                                     stride)
+
+
+def _conv_bf16_op_fake(x, w, scale, shift, out_fp32, stride, approximate,
+                       plan):
+    if x.dtype not in (torch.bfloat16, torch.int8):
+        raise TypeError(f"conv3d bf16: takes bf16 or int8, not {x.dtype}")
+    return x.new_empty(_conv_shape(x, w, stride),
+                       dtype=_conv_out_dtype(out_fp32))
+
+
+def _conv_out_dtype(out_fp32: bool) -> torch.dtype:
+    return torch.float32 if out_fp32 else torch.bfloat16
+
+
+torch_ops.register("conv3d_bn_gelu", _conv_op_plain, _conv_op_fake)
+torch_ops.register("conv3d_bn_gelu_bf16", _conv_bf16_op_plain,
+                   _conv_bf16_op_fake)
 
 
 def conv3d_bn_gelu(x: torch.Tensor, w: torch.Tensor, t: torch.Tensor,
                    stride: int, approximate: bool) -> torch.Tensor:
-    """One launch of the fp32 conv3d k3 p1 (stride 1 or 2) + folded BN +
-    GELU on CUDA tensors, as ``conv_plan("fp32", ...)`` lays it out: the
-    conv of kernels C, E, G and H. ``w`` is ``(CO, CI, 3, 3, 3)`` with the
-    BN scale folded in, ``t`` the shift."""
-    refuse_autograd("conv3d", x, w, t)
+    """The fp32 conv3d k3 p1 (stride 1 or 2) + folded BN + GELU through
+    ``esmstereo::conv3d_bn_gelu``: one launch on CUDA tensors, as
+    ``conv_plan("fp32", ...)`` lays it out (the conv of kernels C, E, G
+    and H), the plain version on CPU tensors. ``w`` is ``(CO, CI, 3, 3,
+    3)`` with the BN scale folded in, ``t`` the shift."""
     b, ci, d, h, wd = x.shape
     co = w.shape[0]
     if w.shape != (co, ci, 3, 3, 3) or t.shape != (co,):
         raise ValueError(f"conv3d: weight {tuple(w.shape)} for {ci} inputs")
-    ints, _, out = _launch_ints("fp32", b, ci, co, d, h, wd, stride,
-                                bool(approximate))
-    y = torch.empty((b, co, *out), device=x.device, dtype=torch.float32)
-    err = _fns()[0](x.data_ptr(), w.data_ptr(), t.data_ptr(), y.data_ptr(),
-                    ints, stream_handle(x))
-    _build.check(err, "conv3d")
-    _count_conv(conv3d_bn_gelu, ("fp32", ci, co, d, h, wd, stride))
+    card = on_cuda("conv3d", x, w, t)
+    plan = ()
+    if card:
+        plan = conv_ints("fp32", b, ci, co, d, h, wd, stride,
+                         bool(approximate))
+        torch_ops.load_cuda()
+    y = torch_ops.op("conv3d_bn_gelu")(x, w, t, stride, bool(approximate),
+                                       list(plan))
+    if card:
+        _count_conv(conv3d_bn_gelu, ("fp32", ci, co, d, h, wd, stride))
     return y
 
 
@@ -546,14 +608,14 @@ _DEPLOY_FORMS = {(torch.bfloat16, torch.bfloat16): "bf16",
 def conv3d_bn_gelu_bf16(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                         shift: torch.Tensor, out_dtype: torch.dtype,
                         approximate: bool, stride: int = 1) -> torch.Tensor:
-    """One launch of the conv3d k3 p1 in its deploy form on CUDA tensors
+    """The conv3d k3 p1 in its deploy form through
+    ``esmstereo::conv3d_bn_gelu_bf16``: one launch on CUDA tensors
     (kernels C, E's agg, G and H), on the tensor cores as
-    ``conv_plan(form, ...)`` lays it out: ``x`` bf16 or int8, ``w``
-    ``(CO, CI, 3, 3, 3)`` bf16 (raw, BN not folded), fp32 sums, then
-    ``GELU(sum * scale + shift)`` in fp32, written in ``out_dtype`` (bf16
-    or fp32). bf16 -> bf16 takes stride 1 or 2 and any CO; the other forms
-    stride 1 and CO a multiple of 8."""
-    refuse_autograd("conv3d bf16", x, w, scale, shift)
+    ``conv_plan(form, ...)`` lays it out, the plain version on CPU
+    tensors: ``x`` bf16 or int8, ``w`` ``(CO, CI, 3, 3, 3)`` bf16 (raw, BN
+    not folded), fp32 sums, then ``GELU(sum * scale + shift)`` in fp32,
+    written in ``out_dtype`` (bf16 or fp32). bf16 -> bf16 takes stride 1 or
+    2 and any CO; the other forms stride 1 and CO a multiple of 8."""
     b, ci, d, h, wd = x.shape
     co = w.shape[0]
     if (w.shape != (co, ci, 3, 3, 3) or scale.shape != (co,)
@@ -568,13 +630,18 @@ def conv3d_bn_gelu_bf16(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"conv3d bf16: {x.dtype} -> {out_dtype} takes "
                          f"stride 1 and CO a multiple of 8; got stride "
                          f"{stride}, CO {co}")
-    ints, _, out = _launch_ints(form, b, ci, co, d, h, wd, stride,
-                                bool(approximate))
-    y = torch.empty((b, co, *out), device=x.device, dtype=out_dtype)
-    err = _fns()[3](x.data_ptr(), w.data_ptr(), scale.data_ptr(),
-                    shift.data_ptr(), y.data_ptr(), ints, stream_handle(x))
-    _build.check(err, "conv3d bf16")
-    _count_conv(conv3d_bn_gelu_bf16, (form, ci, co, d, h, wd, stride))
+    card = on_cuda("conv3d bf16", x, w, scale, shift,
+                   dtypes=(torch.bfloat16, torch.int8, torch.float32))
+    plan = ()
+    if card:
+        plan = conv_ints(form, b, ci, co, d, h, wd, stride,
+                         bool(approximate))
+        torch_ops.load_cuda()
+    y = torch_ops.op("conv3d_bn_gelu_bf16")(
+        x, w, scale, shift, out_dtype == torch.float32, stride,
+        bool(approximate), list(plan))
+    if card:
+        _count_conv(conv3d_bn_gelu_bf16, (form, ci, co, d, h, wd, stride))
     return y
 
 
@@ -600,7 +667,7 @@ def up_cat_bf16(src: torch.Tensor, skip: torch.Tensor, consts: dict,
         if consts[k].data_ptr() % 16:
             raise ValueError(f"up_cat_bf16: {k} is not 16-byte aligned")
     z = torch.empty_like(skip)
-    err = _fns()[4](src.data_ptr(), skip.data_ptr(), consts["wu"].data_ptr(),
+    err = _fns()[2](src.data_ptr(), skip.data_ptr(), consts["wu"].data_ptr(),
                     consts["su"].data_ptr(), consts["tu"].data_ptr(),
                     consts["wc"].data_ptr(), consts["sc"].data_ptr(),
                     consts["tc"].data_ptr(), z.data_ptr(), ints,
@@ -677,7 +744,7 @@ def up_pair(src: torch.Tensor, skip: torch.Tensor, consts: dict,
     if co > _MAX_CAT_CO:
         raise NotImplementedError(f"up_pair kernel takes at most "
                                   f"{_MAX_CAT_CO} channels; got {co}")
-    _, deconv, cat, _, _ = _fns()
+    deconv, cat, _ = _fns()
     approx = int(approximate)
     stream = stream_handle(src)
     up = torch.empty_like(skip)

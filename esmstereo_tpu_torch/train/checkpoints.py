@@ -71,6 +71,17 @@ def restore_checkpoint(path: str, state):
     return state, int(tree["epoch"]) + 1
 
 
+def save_weights(path: str, model: torch.nn.Module) -> str:
+    """Write ``model``'s parameters and buffers alone, as a bare
+    ``state_dict`` file that ``load_weights`` reads (the export CLI's
+    ``--loadckpt``); returns the path. Written beside and renamed, as
+    ``save_checkpoint``."""
+    tmp = path + ".tmp"
+    torch.save(model.state_dict(), tmp)
+    os.replace(tmp, path)
+    return path
+
+
 def load_weights(path: str, model: torch.nn.Module) -> torch.nn.Module:
     """Load the parameters and buffers of a checkpoint (or of a bare
     ``state_dict`` file) into ``model``, every name and shape matching;

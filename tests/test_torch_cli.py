@@ -34,9 +34,9 @@ torch = pytest.importorskip("torch")
 from PIL import Image  # noqa: E402
 
 from esmstereo_tpu.eval import runner as jrunner  # noqa: E402
-from esmstereo_tpu_torch.cli import (make_filelists, save_disp,  # noqa: E402
-                                     test_eth3d, test_kitti, test_mid,
-                                     train_kitti, train_sceneflow)
+from esmstereo_tpu_torch.cli import (export, make_filelists,  # noqa: E402
+                                     save_disp, test_eth3d, test_kitti,
+                                     test_mid, train_kitti, train_sceneflow)
 from esmstereo_tpu_torch.cli.common import build_config  # noqa: E402
 from esmstereo_tpu_torch.data import png  # noqa: E402
 from esmstereo_tpu_torch.data.io import pfm_imwrite  # noqa: E402
@@ -50,7 +50,9 @@ S_ARGS = ["--cpu", "--backbone", "mobilenetv2_100", "--cv_scale", "16",
 CLIS = {"make_filelists": make_filelists, "train_sceneflow": train_sceneflow,
         "train_kitti": train_kitti, "test_kitti": test_kitti,
         "save_disp": save_disp, "test_mid": test_mid,
-        "test_eth3d": test_eth3d}
+        "test_eth3d": test_eth3d, "export": export}
+# the JAX CLI of each port CLI whose name differs
+JAX_TOOLS = {"export": "export_stablehlo"}
 
 
 def _run(cli, *args: str) -> str:
@@ -324,7 +326,7 @@ def _options(parser: argparse.ArgumentParser) -> dict:
 def test_parser_matches_jax(name):
     """Every option string of the JAX CLI, with its default, choices,
     type and action, and none of the port's own."""
-    want = _options(_jax_parser(name))
+    want = _options(_jax_parser(JAX_TOOLS.get(name, name)))
     got = _options(CLIS[name].build_parser())
     assert got == want
 
@@ -337,6 +339,8 @@ def test_clis_refuse_without_card_or_cpu(kitti15_tree):
     with pytest.raises(RuntimeError, match="CUDA"):
         test_kitti.main([*S_ARGS[1:], "--datapath",
                          str(kitti15_tree / "training")])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        export.main([*S_ARGS[1:], "--height", "64", "--width", "96"])
     with pytest.raises(NotImplementedError, match="spatial_shards"):
         train_sceneflow.main([*S_ARGS, "--spatial_shards", "2"])
 

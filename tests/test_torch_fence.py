@@ -5,12 +5,15 @@ Parses every ``.py`` file of ``esmstereo_tpu_torch/`` and ``chip_smoke.py``
 with ``ast`` and fails on any import of ``jax``, ``flax``, ``jaxlib`` or
 ``esmstereo_tpu`` (the JAX package), of ``tools`` (the JAX CLIs), or of
 ``PIL`` or ``cv2`` (the port reads and writes PNG files itself,
-``data/png.py``), at any depth of the file.
+``data/png.py``), at any depth of the file. The port's C++ and CUDA
+sources, and the two sources of ``serving/src/`` its runner compiles in,
+include no OpenCV, PJRT or XLA header.
 """
 
 from __future__ import annotations
 
 import ast
+import re
 from pathlib import Path
 
 import pytest
@@ -19,6 +22,12 @@ ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "flax", "jaxlib", "esmstereo_tpu", "tools", "PIL", "cv2"}
 FILES = sorted((ROOT / "esmstereo_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
+NATIVE = sorted(p for ext in ("*.cc", "*.cpp", "*.cu", "*.cuh", "*.h")
+                for p in (ROOT / "esmstereo_tpu_torch").rglob(ext)) + [
+    ROOT / "serving" / "src" / "stereo_pipeline.cc",
+    ROOT / "serving" / "src" / "stereo_eval.cc"]
+FORBIDDEN_HEADERS = re.compile(r"#\s*include\s*[<\"](opencv|pjrt|xla)",
+                               re.IGNORECASE)
 
 
 def _imports(tree: ast.AST):
@@ -59,3 +68,15 @@ def test_fence_catches_image_libraries_and_tools():
                      "def f():\n    import cv2\n")
     found = {m.split(".")[0] for m in _imports(tree)}
     assert {"PIL", "tools", "cv2"} <= found <= FORBIDDEN
+
+
+@pytest.mark.parametrize("path", NATIVE, ids=lambda p: str(p.relative_to(ROOT)))
+def test_native_sources_include_no_forbidden_headers(path):
+    bad = FORBIDDEN_HEADERS.findall(path.read_text())
+    assert not bad, f"{path.relative_to(ROOT)} includes {bad}"
+
+
+def test_native_fence_catches_a_forbidden_header():
+    assert FORBIDDEN_HEADERS.search('#include <opencv2/opencv.hpp>')
+    assert FORBIDDEN_HEADERS.search('#include "pjrt_runner.h"')
+    assert not FORBIDDEN_HEADERS.search('#include "stereo_pipeline.h"')

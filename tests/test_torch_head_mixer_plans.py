@@ -35,6 +35,9 @@ from esmstereo_tpu_torch.ops.kernels.fused_hourglass import SMEM_MAX, SMS
 CSRC = Path(__file__).resolve().parents[1] / "esmstereo_tpu_torch" / "csrc"
 HEAD = (CSRC / "fused_head.cu").read_text()
 MIXER = (CSRC / "fused_mixer.cu").read_text()
+# kernel A launches through esmstereo::fused_stage0, whose CUDA kernel
+# declares the entry point it calls
+OPS = (CSRC / "torch_ops.cpp").read_text()
 SM_SMEM = 233472          # an H100 SM's shared memory, 1 KB a block reserved
 
 
@@ -125,9 +128,12 @@ def ctype_of(c: str):
 
 
 @pytest.mark.parametrize("src, fn, argtypes", [
-    (HEAD, "fused_stage0", fh.STAGE0_ARGTYPES),
+    (HEAD, "fused_stage0",
+     [ctype_of(c) for c in c_params(OPS, "fused_stage0")]),
     (MIXER, "fused_mixer", fm.MIXER_ARGTYPES)], ids=["A", "I"])
 def test_entry_point_arguments(src, fn, argtypes):
+    """The entry point's parameter types are the caller's: the declaration
+    in ``csrc/torch_ops.cpp`` (A), the ctypes argtypes (I)."""
     assert [ctype_of(c) for c in c_params(src, fn)] == list(argtypes)
 
 
